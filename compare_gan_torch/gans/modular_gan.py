@@ -1,0 +1,411 @@
+"""ModularGAN: the GAN trainer (counterpart of
+compare_gan_tpu/gans/modular_gan.py).
+
+One train step is `disc_iters` D sub-steps and one G sub-step, each on its
+own slice of a batch of `batch_size * (disc_iters + 1)`, then the EMA of G's
+weights (gated on `step >= ema_start_step`). Which forward commits which
+state follows the JAX trainer exactly:
+
+* the D sub-step's G forward commits G's state, unless the fakes were
+  precomputed by `experimental_joint_gen_for_disc` (one G forward over the
+  concatenated draws of all D sub-steps, committing G's state once);
+* the D sub-step's D forward commits D's state;
+* the G sub-step commits both G's state and the SN `u` of its D forward;
+* penalty forwards commit nothing (`core.no_state_updates`).
+
+The port updates weights, optimizer moments, state buffers and the EMA in
+place; `train_step` returns the same TrainState it was given.
+
+Mixed precision is explicit, as in `_cast_compute`: z and images are cast to
+`compute_dtype`, the ops follow their input's type, and parameters,
+optimizer moments, BN moments and losses stay f32. No autocast, so the f32
+CPU path and the bf16 GPU path are one code path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import inspect
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from compare_gan_torch import config as gin
+from compare_gan_torch import core
+from compare_gan_torch import utils
+from compare_gan_torch.gans import loss_lib, optimizers, penalty_lib
+from compare_gan_torch.gans.abstract_gan import AbstractGAN
+from compare_gan_torch.ops import rng
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Everything that persists across train steps (and into checkpoints).
+    `params()` and `state()` give the variables under their JAX names."""
+    generator: torch.nn.Module
+    discriminator: torch.nn.Module
+    ema_params: Dict[str, Tensor]       # EMA shadows of G ({} if unused)
+    g_opt: optimizers.AdamState
+    d_opt: optimizers.AdamState
+    step: int                           # G steps (tf global_step)
+    disc_step: int                      # D sub-steps
+    seed: int                           # base of the per-step draws
+
+    def params(self) -> Dict[str, Tensor]:
+        return {**self.generator.jax_variables()[0],
+                **self.discriminator.jax_variables()[0]}
+
+    def state(self) -> Dict[str, Tensor]:
+        return {**self.generator.jax_variables()[1],
+                **self.discriminator.jax_variables()[1]}
+
+
+@gin.configurable("ModularGAN",
+                  denylist=["dataset", "parameters", "model_dir", "device"])
+class ModularGAN(AbstractGAN):
+    """GAN with modular losses/penalties/architectures."""
+
+    def __init__(self, dataset, parameters, model_dir, device="cpu",
+                 deprecated_split_disc_calls=False,
+                 experimental_joint_gen_for_disc=False,
+                 experimental_force_graph_unroll=False,
+                 g_use_ema=False, ema_decay=0.9999, ema_start_step=40000,
+                 g_optimizer_fn=optimizers.adam_optimizer,
+                 d_optimizer_fn=None,
+                 g_lr=0.0002, d_lr=None,
+                 conditional=False, fit_label_distribution=False,
+                 compute_dtype=None,
+                 experimental_fake_only_g_loss=False):
+        super().__init__(dataset=dataset, parameters=parameters,
+                         model_dir=model_dir)
+        del experimental_force_graph_unroll  # Unrolled is the only way.
+        self._device = torch.device(device)
+        self._deprecated_split_disc_calls = deprecated_split_disc_calls
+        self._experimental_joint_gen_for_disc = experimental_joint_gen_for_disc
+        self._experimental_fake_only_g_loss = experimental_fake_only_g_loss
+        if experimental_fake_only_g_loss and "g_step" not in \
+                inspect.signature(self.create_loss).parameters:
+            raise ValueError(
+                f"{type(self).__name__}.create_loss does not support "
+                "experimental_fake_only_g_loss (no g_step parameter).")
+        self._g_use_ema = g_use_ema
+        self._ema_decay = ema_decay
+        self._ema_start_step = ema_start_step
+        self._g_optimizer_fn = g_optimizer_fn
+        self._d_optimizer_fn = d_optimizer_fn or g_optimizer_fn
+        self._g_lr = g_lr
+        self._d_lr = g_lr if d_lr is None else d_lr
+        if conditional and not dataset.num_classes:
+            raise ValueError(
+                f"Option 'conditional' selected but dataset {dataset.name} "
+                f"does not have labels.")
+        self._conditional = conditional
+        self._fit_label_distribution = fit_label_distribution
+        self._compute_dtype = (getattr(torch, compute_dtype)
+                               if isinstance(compute_dtype, str)
+                               else compute_dtype)
+        self._architecture = self._parameters["architecture"]
+        self._z_dim = self._parameters["z_dim"]
+        self._lambda = self._parameters["lambda"]
+        self._disc_iters = self._parameters.get("disc_iters", 1)
+        self._generator = None
+        self._discriminator = None
+
+    # -- properties --------------------------------------------------------
+
+    @property
+    def conditional(self):
+        return self._conditional
+
+    @property
+    def num_sub_steps(self):
+        return self._disc_iters + 1
+
+    @property
+    def z_dim(self):
+        return self._z_dim
+
+    @property
+    def device(self):
+        return self._device
+
+    @property
+    def generator(self):
+        from compare_gan_torch.architectures import GENERATORS
+        if self._generator is None:
+            if self._architecture not in GENERATORS:
+                raise NotImplementedError(
+                    f"Generator architecture {self._architecture} is not "
+                    f"ported.")
+            self._generator = GENERATORS[self._architecture](
+                image_shape=self._dataset.image_shape, z_dim=self._z_dim,
+                num_classes=self._num_classes(), device=self._device)
+        return self._generator
+
+    @property
+    def discriminator(self):
+        from compare_gan_torch.architectures import DISCRIMINATORS
+        if self._discriminator is None:
+            if self._architecture not in DISCRIMINATORS:
+                raise NotImplementedError(
+                    f"Discriminator architecture {self._architecture} is "
+                    f"not ported.")
+            self._discriminator = DISCRIMINATORS[self._architecture](
+                image_shape=self._dataset.image_shape,
+                num_classes=self._num_classes(), device=self._device)
+        return self._discriminator
+
+    def _num_classes(self):
+        return self._dataset.num_classes if self._conditional else None
+
+    # -- samplers ----------------------------------------------------------
+
+    @gin.configurable("z", denylist=["shape", "generator"])
+    def z_generator(self, shape, generator, distribution_fn=rng.uniform,
+                    minval=-1.0, maxval=1.0, stddev=1.0):
+        """Noise sampler, gin key `z.distribution_fn`."""
+        return utils.call_with_accepted_args(
+            distribution_fn, shape=shape, generator=generator, minval=minval,
+            maxval=maxval, stddev=stddev)
+
+    def _one_hot(self, labels):
+        if labels.dim() == 2:  # Soft labels pass through.
+            return labels.float()
+        return F.one_hot(labels.long(), self._dataset.num_classes).float()
+
+    def _cast_compute(self, x):
+        if self._compute_dtype is not None and x is not None and \
+                x.is_floating_point():
+            return x.to(self._compute_dtype)
+        return x
+
+    def draw_sub_step_inputs(self, batch_size, labels, seed, step, sub_step):
+        """z and sampled labels of one sub-step from the named streams of
+        (seed, step, sub_step)."""
+        gen = rng.stream(seed, step, sub_step, "z", self._device)
+        draws = {"z": self.z_generator([batch_size, self._z_dim], gen)}
+        if self.conditional:
+            if self._fit_label_distribution:
+                draws["sampled_labels"] = labels
+            else:
+                gen = rng.stream(seed, step, sub_step, "sampled_labels",
+                                 self._device)
+                draws["sampled_labels"] = rng.randint(
+                    [batch_size], 0, self._dataset.num_classes, gen)
+        return draws
+
+    def _to_device(self, x):
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.array(x))  # A writable host copy.
+        return x.to(self._device)
+
+    def _features(self, draws):
+        """Sub-step features from draws (numpy arrays or tensors)."""
+        features = {"z": self._cast_compute(self._to_device(draws["z"]))}
+        if self.conditional:
+            features["sampled_labels"] = self._to_device(
+                draws["sampled_labels"])
+        return features
+
+    # -- loss --------------------------------------------------------------
+
+    def _penalty_loss(self, images, generated, y, is_training):
+        """Penalty term; its D forwards commit no state."""
+
+        def d_logits_fn(xx):
+            with core.no_state_updates():
+                return self.discriminator(xx, y=y,
+                                          is_training=is_training)[1]
+
+        return penalty_lib.get_penalty_loss(
+            x=images, x_fake=generated, y=y, is_training=is_training,
+            d_logits_fn=d_logits_fn, device=self._device)
+
+    def create_loss(self, features, labels, is_training=True, g_step=False):
+        """D and G losses + lambda * penalty (modular_gan.py:256-330)."""
+        images = features["images"]
+        generated = features["generated"]
+        if self.conditional:
+            y = self._one_hot(labels)
+            sampled_y = self._one_hot(features["sampled_labels"])
+            all_y = torch.cat([y, sampled_y], dim=0)
+        else:
+            y = sampled_y = all_y = None
+
+        if g_step and self._experimental_fake_only_g_loss:
+            # D on the fakes only: exact for every loss_lib loss as long as
+            # D does not normalize by the batch's moments (modular_gan.py
+            # :100-113, :269-309).
+            with core.collect_tags() as tags:
+                d_fake, d_fake_logits, _ = self.discriminator(
+                    generated, y=sampled_y, is_training=is_training)
+            gen_prefix = self.generator.name + "/"
+            if any(t.rsplit("/", 1)[-1] == "batch_coupled"
+                   and not t.startswith(gen_prefix) for t in tags):
+                raise ValueError(
+                    "experimental_fake_only_g_loss requires a discriminator "
+                    "without batch-coupled normalization: this D normalizes "
+                    "by moments of the current batch, so the fake-only "
+                    "batch changes its output.")
+            _, _, _, g_loss = loss_lib.get_losses(
+                d_real=d_fake.detach(), d_fake=d_fake,
+                d_real_logits=d_fake_logits.detach(),
+                d_fake_logits=d_fake_logits)
+            zero = torch.zeros((), dtype=torch.float32, device=self._device)
+            return {"d_loss": zero, "g_loss": g_loss, "penalty_loss": zero}
+
+        if self._deprecated_split_disc_calls:
+            d_real, d_real_logits, _ = self.discriminator(
+                images, y=y, is_training=is_training)
+            d_fake, d_fake_logits, _ = self.discriminator(
+                generated, y=sampled_y, is_training=is_training)
+        else:
+            all_images = torch.cat([images, generated], dim=0)
+            d_all, d_all_logits, _ = self.discriminator(
+                all_images, y=all_y, is_training=is_training)
+            d_real, d_fake = torch.chunk(d_all, 2)
+            d_real_logits, d_fake_logits = torch.chunk(d_all_logits, 2)
+
+        d_loss, _, _, g_loss = loss_lib.get_losses(
+            d_real=d_real, d_fake=d_fake, d_real_logits=d_real_logits,
+            d_fake_logits=d_fake_logits)
+        penalty_loss = self._penalty_loss(images, generated, y, is_training)
+        d_loss = d_loss + self._lambda * penalty_loss
+        return {"d_loss": d_loss, "g_loss": g_loss,
+                "penalty_loss": penalty_loss}
+
+    # -- init --------------------------------------------------------------
+
+    def init_state(self, seed) -> TrainState:
+        """Build G and D on the device and fill every variable from its own
+        seeded stream (core.initialize)."""
+        g, d = self.generator, self.discriminator
+        for module, seed_name in ((g, "init/generator"),
+                                  (d, "init/discriminator")):
+            core.assign_scopes(module, module.name)
+            core.initialize(module, module.name,
+                            core.seed_for(seed, seed_name))
+        g_params, d_params = g.jax_variables()[0], d.jax_variables()[0]
+        g_tx, d_tx = self._make_optimizers()
+        return TrainState(
+            generator=g, discriminator=d,
+            ema_params=({k: v.detach().clone() for k, v in g_params.items()}
+                        if self._g_use_ema else {}),
+            g_opt=g_tx.init(g_params), d_opt=d_tx.init(d_params),
+            step=0, disc_step=0, seed=int(seed))
+
+    def _make_optimizers(self):
+        return (self._g_optimizer_fn(self._g_lr),
+                self._d_optimizer_fn(self._d_lr))
+
+    # -- training ----------------------------------------------------------
+
+    def _disc_sub_step(self, ts, images, labels, features, d_tx,
+                       precomputed_fake=None):
+        """One D training sub-step (modular_gan.py:386-420)."""
+        if precomputed_fake is None:
+            sampled_y = (self._one_hot(features["sampled_labels"])
+                         if self.conditional else None)
+            with torch.no_grad():
+                fake = self.generator(features["z"], y=sampled_y,
+                                      is_training=True)
+        else:
+            fake = precomputed_fake
+        features = dict(features, generated=fake.detach(),
+                        images=self._cast_compute(images))
+        losses = self.create_loss(features, labels, is_training=True)
+        d_params = self.discriminator.jax_variables()[0]
+        grads = torch.autograd.grad(losses["d_loss"], list(d_params.values()))
+        d_tx.step(d_params, dict(zip(d_params, grads)), ts.d_opt)
+        return losses
+
+    def _gen_sub_step(self, ts, images, labels, features, g_tx):
+        """The G training sub-step + EMA (modular_gan.py:422-459)."""
+        sampled_y = (self._one_hot(features["sampled_labels"])
+                     if self.conditional else None)
+        features = dict(features, images=self._cast_compute(images))
+        features["generated"] = self.generator(features["z"], y=sampled_y,
+                                               is_training=True)
+        losses = utils.call_with_accepted_args(
+            self.create_loss, features=features, labels=labels,
+            is_training=True, g_step=True)
+        g_params = self.generator.jax_variables()[0]
+        grads = torch.autograd.grad(losses["g_loss"], list(g_params.values()))
+        g_tx.step(g_params, dict(zip(g_params, grads)), ts.g_opt)
+        if self._g_use_ema:
+            # decay = ema_decay * (step >= start), in f32 as in JAX.
+            decay = np.float32(self._ema_decay) * np.float32(
+                ts.step >= self._ema_start_step)
+            with torch.no_grad():
+                names = list(ts.ema_params)
+                ema = [ts.ema_params[k] for k in names]
+                torch._foreach_mul_(ema, float(decay))
+                torch._foreach_add_(ema, torch._foreach_mul(
+                    [g_params[k].detach() for k in names],
+                    float(np.float32(1) - decay)))
+        return losses
+
+    def make_train_step(self, batch_size):
+        """`train_step(ts, batch, draws=None) -> (ts, metrics)`. `batch`
+        holds images/labels of leading dim batch_size * num_sub_steps;
+        `draws`, when given, is one {"z", "sampled_labels"} dict per
+        sub-step that replaces the port's own draws (used by parity
+        tests)."""
+        g_tx, d_tx = self._make_optimizers()
+        num_sub_steps = self.num_sub_steps
+
+        def train_step(ts: TrainState, batch,
+                       draws: Optional[List[Dict]] = None):
+            images = self._to_device(batch["images"])
+            labels = self._to_device(batch["labels"])
+            if images.shape[0] != batch_size * num_sub_steps:
+                raise ValueError(f"Global batch {images.shape[0]} != "
+                                 f"{batch_size}*{num_sub_steps}")
+            images_s = torch.split(images, batch_size)
+            labels_s = torch.split(labels, batch_size)
+            if draws is None:
+                draws = [self.draw_sub_step_inputs(batch_size, labels_s[i],
+                                                   ts.seed, ts.step, i)
+                         for i in range(num_sub_steps)]
+            features = [self._features(d) for d in draws]
+            metrics = {}
+
+            fakes = [None] * self._disc_iters
+            if self._experimental_joint_gen_for_disc:
+                z = torch.cat([f["z"] for f in features[:-1]], dim=0)
+                y = (self._one_hot(torch.cat(
+                    [f["sampled_labels"] for f in features[:-1]], dim=0))
+                    if self.conditional else None)
+                with torch.no_grad():
+                    joint = self.generator(z, y=y, is_training=True)
+                fakes = list(torch.split(joint, batch_size))
+
+            for i in range(self._disc_iters):
+                losses = self._disc_sub_step(
+                    ts, images_s[i], labels_s[i], features[i], d_tx,
+                    precomputed_fake=fakes[i])
+                metrics[f"loss/d_{i}"] = losses["d_loss"].detach()
+                if i == 0:
+                    metrics["loss/penalty"] = losses["penalty_loss"].detach()
+
+            losses = self._gen_sub_step(ts, images_s[-1], labels_s[-1],
+                                        features[-1], g_tx)
+            metrics["loss/g"] = losses["g_loss"].detach()
+            ts.step += 1
+            ts.disc_step += self._disc_iters
+            return ts, metrics
+
+        return train_step
+
+    # -- input -------------------------------------------------------------
+
+    def input_batches(self, batch_size, skip_batches=0):
+        """Host iterator of numpy {images, labels} batches of
+        batch_size * num_sub_steps."""
+        return self._dataset.train_input_fn(
+            batch_size * self.num_sub_steps, host_id=0,
+            skip_batches=skip_batches)

@@ -8,7 +8,8 @@ setup(
     description=("TPU-native (JAX/XLA) rebuild of compare_gan: "
                  "gin-configurable GAN training and evaluation."),
     packages=find_packages(exclude=["tests"]),
-    package_data={"compare_gan_tpu.native": ["dataio.cc"]},
+    package_data={"compare_gan_tpu.native": ["dataio.cc"],
+                  "compare_gan_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
