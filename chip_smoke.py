@@ -12,8 +12,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. Kernels: the attention forward and backward kernels against their plain
    PyTorch versions at the two main-path shapes (BigGAN-128 G after B4 and
    D after B1, batch 32), in f32 and bf16. Prints each tensor's max abs and
-   relative error with its tolerance, and the time per call of the kernel
-   and of the plain version (CUDA events, 20 calls after a warm-up).
+   relative error with its tolerance; the time per call of the kernel, of
+   the plain version and of the library call that computes the same
+   function (torch's scaled_dot_product_attention with one head and
+   scale 1, forward, and its backward through torch.autograd.grad; the
+   port never calls it), with the SDPA backend that served it (CUDA
+   events, 20 calls after a warm-up); and each kernel's bound (the least
+   time the card could take: its operations over the peak rate for the
+   input type, or its bytes over the memory rate, whichever is larger)
+   with the kernel's share of it.
 4. Main path: 3 BigGAN-128 training steps at full width through the port's
    CLI (compare_gan_torch.main.main) with the benchmark options: batch 16,
    bf16 activations, joint G forward for the D sub-steps, fake-only G loss,
@@ -23,9 +30,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    (launch counters reset to 0 just before it), and that G's samples are
    finite images in [0, 1]. Prints losses, counters, seconds per step
    after the first, and peak device memory.
-5. Prints one JSON line describing each kernel ("ms"/"plain_ms": one call
-   at each of the two main-path shapes in bf16, summed), then, as the last
-   line, {"ok": true, "device": {...}}.
+5. Prints one JSON line describing each kernel ("ms", "plain_ms",
+   "library_ms", "bound_ms": one call at each of the two main-path shapes
+   in bf16, summed), then, as the last line, {"ok": true, "device": {...}}.
 """
 
 import json
@@ -44,6 +51,13 @@ SHAPES = {"G_B4": (32, 4096, 1024, 24, 96), "D_B1": (32, 4096, 1024, 12, 48)}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 G_PARAMS, D_PARAMS = 70433988, 87982370
 STEPS = 3
+# Published peaks of one H100 SXM (dense): tensor-core bf16, float32 outside
+# the tensor cores, and the memory rate.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
+# torch.nn.attention.SDPBackend by value.
+SDPA_BACKENDS = {0: "math", 1: "flash", 2: "efficient", 3: "cudnn",
+                 4: "overrideable"}
 
 
 def _phase(name):
@@ -104,13 +118,47 @@ def _errors(torch, got, want, tol, what):
     return max_abs
 
 
+def bounds_ms(shape, dtype_name):
+    """{kernel: (bound ms, "bytes" or "operations")} for one call at
+    `shape`: the forward's products S = theta.phi^T and O = P.g take
+    2*B*N*M*(C + Cg) flops; the backward's (S, dP = dout.g^T, dtheta,
+    dphi, dg) 2*B*N*M*(3C + 2Cg). Bytes: each input read once, each output
+    written once (mx, den, dphi, dg in f32)."""
+    b, n, m, c, cg = shape
+    e = 2 if dtype_name == "bfloat16" else 4
+    work = {
+        "fwd": (2 * b * n * m * (c + cg),
+                e * (b * n * c + b * m * (c + cg) + b * n * cg) + 8 * b * n),
+        "bwd": (2 * b * n * m * (3 * c + 2 * cg),
+                e * (2 * b * n * c + b * m * (c + cg) + b * n * cg)
+                + 8 * b * n + 4 * b * m * (c + cg)),
+    }
+    out = {}
+    for k, (flops, nbytes) in work.items():
+        t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES
+        out[k] = (1e3 * max(t_ops, t_bytes),
+                  "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def _sdpa_backend(torch, q, k, v):
+    try:
+        return SDPA_BACKENDS.get(int(torch._fused_sdp_choice(q, k, v,
+                                                             scale=1.0)),
+                                 "unknown")
+    except (AttributeError, RuntimeError, TypeError):
+        return "unknown"
+
+
 def compare_kernels(torch):
     """Kernel vs plain version per shape and type; returns per-kernel
-    max abs error and bf16 main-path times."""
+    max abs error and bf16 main-path times and bounds."""
     _phase("kernels")
     from compare_gan_torch.ops import fused_attention as fa
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = torch.device("cuda")
-    result = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    result = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                  "library_ms": 0.0, "bound_ms": 0.0, "bound_by": ""}
               for k in ("fwd", "bwd")}
     for name, (b, n, m, c, cg) in SHAPES.items():
         for dtype_name in ("float32", "bfloat16"):
@@ -151,22 +199,44 @@ def compare_kernels(torch):
                                                err)
             del plain, auto, leaves
 
+            # The library call: one head, scale 1, value width Cg != C.
+            q, k, v = (x.unsqueeze(1) for x in (theta, phi, g))
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            lib_out = sdpa(*leaves, scale=1.0)
+            lib_dout = dout.unsqueeze(1)
             times = {
                 "fwd": _time_ms(torch, lambda: fa.attention_fwd(theta, phi,
                                                                 g)),
                 "fwd_plain": _time_ms(torch, lambda: fa.attention_fwd_plain(
                     theta, phi, g)),
+                "fwd_library": _time_ms(torch, lambda: sdpa(q, k, v,
+                                                            scale=1.0)),
                 "bwd": _time_ms(torch, lambda: fa.attention_bwd(
                     theta, phi, g, dout, mx, den)),
                 "bwd_plain": _time_ms(torch, lambda: fa.attention_bwd_plain(
                     theta, phi, g, dout, mx, den)),
+                "bwd_library": _time_ms(torch, lambda: torch.autograd.grad(
+                    lib_out, leaves, grad_outputs=lib_dout,
+                    retain_graph=True)),
             }
             print("  ms/call " + " ".join(f"{k} {v:.4f}"
-                                          for k, v in times.items()))
+                                          for k, v in times.items())
+                  + f" (sdpa backend {_sdpa_backend(torch, q, k, v)})")
+            bounds = bounds_ms((b, n, m, c, cg), dtype_name)
+            for kern, (bound, by) in bounds.items():
+                print(f"  {kern} bound {bound:.4f} ms ({by}, "
+                      f"{PEAK_FLOPS[dtype_name] / 1e12:g} TFLOP/s, "
+                      f"{PEAK_BYTES / 1e12:g} TB/s): kernel at "
+                      f"{100 * bound / times[kern]:.1f}% of it")
             if dtype_name == "bfloat16":
-                for k in ("fwd", "bwd"):
-                    result[k]["ms"] += times[k]
-                    result[k]["plain_ms"] += times[k + "_plain"]
+                for kern in ("fwd", "bwd"):
+                    r = result[kern]
+                    r["ms"] += times[kern]
+                    r["plain_ms"] += times[kern + "_plain"]
+                    r["library_ms"] += times[kern + "_library"]
+                    r["bound_ms"] += bounds[kern][0]
+                    r["bound_by"] = bounds[kern][1]
+            del q, k, v, leaves, lib_out, lib_dout
             torch.cuda.empty_cache()
     return result
 
@@ -241,8 +311,7 @@ def run_main_path(torch, model_dir):
 
 
 def main():
-    if not os.path.isdir(os.path.join(ROOT, "compare_gan_torch")) or \
-            not os.path.isdir(os.path.join(ROOT, "compare_gan_tpu")):
+    if not os.path.isdir(os.path.join(ROOT, "compare_gan_torch")):
         raise SystemExit("chip_smoke: run from a checkout of the repository "
                          "(compare_gan_torch/ is missing).")
     sys.path.insert(0, ROOT)
@@ -263,9 +332,7 @@ def main():
     print(json.dumps({"kernels": [
         {"name": f"attention_{k}", "route": "cuda", "source": source,
          "replaces": replaces[k], "launches": launches[k],
-         "max_abs_err": kernels[k]["max_abs_err"],
-         "ms": kernels[k]["ms"], "plain_ms": kernels[k]["plain_ms"]}
-        for k in ("fwd", "bwd")]}))
+         **kernels[k]} for k in ("fwd", "bwd")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,9 +5,10 @@ its counterpart's name, its public layouts (images NHWC, attention operands
 [B, N, C], conv kernels HWIO in checkpoints) and its variable names, so each
 part can be held against the JAX function on the same inputs.
 
-The port imports torch and never jax. It reuses the JAX package's pure-numpy
-modules (datasets, hooks) and a second, independent instance of its gin
-implementation (`compare_gan_torch.config`).
+The port imports torch, never jax, and nothing of the JAX package: it keeps
+its own copies of the numpy and standard-library modules it needs (the gin
+implementation `config`, `datasets` with `polygons` and the native record
+reader, `hooks`), which the tests hold to the originals.
 
 The SAGAN attention of the non-local block, forward and backward, runs as
 hand-written CUDA kernels (`csrc/attention.cu`, built with nvcc at first use

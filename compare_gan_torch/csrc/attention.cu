@@ -1,5 +1,5 @@
 // SAGAN attention out = softmax(theta . phi^T) . g for the non-local block,
-// forward and backward, hand-written for Hopper (sm_90a).
+// forward and backward, hand-written for Hopper (sm_90a) on the tensor cores.
 //
 // Replaces the TPU kernels of compare_gan_tpu/ops/pallas_attention.py:
 //   attention_fwd_kernel       <- _fwd_kernel (via _attention_fwd_pallas)
@@ -10,257 +10,854 @@
 // row-major and contiguous. On the BigGAN-128 main path N = 4096, M = 1024,
 // (C, Cg) = (24, 96) after G's block B4 and (12, 48) after D's block B1.
 //
-// What bounds it on this card. The [B,N,M] score work is
-// N*M*(C + Cg) multiply-adds per example in the forward and about twice that
-// in each backward pass, against only (N*C + M*(C+Cg) + N*Cg) elements read
-// and written: a few hundred operations per byte, so the kernels are bound
-// by arithmetic, not by device memory, as long as the [B,N,M] scores never
-// leave the SM. C is 12 or 24, too shallow for a tensor-core MMA without
-// padding, so this first version runs the products as f32 FMAs on the CUDA
-// cores (wgmma with C padded to 16/32 is later work).
+// What bounds it on this card. The [B,N,M] score work is 2*N*M*(C + Cg)
+// flops per example in the forward and 2*N*M*(3C + 2Cg) in the backward,
+// against only (N*C + M*(C+Cg) + N*Cg) elements read and written: hundreds
+// of operations per byte, so the work is bound by arithmetic as long as the
+// scores never leave the SM. Two floors: the tensor cores (989 TFLOP/s bf16
+// dense) and the special-function units, which take B*N*M exponentials per
+// pass. C = 12 or 24 is shallow, so the score product is cheap next to the
+// exponentials; Cg = 48 or 96 makes the P.g product the larger matmul.
+// Measured on an H100 (tools/attention_variants.py, PERF.md), neither floor
+// is what holds these kernels back; the staging of the key (row) tiles
+// weighs most: every block re-reads its batch element's whole phi and g
+// (or theta and dout) from L2 into shared memory.
 //
-// Design. Every score, exponent and sum is f32, whatever the input type.
-//  * A group of kLanes = 4 consecutive threads owns one row (forward and
-//    backward row pass) or one column (backward column pass). Each lane keeps
-//    the whole C-vector for the score dot product (C is small), and a quarter
-//    of the Cg channels; dot products over Cg are summed across the four
-//    lanes with two xor-shuffles, which give all four lanes the same bits.
-//  * phi/g (or theta/dout) are staged through shared memory in tiles of
-//    kTile keys (rows), converted to f32 and zero-padded to the compile-time
-//    widths, so the inner loops are fully unrolled without bounds checks.
-//  * Forward: online softmax over M in chunks of kChunk keys (one rescale of
-//    the accumulator per chunk). It writes out = (sum_m e*g) / den in the
-//    input type and the final row max mx and denominator den in f32, exactly
-//    the statistics _fwd_kernel saves for the backward.
-//  * Backward: the TPU kernel accumulates dphi and dg across row tiles in
-//    grid order (pl.when(j == 0) zero-init); GPU blocks run in no order, so
-//    the work is split into two launches and uses no atomics, which keeps
-//    the gradients bitwise deterministic from run to run:
-//      1. rows: attn = exp(s - mx) / den, dattn = dout . g^T,
-//         row = sum_m dattn*attn (as _bwd_kernel:165; rowsum(dout*out) would
-//         be wrong for a bf16 out), and
-//         dtheta = sum_m attn*(dattn - row)*phi, accumulated in one pass as
-//         sum_m attn*dattn*phi - row * sum_m attn*phi.
+// Design (FlashAttention-2/3 on wgmma and mma.sync):
+//  * Every product runs on the tensor cores with bf16 operands and f32
+//    accumulation. C is zero-padded to CP = 16 or 32 (the MMA depth), Cg
+//    to GP (48, 96 or 128). A block is 8 warps, 128 rows, so each staged
+//    tile serves 128 rows; a warp owns 16 rows (or 16 keys in the
+//    backward column pass).
+//  * Forward: wgmma m64nNk16 per warpgroup of 4 warps (64 rows), A from
+//    registers, B from shared memory: S = theta.phi^T with N = 64 keys,
+//    then O += P.g with N = GP, the g tile read transposed. The key tiles
+//    are staged in wgmma's core-matrix layout (8 rows x 16 bytes a block).
+//  * Backward: mma.sync m16n8k16, whose 16-row fragments also fit the
+//    column pass's transposed products (dS^T.theta, P^T.dout); B fragments
+//    come from row-padded tiles (8 extra elements a row, free of bank
+//    conflicts) by ldmatrix, transposed for P.g-like products.
+//  * The key (or row) tiles of 64 are staged by cp.async into a two-buffer
+//    ring in shared memory, so the next tile's copy is in flight while the
+//    current one is consumed; rows beyond the edge are zero-filled by the
+//    copy itself.
+//  * Scores never leave the registers: the f32 accumulator fragment of
+//    S = theta.phi^T is exactly the A-operand layout of the next product
+//    (for wgmma as for mma.sync), so P (or dS) is rounded in registers and
+//    fed straight into O += P.g.
+//  * Exponentials are ex2.approx on scores pre-scaled by log2(e).
+//  * Forward: online softmax per 64-key tile, skipping the rescale of the
+//    accumulators once a warp's row maxima stop changing. It writes
+//    out = O/den in the input type and the row max mx and denominator den
+//    in f32, the statistics _fwd_kernel saves for the backward.
+//  * Backward, no atomics, so the gradients are bitwise deterministic run
+//    to run (bitwise resume needs this). The TPU kernel accumulates dphi
+//    and dg across row tiles in grid order; GPU blocks run in no order, so
+//    it is two launches:
+//      1. rows: recompute S and P = exp(S - mx)/den, dP = dout.g^T,
+//         row = sum_m P*dP (as _bwd_kernel:165; rowsum(dout*out) would be
+//         wrong for a bf16 out), and dtheta = (P*dP).phi - row*(P.phi),
+//         both products accumulated on the tensor cores in one sweep.
 //         It writes dtheta in the input type and row as [B,N] f32 scratch.
-//      2. columns: one group per key m loops over all N rows and accumulates
-//         dphi = sum_n attn*(dattn - row)*theta and dg = sum_n attn*dout in
-//         f32 registers; written once, in f32, as _bwd_kernel's outputs.
+//      2. columns: a warp owns 16 keys and loops over all N rows:
+//         S^T = phi.theta^T, dP^T = g.dout^T, dS^T = P^T*(dP^T - row),
+//         dphi += dS^T.theta and dg += P^T.dout in f32 registers, written
+//         once in f32 as _bwd_kernel's outputs.
+//  * Rounding: bf16 inputs make every MMA product exact in f32; the only
+//    rounding beyond the f32 sums is that of P to bf16 before O += P.g in
+//    the forward. The backward keeps P, P*dP and dS as bf16 hi + lo parts
+//    (two MMAs per product, about 2^-17 relative): its sums cancel where
+//    the attention is peaked (dtheta is the difference of two products;
+//    dphi and dg sum terms of either sign over all rows), and one bf16
+//    rounding per term there exceeds the 2e-2 tolerance. f32 inputs are
+//    split into bf16 hi + lo parts and each product takes four MMAs
+//    (lo.lo + lo.hi + hi.lo + hi.hi; what the split drops is about 2^-17
+//    relative per operand), so the f32 path keeps the 1e-4 agreement on
+//    the tensor cores with the same fragment layouts; it stages its tiles
+//    with plain loads (the split happens on the way into shared memory).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kLanes = 4;            // threads sharing one row or column
-constexpr int kGroups = 64;          // rows (or columns) per block
-constexpr int kThreads = kLanes * kGroups;
-constexpr int kTile = 64;            // keys (or rows) per shared-memory tile
-constexpr int kChunk = 16;           // keys per online-softmax rescale
+typedef __nv_bfloat16 bf16;
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;  // rows (column pass: keys) per block
+constexpr int kTile = 64;           // keys (column pass: rows) per staged tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Blocks each SM must hold, which caps the registers at 65536 / (256 * 2)
+// = 128 a thread: on an H100, 16 warps an SM at 128 registers ran faster
+// than the compiler's own choice of up to 255 registers (12 warps or
+// fewer). Only the f32 backward at Cg > 48 keeps the compiler's choice,
+// since at 128 registers it spills.
+constexpr int min_blocks(bool split, bool backward, int GP) {
+  return split && backward && GP > 48 ? 1 : 2;
+}
+
+template <typename T>
+struct Traits {
+  static constexpr bool kSplit = false;  // bf16 inputs: used as they are
+};
+template <>
+struct Traits<float> {
+  static constexpr bool kSplit = true;  // f32: hi/lo split, four MMAs
+};
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, long i, float v) { p[i] = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, long i, float v) {
+__device__ __forceinline__ void store(bf16* p, long i, float v) {
   p[i] = __float2bfloat16(v);
 }
 
-// Sum over the four lanes of a group; every lane gets the same bits.
-__device__ __forceinline__ float group_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
-  return v;
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// Stage rows [r0, r0 + kTile) of a [rows, width] matrix into a f32 tile of
-// kTile x CP, zero beyond `rows` and `width`.
-template <typename T, int CP>
-__device__ __forceinline__ void stage_full(float (*dst)[CP], const T* src,
-                                           int r0, int rows, int width) {
-  for (int idx = threadIdx.x; idx < kTile * CP; idx += kThreads) {
-    const int r = idx / CP, c = idx % CP, row = r0 + r;
-    dst[r][c] = (row < rows && c < width)
-                    ? to_f32(src[static_cast<long>(row) * width + c])
-                    : 0.f;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Operand fragments of mma.m16n8k16: bf16 pairs, `h` the value (or its hi
+// part), `l` the lo part (f32 inputs only).
+struct FragA {
+  uint32_t h[4], l[4];
+};
+struct FragB {
+  uint32_t h[2], l[2];
+};
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a.b, where an operand with kSplit* is the sum of its hi and lo
+// parts: the small terms go first.
+template <bool kSplitA, bool kSplitB = kSplitA>
+__device__ __forceinline__ void mma(float* c, const FragA& a,
+                                    const FragB& b) {
+  if (kSplitA && kSplitB) mma_bf16(c, a.l, b.l);
+  if (kSplitA) mma_bf16(c, a.l, b.h);
+  if (kSplitB) mma_bf16(c, a.h, b.l);
+  mma_bf16(c, a.h, b.h);
+}
+
+// (x, y) -> one bf16 pair (x in the low half), and with kSplit the pair of
+// remainders.
+template <bool kSplit>
+__device__ __forceinline__ void pack(float x, float y, uint32_t& h,
+                                     uint32_t& l) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  h = bits(v);
+  if (kSplit)
+    l = bits(__floats2bfloat162_rn(x - __low2float(v), y - __high2float(v)));
+}
+
+// The A fragment of a 16x16 block from two f32 accumulator fragments of
+// 16x8 (columns 0-7 in c0, 8-15 in c1): the accumulator layout of one
+// product is the A layout of the next.
+template <bool kSplit>
+__device__ __forceinline__ void acc_to_a(const float* c0, const float* c1,
+                                         FragA& a) {
+  pack<kSplit>(c0[0], c0[1], a.h[0], a.l[0]);
+  pack<kSplit>(c0[2], c0[3], a.h[1], a.l[1]);
+  pack<kSplit>(c1[0], c1[1], a.h[2], a.l[2]);
+  pack<kSplit>(c1[2], c1[3], a.h[3], a.l[3]);
+}
+
+// The A fragment of rows [r0, r0+16) x columns [k0, k0+16) of a row-major
+// [rows, width] matrix in device memory, zero outside it.
+template <typename T>
+__device__ __forceinline__ void load_a(const T* src, int r0, int rows,
+                                       int k0, int width, FragA& a) {
+  constexpr bool kSplit = Traits<T>::kSplit;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  auto at = [&](int r, int c) {
+    return (r < rows && c < width)
+               ? to_f32(src[static_cast<long>(r) * width + c])
+               : 0.f;
+  };
+  const int ra = r0 + g, rb = ra + 8, ca = k0 + 2 * t, cb = ca + 8;
+  pack<kSplit>(at(ra, ca), at(ra, ca + 1), a.h[0], a.l[0]);
+  pack<kSplit>(at(rb, ca), at(rb, ca + 1), a.h[1], a.l[1]);
+  pack<kSplit>(at(ra, cb), at(ra, cb + 1), a.h[2], a.l[2]);
+  pack<kSplit>(at(rb, cb), at(rb, cb + 1), a.h[3], a.l[3]);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t& r0,
+                                            uint32_t& r1, uint32_t& r2,
+                                            uint32_t& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t& r0,
+                                                  uint32_t& r1, uint32_t& r2,
+                                                  uint32_t& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr));
+}
+
+// B fragments (k x n = 16 x 8) of the two n-tiles [n0, n0+8) and
+// [n0+8, n0+16) of B[k][n] = tile[n0 + n][k0 + k]: a staged tile whose
+// rows are the product's n index (keys for S = theta.phi^T), one ldmatrix
+// for four 8x8 blocks.
+template <bool kSplit, int S>
+__device__ __forceinline__ void load_b_nk2(const bf16* hi, const bf16* lo,
+                                           int n0, int k0, FragB& b0,
+                                           FragB& b1) {
+  const int lane = threadIdx.x & 31;
+  const int off = (n0 + (lane & 7) + (lane >> 4) * 8) * S + k0 +
+                  ((lane >> 3) & 1) * 8;
+  ldmatrix_x4(smem_addr(hi + off), b0.h[0], b0.h[1], b1.h[0], b1.h[1]);
+  if (kSplit)
+    ldmatrix_x4(smem_addr(lo + off), b0.l[0], b0.l[1], b1.l[0], b1.l[1]);
+}
+
+// B fragments of the two n-tiles [n0, n0+8) and [n0+8, n0+16) of
+// B[k][n] = tile[k0 + k][n]: a staged tile whose rows are the product's k
+// index (keys for O += P.g), read transposed by ldmatrix.
+template <bool kSplit, int S>
+__device__ __forceinline__ void load_b_kn2(const bf16* hi, const bf16* lo,
+                                           int k0, int n0, FragB& b0,
+                                           FragB& b1) {
+  const int lane = threadIdx.x & 31;
+  const int off = (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * S + n0 +
+                  (lane >> 4) * 8;
+  ldmatrix_x4_trans(smem_addr(hi + off), b0.h[0], b0.h[1], b1.h[0], b1.h[1]);
+  if (kSplit)
+    ldmatrix_x4_trans(smem_addr(lo + off), b0.l[0], b0.l[1], b1.l[0],
+                      b1.l[1]);
+}
+
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool valid) {
+  const int n = valid ? kBytes : 0;  // 0: zero-fill, nothing read
+  if (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(n));
+  else if (kBytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// Stage rows [r0, r0 + kTile) of a row-major [rows, width] matrix into a
+// bf16 tile of row stride S, zero beyond `rows` (and, on the synchronous
+// path, beyond `width` up to W). bf16 with vec > 0: cp.async of vec bytes,
+// consecutive threads on consecutive chunks of the tile's contiguous rows
+// (the padding columns were zeroed once); otherwise plain loads, which
+// also split f32 into hi and lo tiles. A chunk's row comes from a multiply
+// by the reciprocal of the chunks per row, exact while idx < 2^32 / per_row,
+// in place of a division by that run-time count (some twenty instructions)
+// per chunk.
+template <typename T, int W, int S>
+__device__ __forceinline__ void stage(bf16* hi, bf16* lo, const T* src,
+                                      int r0, int rows, int width, int vec) {
+  if (!Traits<T>::kSplit && vec > 0) {
+    const int per_row = width * static_cast<int>(sizeof(T)) / vec;
+    const unsigned inv = 0xFFFFFFFFu / per_row + 1;  // idx / per_row, exact
+    for (int idx = threadIdx.x; idx < kTile * per_row; idx += kThreads) {
+      const int r = __umulhi(idx, inv), q = idx - r * per_row;
+      const bool ok = r0 + r < rows;
+      const char* s = reinterpret_cast<const char*>(
+                          src + static_cast<long>(ok ? r0 + r : 0) * width) +
+                      q * vec;
+      char* d = reinterpret_cast<char*>(hi + r * S) + q * vec;
+      if (vec == 16)
+        cp_async<16>(d, s, ok);
+      else if (vec == 8)
+        cp_async<8>(d, s, ok);
+      else
+        cp_async<4>(d, s, ok);
+    }
+    return;
+  }
+  for (int idx = threadIdx.x; idx < kTile * W; idx += kThreads) {
+    const int r = idx / W, c = idx - r * W;
+    const float v = (r0 + r < rows && c < width)
+                        ? to_f32(src[static_cast<long>(r0 + r) * width + c])
+                        : 0.f;
+    const bf16 h = __float2bfloat16(v);
+    hi[r * S + c] = h;
+    if (Traits<T>::kSplit)
+      lo[r * S + c] = __float2bfloat16(v - __bfloat162float(h));
   }
 }
 
-// Same for the wide operand, stored as kLanes slices of GL channels with a
-// slice stride of GL + 1 floats, so the four lanes of a group read from four
-// different banks.
-template <typename T, int GL>
-__device__ __forceinline__ void stage_sliced(float (*dst)[kLanes * (GL + 1)],
-                                             const T* src, int r0, int rows,
-                                             int width) {
-  for (int idx = threadIdx.x; idx < kTile * kLanes * GL; idx += kThreads) {
-    const int r = idx / (kLanes * GL), c = idx % (kLanes * GL);
-    const int row = r0 + r;
-    dst[r][(c / GL) * (GL + 1) + c % GL] =
-        (row < rows && c < width)
-            ? to_f32(src[static_cast<long>(row) * width + c])
-            : 0.f;
+// Stage kTile floats from src[r0...], zero beyond `rows`.
+__device__ __forceinline__ void stage_scalars(float* dst, const float* src,
+                                              int r0, int rows) {
+  for (int r = threadIdx.x; r < kTile; r += kThreads) {
+    const bool ok = r0 + r < rows;
+    cp_async<4>(dst + r, src + (ok ? r0 + r : 0), ok);
   }
 }
 
-template <typename T, int CP, int GL>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void zero(bf16* p, int n) {
+  for (int i = threadIdx.x; i < n; i += kThreads) p[i] = __float2bfloat16(0.f);
+}
+
+// wgmma (m64nNk16, f32 accumulate) with A from registers and B from shared
+// memory, for the forward. A warpgroup (4 warps) computes 64 rows; warp w
+// of it supplies and receives rows 16w..16w+15 in the same fragment layouts
+// as mma.sync m16n8k16, so the score accumulator is again the A operand of
+// the next product. B is read through a descriptor of a tile in the
+// no-swizzle core-matrix layout: 8 rows x 16 bytes contiguous per block,
+// `lbo` bytes between blocks along K, `sbo` along N. kTransB = 1 reads a
+// tile whose N index is contiguous (g for O += P.g).
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, int lbo,
+                                               int sbo) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Makes this thread's shared-memory writes visible to wgmma's reads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_n48(float* d, const uint32_t* a,
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, %30;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+        "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_n64(float* d, const uint32_t* a,
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+        "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_n96(float* d, const uint32_t* a,
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+        "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_n128(float* d, const uint32_t* a,
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+        "n"(kTransB));
+}
+
+template <int N, int kTransB>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t b, int scale_d) {
+  static_assert(N == 48 || N == 64 || N == 96 || N == 128, "wgmma width");
+  if (N == 48) wgmma_n48<kTransB>(d, a, b, scale_d);
+  if (N == 64) wgmma_n64<kTransB>(d, a, b, scale_d);
+  if (N == 96) wgmma_n96<kTransB>(d, a, b, scale_d);
+  if (N == 128) wgmma_n128<kTransB>(d, a, b, scale_d);
+}
+
+// d (+)= a.b with hi/lo parts as in mma(); scale_d = 0 overwrites d.
+template <bool kSplit, int N, int kTransB>
+__device__ __forceinline__ void wgmma_acc(float* d, const FragA& a,
+                                          uint64_t bh, uint64_t bl,
+                                          int scale_d) {
+  if (kSplit) {
+    wgmma_rs<N, kTransB>(d, a.l, bl, scale_d);
+    wgmma_rs<N, kTransB>(d, a.l, bh, 1);
+    wgmma_rs<N, kTransB>(d, a.h, bl, 1);
+    scale_d = 1;
+  }
+  wgmma_rs<N, kTransB>(d, a.h, bh, scale_d);
+}
+
+// Stage rows [r0, r0 + kTile) of a row-major [rows, width] matrix into a
+// bf16 tile in the core-matrix layout: byte b of row r at
+// (r % 8) * 16 + (b % 16) + (r / 8) * kRowGroup + (b / 16) * kColGroup,
+// zero beyond `rows` (and, on the synchronous path, beyond `width` up to
+// W). As stage(), with cp.async of vec bytes where it can.
+template <typename T, int W, int kRowGroup, int kColGroup>
+__device__ __forceinline__ void stage_cm(bf16* hi, bf16* lo, const T* src,
+                                         int r0, int rows, int width,
+                                         int vec) {
+  auto at = [](bf16* base, int r, int b) {
+    return reinterpret_cast<char*>(base) + (r % 8) * 16 + (b % 16) +
+           (r / 8) * kRowGroup + (b / 16) * kColGroup;
+  };
+  if (!Traits<T>::kSplit && vec > 0) {
+    const int per_row = width * static_cast<int>(sizeof(T)) / vec;
+    const unsigned inv = 0xFFFFFFFFu / per_row + 1;  // idx / per_row, exact
+    for (int idx = threadIdx.x; idx < kTile * per_row; idx += kThreads) {
+      const int r = __umulhi(idx, inv), q = idx - r * per_row;
+      const bool ok = r0 + r < rows;
+      const char* s = reinterpret_cast<const char*>(
+                          src + static_cast<long>(ok ? r0 + r : 0) * width) +
+                      q * vec;
+      char* d = at(hi, r, q * vec);
+      if (vec == 16)
+        cp_async<16>(d, s, ok);
+      else if (vec == 8)
+        cp_async<8>(d, s, ok);
+      else
+        cp_async<4>(d, s, ok);
+    }
+    return;
+  }
+  for (int idx = threadIdx.x; idx < kTile * W; idx += kThreads) {
+    const int r = idx / W, c = idx - r * W;
+    const float v = (r0 + r < rows && c < width)
+                        ? to_f32(src[static_cast<long>(r0 + r) * width + c])
+                        : 0.f;
+    const bf16 h = __float2bfloat16(v);
+    *reinterpret_cast<bf16*>(at(hi, r, 2 * c)) = h;
+    if (Traits<T>::kSplit)
+      *reinterpret_cast<bf16*>(at(lo, r, 2 * c)) =
+          __float2bfloat16(v - __bfloat162float(h));
+  }
+}
+
+// Shared-memory ring: two buffers for bf16 (cp.async overlap); one for f32,
+// whose hi and lo parts take the room of the second.
+template <typename T>
+struct Ring {
+  static constexpr bool kSplit = Traits<T>::kSplit;
+  static constexpr int kBuf = kSplit ? 1 : 2;
+  static constexpr int kParts = kSplit ? 2 : 1;
+};
+
+// Runs body(buf) once per tile j in [0, ntiles) after issue(j, buf) staged
+// tile j into buffer `buf`. bf16: tile j + 1 is in flight during tile j.
+template <typename T, typename Issue, typename Body>
+__device__ __forceinline__ void pipeline(int ntiles, Issue issue, Body body) {
+  if (Ring<T>::kBuf == 2) {
+    issue(0, 0);
+    cp_async_commit();
+    for (int j = 0; j < ntiles; ++j) {
+      if (j + 1 < ntiles) issue(j + 1, (j + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+      fence_proxy_async();
+      __syncthreads();
+      body(j, j & 1);
+      __syncthreads();  // buffer j & 1 is refilled at iteration j + 1
+    }
+  } else {
+    for (int j = 0; j < ntiles; ++j) {
+      issue(j, 0);
+      cp_async_commit();
+      cp_async_wait<0>();
+      fence_proxy_async();
+      __syncthreads();
+      body(j, 0);
+      __syncthreads();
+    }
+  }
+}
+
+template <typename T, int CP, int GP>
+__global__ void
+__launch_bounds__(kThreads, min_blocks(Traits<T>::kSplit, false, GP))
 attention_fwd_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
                      const T* __restrict__ g, T* __restrict__ out,
                      float* __restrict__ mx_out, float* __restrict__ den_out,
-                     int N, int M, int C, int Cg) {
-  constexpr int GLS = GL + 1;
-  __shared__ float phi_s[kTile][CP];
-  __shared__ float g_s[kTile][kLanes * GLS];
+                     int N, int M, int C, int Cg, int vec_c, int vec_g) {
+  using R = Ring<T>;
+  constexpr bool kSplit = R::kSplit;
+  // phi tiles are B of S = theta.phi^T with K = C contiguous; g tiles are
+  // B of O += P.g with N = Cg contiguous. In both, 8-key blocks run along
+  // the tile's rows.
+  constexpr int kPhiRowGroup = CP / 8 * 128, kGColGroup = kTile / 8 * 128;
+  __shared__ __align__(128) bf16 phi_s[R::kBuf][R::kParts][kTile * CP];
+  __shared__ __align__(128) bf16 g_s[R::kBuf][R::kParts][kTile * GP];
 
-  const int b = blockIdx.y;
-  const int lane = threadIdx.x % kLanes;
-  const int i = blockIdx.x * kGroups + threadIdx.x / kLanes;
-  const bool row_ok = i < N;
+  const int b = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3, r0 = blockIdx.x * kRows + warp * 16;
   const T* phi_b = phi + static_cast<long>(b) * M * C;
   const T* g_b = g + static_cast<long>(b) * M * Cg;
 
-  float th[CP];
-#pragma unroll
-  for (int c = 0; c < CP; ++c)
-    th[c] = (row_ok && c < C)
-                ? to_f32(theta[(static_cast<long>(b) * N + i) * C + c])
-                : 0.f;
-  float acc[GL];
-#pragma unroll
-  for (int k = 0; k < GL; ++k) acc[k] = 0.f;
-  float mx = -INFINITY, den = 0.f;
-
-  for (int j0 = 0; j0 < M; j0 += kTile) {
-    __syncthreads();  // The previous tile is consumed.
-    stage_full<T, CP>(phi_s, phi_b, j0, M, C);
-    stage_sliced<T, GL>(g_s, g_b, j0, M, Cg);
+  if (!kSplit) {  // padding columns stay zero; cp.async writes the rest
+    zero(&phi_s[0][0][0], static_cast<int>(sizeof(phi_s) / sizeof(bf16)));
+    zero(&g_s[0][0][0], static_cast<int>(sizeof(g_s) / sizeof(bf16)));
     __syncthreads();
-    const int nkeys = min(kTile, M - j0);
-    for (int k0 = 0; k0 < nkeys; k0 += kChunk) {
-      float s[kChunk];
-      float cmax = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        float v = 0.f;
-#pragma unroll
-        for (int c = 0; c < CP; ++c) v = fmaf(th[c], phi_s[k0 + jj][c], v);
-        s[jj] = (k0 + jj < nkeys) ? v : -INFINITY;
-        cmax = fmaxf(cmax, s[jj]);
-      }
-      // Key k0 is always valid, so new_mx is finite; exp(-inf) = 0 on the
-      // first chunk, where acc and den are still 0.
-      const float new_mx = fmaxf(mx, cmax);
-      const float scale = expf(mx - new_mx);
-      den *= scale;
-#pragma unroll
-      for (int k = 0; k < GL; ++k) acc[k] *= scale;
-#pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        const float p = expf(s[jj] - new_mx);
-        den += p;
-        const float* gr = &g_s[k0 + jj][lane * GLS];
-#pragma unroll
-        for (int k = 0; k < GL; ++k) acc[k] = fmaf(p, gr[k], acc[k]);
-      }
-      mx = new_mx;
-    }
   }
 
-  if (row_ok) {
-    const long base = (static_cast<long>(b) * N + i) * Cg + lane * GL;
+  FragA th[CP / 16];
 #pragma unroll
-    for (int k = 0; k < GL; ++k)
-      if (lane * GL + k < Cg) store(out, base + k, acc[k] / den);
-    if (lane == 0) {
-      mx_out[static_cast<long>(b) * N + i] = mx;
-      den_out[static_cast<long>(b) * N + i] = den;
+  for (int kc = 0; kc < CP / 16; ++kc)
+    load_a(theta + static_cast<long>(b) * N * C, r0, N, kc * 16, C, th[kc]);
+
+  float o[GP / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < GP / 8; ++nt)
+    o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  auto issue = [&](int j, int buf) {
+    stage_cm<T, CP, kPhiRowGroup, 128>(phi_s[buf][0],
+                                       phi_s[buf][R::kParts - 1], phi_b,
+                                       j * kTile, M, C, vec_c);
+    stage_cm<T, GP, 128, kGColGroup>(g_s[buf][0], g_s[buf][R::kParts - 1],
+                                     g_b, j * kTile, M, Cg, vec_g);
+  };
+  auto body = [&](int j, int buf) {
+    const bf16 *ph = phi_s[buf][0], *phl = phi_s[buf][R::kParts - 1];
+    const bf16 *gh = g_s[buf][0], *gl = g_s[buf][R::kParts - 1];
+    float s[kTile / 8][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < CP / 16; ++kc)
+      wgmma_acc<kSplit, kTile, 0>(
+          &s[0][0], th[kc],
+          wgmma_desc(ph + kc * 128, 128, kPhiRowGroup),
+          wgmma_desc(phl + kc * 128, 128, kPhiRowGroup), kc > 0);
+    wgmma_commit();
+    wgmma_wait();
+    const int key0 = j * kTile;
+    if (key0 + kTile > M) {
+#pragma unroll
+      for (int nt = 0; nt < kTile / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (key0 + nt * 8 + 2 * t + (e & 1) >= M) s[nt][e] = -INFINITY;
+    }
+    // Key key0 is valid, so each row's new max is finite; on the first
+    // tile ex2(-inf) = 0 rescales the (zero) accumulators.
+    float alpha[2], nb[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mt = m[i];
+#pragma unroll
+      for (int nt = 0; nt < kTile / 8; ++nt)
+        mt = fmaxf(mt, fmaxf(s[nt][2 * i], s[nt][2 * i + 1]));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      alpha[i] = ex2((m[i] - mt) * kLog2e);
+      m[i] = mt;
+      nb[i] = -mt * kLog2e;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = ex2(fmaf(s[nt][e], kLog2e, nb[e >> 1]));
+        rs[e >> 1] += s[nt][e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
+    // Once the row maxima settle, alpha is 1 for every row of the warp and
+    // the rescale (an identity) is skipped.
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int nt = 0; nt < GP / 8; ++nt) {
+        o[nt][0] *= alpha[0];
+        o[nt][1] *= alpha[0];
+        o[nt][2] *= alpha[1];
+        o[nt][3] *= alpha[1];
+      }
+    }
+    // All of P's fragments first: a register read by a wgmma in flight
+    // must not be rewritten before the wait.
+    FragA pa[kTile / 16];
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      acc_to_a<kSplit>(s[2 * kk], s[2 * kk + 1], pa[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      wgmma_acc<kSplit, GP, 1>(&o[0][0], pa[kk],
+                               wgmma_desc(gh + kk * 128, 128, kGColGroup),
+                               wgmma_desc(gl + kk * 128, 128, kGColGroup),
+                               1);
+    wgmma_commit();
+    wgmma_wait();
+  };
+  pipeline<T>((M + kTile - 1) / kTile, issue, body);
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + (lane >> 2) + 8 * i;
+    if (row >= N) continue;
+    const long base = (static_cast<long>(b) * N + row) * Cg;
+#pragma unroll
+    for (int nt = 0; nt < GP / 8; ++nt) {
+      const int c = nt * 8 + 2 * t;
+      if (c < Cg) store(out, base + c, o[nt][2 * i] / l[i]);
+      if (c + 1 < Cg) store(out, base + c + 1, o[nt][2 * i + 1] / l[i]);
+    }
+    if (t == 0) {
+      mx_out[static_cast<long>(b) * N + row] = m[i];
+      den_out[static_cast<long>(b) * N + row] = l[i];
     }
   }
 }
 
-template <typename T, int CP, int GL>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int CP, int GP>
+__global__ void
+__launch_bounds__(kThreads, min_blocks(Traits<T>::kSplit, true, GP))
 attention_bwd_rows_kernel(const T* __restrict__ theta,
                           const T* __restrict__ phi, const T* __restrict__ g,
                           const T* __restrict__ dout,
                           const float* __restrict__ mx,
                           const float* __restrict__ den,
                           T* __restrict__ dtheta, float* __restrict__ row_out,
-                          int N, int M, int C, int Cg) {
-  constexpr int GLS = GL + 1;
-  constexpr int CL = CP / kLanes;
-  __shared__ float phi_s[kTile][CP];
-  __shared__ float g_s[kTile][kLanes * GLS];
+                          int N, int M, int C, int Cg, int vec_c, int vec_g) {
+  using R = Ring<T>;
+  constexpr bool kSplit = R::kSplit;
+  constexpr int CS = CP + 8, GS = GP + 8;
+  __shared__ __align__(16) bf16 phi_s[R::kBuf][R::kParts][kTile * CS];
+  __shared__ __align__(16) bf16 g_s[R::kBuf][R::kParts][kTile * GS];
 
-  const int b = blockIdx.y;
-  const int lane = threadIdx.x % kLanes;
-  const int i = blockIdx.x * kGroups + threadIdx.x / kLanes;
-  const bool row_ok = i < N;
-  const long bi = static_cast<long>(b) * N + i;
+  const int b = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3, r0 = blockIdx.x * kRows + warp * 16;
   const T* phi_b = phi + static_cast<long>(b) * M * C;
   const T* g_b = g + static_cast<long>(b) * M * Cg;
 
-  float th[CP];
-#pragma unroll
-  for (int c = 0; c < CP; ++c)
-    th[c] = (row_ok && c < C) ? to_f32(theta[bi * C + c]) : 0.f;
-  float dor[GL];
-#pragma unroll
-  for (int k = 0; k < GL; ++k) {
-    const int c = lane * GL + k;
-    dor[k] = (row_ok && c < Cg) ? to_f32(dout[bi * Cg + c]) : 0.f;
+  if (!kSplit) {
+    zero(&phi_s[0][0][0], static_cast<int>(sizeof(phi_s) / sizeof(bf16)));
+    zero(&g_s[0][0][0], static_cast<int>(sizeof(g_s) / sizeof(bf16)));
+    __syncthreads();
   }
-  const float m_i = row_ok ? mx[bi] : 0.f;
-  const float den_i = row_ok ? den[bi] : 1.f;
 
-  float a_acc[CL], b_acc[CL];
+  FragA th[CP / 16], dO[GP / 16];
 #pragma unroll
-  for (int q = 0; q < CL; ++q) a_acc[q] = b_acc[q] = 0.f;
-  float row = 0.f;
+  for (int kc = 0; kc < CP / 16; ++kc)
+    load_a(theta + static_cast<long>(b) * N * C, r0, N, kc * 16, C, th[kc]);
+#pragma unroll
+  for (int kc = 0; kc < GP / 16; ++kc)
+    load_a(dout + static_cast<long>(b) * N * Cg, r0, N, kc * 16, Cg, dO[kc]);
+  // Rows beyond N: theta is zero there, so s = 0 and P = ex2(0) * 0 = 0.
+  float nb[2], inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + (lane >> 2) + 8 * i;
+    const bool ok = row < N;
+    nb[i] = ok ? -mx[static_cast<long>(b) * N + row] * kLog2e : 0.f;
+    inv[i] = ok ? 1.f / den[static_cast<long>(b) * N + row] : 0.f;
+  }
 
-  for (int j0 = 0; j0 < M; j0 += kTile) {
-    __syncthreads();
-    stage_full<T, CP>(phi_s, phi_b, j0, M, C);
-    stage_sliced<T, GL>(g_s, g_b, j0, M, Cg);
-    __syncthreads();
-    const int nkeys = min(kTile, M - j0);
-#pragma unroll 2
-    for (int j = 0; j < nkeys; ++j) {
-      float s = 0.f;
+  float a1[CP / 8][4], a2[CP / 8][4];  // (P*dP).phi and P.phi
 #pragma unroll
-      for (int c = 0; c < CP; ++c) s = fmaf(th[c], phi_s[j][c], s);
-      const float attn = expf(s - m_i) / den_i;
-      const float* gr = &g_s[j][lane * GLS];
-      float part = 0.f;
+  for (int nt = 0; nt < CP / 8; ++nt)
 #pragma unroll
-      for (int k = 0; k < GL; ++k) part = fmaf(dor[k], gr[k], part);
-      const float dattn = group_sum(part);
-      const float t = attn * dattn;
-      row += t;
-      const float* pr = &phi_s[j][lane * CL];
+    for (int e = 0; e < 4; ++e) a1[nt][e] = a2[nt][e] = 0.f;
+  float rsum[2] = {0.f, 0.f};
+
+  auto issue = [&](int j, int buf) {
+    stage<T, CP, CS>(phi_s[buf][0], phi_s[buf][R::kParts - 1], phi_b,
+                     j * kTile, M, C, vec_c);
+    stage<T, GP, GS>(g_s[buf][0], g_s[buf][R::kParts - 1], g_b, j * kTile, M,
+                     Cg, vec_g);
+  };
+  auto body = [&](int j, int buf) {
+    const bf16 *ph = phi_s[buf][0], *phl = phi_s[buf][R::kParts - 1];
+    const bf16 *gh = g_s[buf][0], *gl = g_s[buf][R::kParts - 1];
 #pragma unroll
-      for (int q = 0; q < CL; ++q) {
-        a_acc[q] = fmaf(t, pr[q], a_acc[q]);
-        b_acc[q] = fmaf(attn, pr[q], b_acc[q]);
+    for (int ks = 0; ks < kTile; ks += 16) {
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < CP / 16; ++kc) {
+        FragB b0, b1;
+        load_b_nk2<kSplit, CS>(ph, phl, ks, kc * 16, b0, b1);
+        mma<kSplit>(s[0], th[kc], b0);
+        mma<kSplit>(s[1], th[kc], b1);
+      }
+#pragma unroll
+      for (int kc = 0; kc < GP / 16; ++kc) {
+        FragB b0, b1;
+        load_b_nk2<kSplit, GS>(gh, gl, ks, kc * 16, b0, b1);
+        mma<kSplit>(dp[0], dO[kc], b0);
+        mma<kSplit>(dp[1], dO[kc], b1);
+      }
+      const int key0 = j * kTile + ks;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p =
+              key0 + nt * 8 + 2 * t + (e & 1) < M
+                  ? ex2(fmaf(s[nt][e], kLog2e, nb[e >> 1])) * inv[e >> 1]
+                  : 0.f;
+          s[nt][e] = p;
+          dp[nt][e] *= p;
+          rsum[e >> 1] += dp[nt][e];
+        }
+      // P and P*dP as hi + lo parts in every type: dtheta is the
+      // difference of the two products, which cancels where the attention
+      // is peaked, so one bf16 rounding of P*dP or P could outweigh it.
+      FragA pa, ta;
+      acc_to_a<true>(s[0], s[1], pa);
+      acc_to_a<true>(dp[0], dp[1], ta);
+#pragma unroll
+      for (int np = 0; np < CP / 16; ++np) {
+        FragB b0, b1;
+        load_b_kn2<kSplit, CS>(ph, phl, ks, np * 16, b0, b1);
+        mma<true, kSplit>(a1[2 * np], ta, b0);
+        mma<true, kSplit>(a1[2 * np + 1], ta, b1);
+        mma<true, kSplit>(a2[2 * np], pa, b0);
+        mma<true, kSplit>(a2[2 * np + 1], pa, b1);
       }
     }
-  }
+  };
+  pipeline<T>((M + kTile - 1) / kTile, issue, body);
 
-  if (row_ok) {
 #pragma unroll
-    for (int q = 0; q < CL; ++q) {
-      const int c = lane * CL + q;
-      if (c < C) store(dtheta, bi * C + c, a_acc[q] - row * b_acc[q]);
+  for (int i = 0; i < 2; ++i) {
+    rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 1);
+    rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + (lane >> 2) + 8 * i;
+    if (row >= N) continue;
+    const long base = (static_cast<long>(b) * N + row) * C;
+#pragma unroll
+    for (int nt = 0; nt < CP / 8; ++nt) {
+      const int c = nt * 8 + 2 * t;
+      if (c < C)
+        store(dtheta, base + c, a1[nt][2 * i] - rsum[i] * a2[nt][2 * i]);
+      if (c + 1 < C)
+        store(dtheta, base + c + 1,
+              a1[nt][2 * i + 1] - rsum[i] * a2[nt][2 * i + 1]);
     }
-    if (lane == 0) row_out[bi] = row;
+    if (t == 0) row_out[static_cast<long>(b) * N + row] = rsum[i];
   }
 }
 
-template <typename T, int CP, int GL>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int CP, int GP>
+__global__ void
+__launch_bounds__(kThreads, min_blocks(Traits<T>::kSplit, true, GP))
 attention_bwd_cols_kernel(const T* __restrict__ theta,
                           const T* __restrict__ phi, const T* __restrict__ g,
                           const T* __restrict__ dout,
@@ -268,80 +865,137 @@ attention_bwd_cols_kernel(const T* __restrict__ theta,
                           const float* __restrict__ den,
                           const float* __restrict__ row,
                           float* __restrict__ dphi, float* __restrict__ dg,
-                          int N, int M, int C, int Cg) {
-  constexpr int GLS = GL + 1;
-  constexpr int CL = CP / kLanes;
-  __shared__ float th_s[kTile][CP];
-  __shared__ float do_s[kTile][kLanes * GLS];
-  __shared__ float mx_s[kTile], den_s[kTile], row_s[kTile];
+                          int N, int M, int C, int Cg, int vec_c, int vec_g) {
+  using R = Ring<T>;
+  constexpr bool kSplit = R::kSplit;
+  constexpr int CS = CP + 8, GS = GP + 8;
+  __shared__ __align__(16) bf16 th_s[R::kBuf][R::kParts][kTile * CS];
+  __shared__ __align__(16) bf16 do_s[R::kBuf][R::kParts][kTile * GS];
+  __shared__ __align__(16) float sc_s[R::kBuf][3][kTile];  // mx, den, row
 
-  const int b = blockIdx.y;
-  const int lane = threadIdx.x % kLanes;
-  const int m = blockIdx.x * kGroups + threadIdx.x / kLanes;
-  const bool col_ok = m < M;
-  const long bm = static_cast<long>(b) * M + m;
-  const T* theta_b = theta + static_cast<long>(b) * N * C;
-  const T* dout_b = dout + static_cast<long>(b) * N * Cg;
+  const int b = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3, k0 = blockIdx.x * kRows + warp * 16;
+  const long bn = static_cast<long>(b) * N;
+  const T* theta_b = theta + bn * C;
+  const T* dout_b = dout + bn * Cg;
 
-  float ph[CP];
-#pragma unroll
-  for (int c = 0; c < CP; ++c)
-    ph[c] = (col_ok && c < C) ? to_f32(phi[bm * C + c]) : 0.f;
-  float gg[GL];
-#pragma unroll
-  for (int k = 0; k < GL; ++k) {
-    const int c = lane * GL + k;
-    gg[k] = (col_ok && c < Cg) ? to_f32(g[bm * Cg + c]) : 0.f;
-  }
-  float dphi_acc[CL], dg_acc[GL];
-#pragma unroll
-  for (int q = 0; q < CL; ++q) dphi_acc[q] = 0.f;
-#pragma unroll
-  for (int k = 0; k < GL; ++k) dg_acc[k] = 0.f;
-
-  for (int i0 = 0; i0 < N; i0 += kTile) {
+  if (!kSplit) {
+    zero(&th_s[0][0][0], static_cast<int>(sizeof(th_s) / sizeof(bf16)));
+    zero(&do_s[0][0][0], static_cast<int>(sizeof(do_s) / sizeof(bf16)));
     __syncthreads();
-    stage_full<T, CP>(th_s, theta_b, i0, N, C);
-    stage_sliced<T, GL>(do_s, dout_b, i0, N, Cg);
-    for (int r = threadIdx.x; r < kTile; r += kThreads) {
-      const bool ok = i0 + r < N;
-      const long bi = static_cast<long>(b) * N + i0 + r;
-      mx_s[r] = ok ? mx[bi] : 0.f;
-      den_s[r] = ok ? den[bi] : 1.f;
-      row_s[r] = ok ? row[bi] : 0.f;
-    }
-    __syncthreads();
-    const int nrows = min(kTile, N - i0);
-#pragma unroll 2
-    for (int r = 0; r < nrows; ++r) {
-      float s = 0.f;
-#pragma unroll
-      for (int c = 0; c < CP; ++c) s = fmaf(th_s[r][c], ph[c], s);
-      const float attn = expf(s - mx_s[r]) / den_s[r];
-      const float* dr = &do_s[r][lane * GLS];
-      float part = 0.f;
-#pragma unroll
-      for (int k = 0; k < GL; ++k) part = fmaf(dr[k], gg[k], part);
-      const float dattn = group_sum(part);
-      const float ds = attn * (dattn - row_s[r]);
-      const float* tr = &th_s[r][lane * CL];
-#pragma unroll
-      for (int q = 0; q < CL; ++q) dphi_acc[q] = fmaf(ds, tr[q], dphi_acc[q]);
-#pragma unroll
-      for (int k = 0; k < GL; ++k) dg_acc[k] = fmaf(attn, dr[k], dg_acc[k]);
-    }
   }
 
-  if (col_ok) {
+  // Keys beyond M: phi and g are zero there and their rows are not stored.
+  FragA pf[CP / 16], ga[GP / 16];
 #pragma unroll
-    for (int q = 0; q < CL; ++q) {
-      const int c = lane * CL + q;
-      if (c < C) dphi[bm * C + c] = dphi_acc[q];
+  for (int kc = 0; kc < CP / 16; ++kc)
+    load_a(phi + static_cast<long>(b) * M * C, k0, M, kc * 16, C, pf[kc]);
+#pragma unroll
+  for (int kc = 0; kc < GP / 16; ++kc)
+    load_a(g + static_cast<long>(b) * M * Cg, k0, M, kc * 16, Cg, ga[kc]);
+
+  float dph[CP / 8][4], dgv[GP / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < CP / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dph[nt][e] = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < GP / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dgv[nt][e] = 0.f;
+
+  auto issue = [&](int j, int buf) {
+    stage<T, CP, CS>(th_s[buf][0], th_s[buf][R::kParts - 1], theta_b,
+                     j * kTile, N, C, vec_c);
+    stage<T, GP, GS>(do_s[buf][0], do_s[buf][R::kParts - 1], dout_b,
+                     j * kTile, N, Cg, vec_g);
+    stage_scalars(sc_s[buf][0], mx + bn, j * kTile, N);
+    stage_scalars(sc_s[buf][1], den + bn, j * kTile, N);
+    stage_scalars(sc_s[buf][2], row + bn, j * kTile, N);
+  };
+  auto body = [&](int j, int buf) {
+    const bf16 *thh = th_s[buf][0], *thl = th_s[buf][R::kParts - 1];
+    const bf16 *doh = do_s[buf][0], *dol = do_s[buf][R::kParts - 1];
+#pragma unroll
+    for (int rs = 0; rs < kTile; rs += 16) {
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < CP / 16; ++kc) {
+        FragB b0, b1;
+        load_b_nk2<kSplit, CS>(thh, thl, rs, kc * 16, b0, b1);
+        mma<kSplit>(s[0], pf[kc], b0);
+        mma<kSplit>(s[1], pf[kc], b1);
+      }
+#pragma unroll
+      for (int kc = 0; kc < GP / 16; ++kc) {
+        FragB b0, b1;
+        load_b_nk2<kSplit, GS>(doh, dol, rs, kc * 16, b0, b1);
+        mma<kSplit>(dp[0], ga[kc], b0);
+        mma<kSplit>(dp[1], ga[kc], b1);
+      }
+      // Element e of n-tile nt is (key, row n = rs + nt*8 + 2t + (e & 1)).
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int n = rs + nt * 8 + 2 * t + q;
+          const bool ok = j * kTile + n < N;
+          const float nb = -sc_s[buf][0][n] * kLog2e;
+          const float inv = ok ? __frcp_rn(sc_s[buf][1][n]) : 0.f;
+          const float rw = sc_s[buf][2][n];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int e = 2 * h + q;
+            const float p = ok ? ex2(fmaf(s[nt][e], kLog2e, nb)) * inv : 0.f;
+            s[nt][e] = p;
+            dp[nt][e] = p * (dp[nt][e] - rw);
+          }
+        }
+      // P and dS as hi + lo parts in every type: dphi and dg sum terms of
+      // either sign over all rows, and where the attention is peaked a
+      // few large terms cancel, so a bf16 rounding of each could outweigh
+      // the sum.
+      FragA pa, dsa;
+      acc_to_a<true>(s[0], s[1], pa);
+      acc_to_a<true>(dp[0], dp[1], dsa);
+#pragma unroll
+      for (int np = 0; np < CP / 16; ++np) {
+        FragB b0, b1;
+        load_b_kn2<kSplit, CS>(thh, thl, rs, np * 16, b0, b1);
+        mma<true, kSplit>(dph[2 * np], dsa, b0);
+        mma<true, kSplit>(dph[2 * np + 1], dsa, b1);
+      }
+#pragma unroll
+      for (int np = 0; np < GP / 16; ++np) {
+        FragB b0, b1;
+        load_b_kn2<kSplit, GS>(doh, dol, rs, np * 16, b0, b1);
+        mma<true, kSplit>(dgv[2 * np], pa, b0);
+        mma<true, kSplit>(dgv[2 * np + 1], pa, b1);
+      }
+    }
+  };
+  pipeline<T>((N + kTile - 1) / kTile, issue, body);
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + (lane >> 2) + 8 * i;
+    if (key >= M) continue;
+    const long bm = static_cast<long>(b) * M + key;
+#pragma unroll
+    for (int nt = 0; nt < CP / 8; ++nt) {
+      const int c = nt * 8 + 2 * t;
+      if (c < C) dphi[bm * C + c] = dph[nt][2 * i];
+      if (c + 1 < C) dphi[bm * C + c + 1] = dph[nt][2 * i + 1];
     }
 #pragma unroll
-    for (int k = 0; k < GL; ++k) {
-      const int c = lane * GL + k;
-      if (c < Cg) dg[bm * Cg + c] = dg_acc[k];
+    for (int nt = 0; nt < GP / 8; ++nt) {
+      const int c = nt * 8 + 2 * t;
+      if (c < Cg) dg[bm * Cg + c] = dgv[nt][2 * i];
+      if (c + 1 < Cg) dg[bm * Cg + c + 1] = dgv[nt][2 * i + 1];
     }
   }
 }
@@ -352,46 +1006,61 @@ struct Args {
   void *out, *dtheta;
   float *mx, *den, *row, *dphi, *dg;
   int B, N, M, C, Cg;
+  bool bf16;
   cudaStream_t stream;
 };
 
-template <typename T, int CP, int GL>
+// Bytes per cp.async for the rows of a bf16 [*, width] matrix at p; 0 when
+// no size of 16, 8 or 4 bytes divides both (or for f32, which is staged
+// with plain loads).
+int vec_bytes(const void* p, int width, bool is_bf16) {
+  if (!is_bf16) return 0;
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  for (int v = 16; v >= 4; v /= 2)
+    if ((width * 2) % v == 0 && a % v == 0) return v;
+  return 0;
+}
+
+template <typename T, int CP, int GP>
 int launch_fwd(const Args& a) {
-  dim3 grid((a.N + kGroups - 1) / kGroups, a.B);
-  attention_fwd_kernel<T, CP, GL><<<grid, kThreads, 0, a.stream>>>(
+  dim3 grid((a.N + kRows - 1) / kRows, a.B);
+  attention_fwd_kernel<T, CP, GP><<<grid, kThreads, 0, a.stream>>>(
       static_cast<const T*>(a.theta), static_cast<const T*>(a.phi),
       static_cast<const T*>(a.g), static_cast<T*>(a.out), a.mx, a.den, a.N,
-      a.M, a.C, a.Cg);
+      a.M, a.C, a.Cg, vec_bytes(a.phi, a.C, a.bf16),
+      vec_bytes(a.g, a.Cg, a.bf16));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int CP, int GL>
+template <typename T, int CP, int GP>
 int launch_bwd(const Args& a) {
-  dim3 grid_rows((a.N + kGroups - 1) / kGroups, a.B);
-  attention_bwd_rows_kernel<T, CP, GL><<<grid_rows, kThreads, 0, a.stream>>>(
+  dim3 grid_rows((a.N + kRows - 1) / kRows, a.B);
+  attention_bwd_rows_kernel<T, CP, GP><<<grid_rows, kThreads, 0, a.stream>>>(
       static_cast<const T*>(a.theta), static_cast<const T*>(a.phi),
       static_cast<const T*>(a.g), static_cast<const T*>(a.dout), a.mx_in,
-      a.den_in, static_cast<T*>(a.dtheta), a.row, a.N, a.M, a.C, a.Cg);
+      a.den_in, static_cast<T*>(a.dtheta), a.row, a.N, a.M, a.C, a.Cg,
+      vec_bytes(a.phi, a.C, a.bf16), vec_bytes(a.g, a.Cg, a.bf16));
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  dim3 grid_cols((a.M + kGroups - 1) / kGroups, a.B);
-  attention_bwd_cols_kernel<T, CP, GL><<<grid_cols, kThreads, 0, a.stream>>>(
+  dim3 grid_cols((a.M + kRows - 1) / kRows, a.B);
+  attention_bwd_cols_kernel<T, CP, GP><<<grid_cols, kThreads, 0, a.stream>>>(
       static_cast<const T*>(a.theta), static_cast<const T*>(a.phi),
       static_cast<const T*>(a.g), static_cast<const T*>(a.dout), a.mx_in,
-      a.den_in, a.row, a.dphi, a.dg, a.N, a.M, a.C, a.Cg);
+      a.den_in, a.row, a.dphi, a.dg, a.N, a.M, a.C, a.Cg,
+      vec_bytes(a.theta, a.C, a.bf16), vec_bytes(a.dout, a.Cg, a.bf16));
   return static_cast<int>(cudaGetLastError());
 }
 
-// Exact widths for the two main-path shapes, a zero-padded generic
+// Exact padded widths for the two main-path shapes, and a generic
 // instantiation for any C <= 32, Cg <= 128.
 template <typename T, bool kForward>
 int dispatch(const Args& a) {
-  if (a.C == 12 && a.Cg == 48)
-    return kForward ? launch_fwd<T, 12, 12>(a) : launch_bwd<T, 12, 12>(a);
-  if (a.C == 24 && a.Cg == 96)
-    return kForward ? launch_fwd<T, 24, 24>(a) : launch_bwd<T, 24, 24>(a);
+  if (a.C <= 16 && a.Cg <= 48)
+    return kForward ? launch_fwd<T, 16, 48>(a) : launch_bwd<T, 16, 48>(a);
+  if (a.C <= 32 && a.Cg <= 96)
+    return kForward ? launch_fwd<T, 32, 96>(a) : launch_bwd<T, 32, 96>(a);
   if (a.C <= 32 && a.Cg <= 128)
-    return kForward ? launch_fwd<T, 32, 32>(a) : launch_bwd<T, 32, 32>(a);
+    return kForward ? launch_fwd<T, 32, 128>(a) : launch_bwd<T, 32, 128>(a);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -415,8 +1084,9 @@ int cgt_attention_fwd(const void* theta, const void* phi, const void* g,
   a.M = M;
   a.C = C;
   a.Cg = Cg;
+  a.bf16 = is_bf16 != 0;
   a.stream = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch<__nv_bfloat16, true>(a) : dispatch<float, true>(a);
+  return is_bf16 ? dispatch<bf16, true>(a) : dispatch<float, true>(a);
 }
 
 // Two launches (rows, then columns) on one stream; returns the first
@@ -442,9 +1112,9 @@ int cgt_attention_bwd(const void* theta, const void* phi, const void* g,
   a.M = M;
   a.C = C;
   a.Cg = Cg;
+  a.bf16 = is_bf16 != 0;
   a.stream = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch<__nv_bfloat16, false>(a)
-                 : dispatch<float, false>(a);
+  return is_bf16 ? dispatch<bf16, false>(a) : dispatch<float, false>(a);
 }
 
 const char* cgt_error_string(int code) {

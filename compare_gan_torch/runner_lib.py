@@ -19,12 +19,11 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from compare_gan_tpu import hooks as hooks_lib
-
 from compare_gan_torch import checkpoint as ckpt_lib
 from compare_gan_torch import config as gin
 from compare_gan_torch import core
 from compare_gan_torch import datasets
+from compare_gan_torch import hooks as hooks_lib
 
 logger = logging.getLogger(__name__)
 

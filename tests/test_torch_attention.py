@@ -135,65 +135,129 @@ def test_cpu_path_launches_no_kernel():
     assert (fa.launches_fwd, fa.launches_bwd) == before
 
 
-def _kernel_algorithm(theta, phi, g, dout, tile=64, chunk=16):
-    """The CUDA kernels' algorithm in torch, f32 (csrc/attention.cu): an
-    online softmax over key tiles and chunks for the forward; for the
-    backward a row pass forming dtheta in one sweep as
-    sum(attn*dattn*phi) - row*sum(attn*phi), then a column pass over all
-    rows for dphi and dg."""
+def _split_bf16(x):
+    """x as bf16 hi + lo parts, both held in f32."""
+    hi = x.bfloat16().float()
+    return hi, (x - hi).bfloat16().float()
+
+
+def _kernel_algorithm(theta, phi, g, dout, mode="f32", tile=64, chunk=16):
+    """The CUDA kernels' algorithm in torch (csrc/attention.cu), on f32
+    tensors: the forward's online softmax over 64-key tiles; the backward's
+    row pass, which forms dtheta in one sweep over 16-key chunks as
+    (P*dP).phi - row*(P.phi); and its column pass over 16-row chunks of all
+    rows for dphi and dg.
+
+    `mode` is where the kernels round: "f32" rounds nothing; "bf16" (the
+    inputs hold bf16 values) rounds P to bf16 before P.g in the forward,
+    as the kernels' bf16 path feeds it to the tensor cores, and keeps P,
+    P*dP and dS as bf16 hi + lo parts in the backward, whose sums cancel
+    where the attention is peaked. "split" takes every product as four
+    bf16 products of hi and lo parts, as the kernels' f32 path does. Row
+    sums stay in f32 in every mode."""
+    if mode == "split":
+        def mm(a, b):
+            (ah, al), (bh, bl) = _split_bf16(a), _split_bf16(b)
+            return al @ bl + al @ bh + ah @ bl + ah @ bh
+    else:
+        mm = torch.matmul
+
+    def rnd(x):
+        return x.bfloat16().float() if mode == "bf16" else x
+
+    def hi_lo(x):
+        return sum(_split_bf16(x)) if mode == "bf16" else x
+
     b, n, _ = theta.shape
     m = phi.shape[1]
     mx = torch.full((b, n, 1), -float("inf"))
     den = torch.zeros(b, n, 1)
     acc = torch.zeros(b, n, g.shape[2])
     for j0 in range(0, m, tile):
-        for k0 in range(j0, min(j0 + tile, m), chunk):
-            k1 = min(k0 + chunk, j0 + tile, m)
-            s = theta @ phi[:, k0:k1].transpose(1, 2)
-            new_mx = torch.maximum(mx, s.amax(-1, keepdim=True))
-            scale = torch.exp(mx - new_mx)
-            p = torch.exp(s - new_mx)
-            den = den * scale + p.sum(-1, keepdim=True)
-            acc = acc * scale + p @ g[:, k0:k1]
-            mx = new_mx
+        s = mm(theta, phi[:, j0:j0 + tile].transpose(1, 2))
+        new_mx = torch.maximum(mx, s.amax(-1, keepdim=True))
+        scale = torch.exp(mx - new_mx)
+        p = torch.exp(s - new_mx)
+        den = den * scale + p.sum(-1, keepdim=True)
+        acc = acc * scale + mm(rnd(p), g[:, j0:j0 + tile])
+        mx = new_mx
     out = acc / den
     a_acc = torch.zeros_like(theta)
     b_acc = torch.zeros_like(theta)
     row = torch.zeros(b, n, 1)
-    for j0 in range(0, m, tile):
-        ph, gg = phi[:, j0:j0 + tile], g[:, j0:j0 + tile]
-        attn = torch.exp(theta @ ph.transpose(1, 2) - mx) / den
-        t = attn * (dout @ gg.transpose(1, 2))
+    for k0 in range(0, m, chunk):
+        ph, gg = phi[:, k0:k0 + chunk], g[:, k0:k0 + chunk]
+        attn = torch.exp(mm(theta, ph.transpose(1, 2)) - mx) / den
+        t = attn * mm(dout, gg.transpose(1, 2))
         row = row + t.sum(-1, keepdim=True)
-        a_acc = a_acc + t @ ph
-        b_acc = b_acc + attn @ ph
+        a_acc = a_acc + mm(hi_lo(t), ph)
+        b_acc = b_acc + mm(hi_lo(attn), ph)
     dtheta = a_acc - row * b_acc
     dphi = torch.zeros_like(phi)
     dg = torch.zeros_like(g)
-    for i0 in range(0, n, tile):
-        th_, do_ = theta[:, i0:i0 + tile], dout[:, i0:i0 + tile]
-        attn = torch.exp(th_ @ phi.transpose(1, 2) - mx[:, i0:i0 + tile]) \
-            / den[:, i0:i0 + tile]
-        ds = attn * (do_ @ g.transpose(1, 2) - row[:, i0:i0 + tile])
-        dphi = dphi + ds.transpose(1, 2) @ th_
-        dg = dg + attn.transpose(1, 2) @ do_
+    for i0 in range(0, n, chunk):
+        th_, do_ = theta[:, i0:i0 + chunk], dout[:, i0:i0 + chunk]
+        attn = torch.exp(mm(th_, phi.transpose(1, 2)) - mx[:, i0:i0 + chunk]) \
+            / den[:, i0:i0 + chunk]
+        ds = attn * (mm(do_, g.transpose(1, 2)) - row[:, i0:i0 + chunk])
+        dphi = dphi + mm(hi_lo(ds).transpose(1, 2), th_)
+        dg = dg + mm(hi_lo(attn).transpose(1, 2), do_)
     return (out, mx, den), (dtheta, dphi, dg)
 
 
-def test_kernel_algorithm_matches_pallas_kernels():
-    """The tiling of the CUDA kernels, run in torch on the CPU, against the
-    Pallas forward and backward kernels (interpret mode) on ragged tiles:
-    n = 200 and m = 150 leave partial tiles and chunks. f32, 1e-5 for the
-    forward, 1e-4 for the gradients, as above."""
+def _algorithm_vs_pallas(mode, jdtype, scale=1.0):
+    """(kernel algorithm, Pallas kernels) on ragged tiles: n = 200 and
+    m = 150 leave partial tiles and chunks."""
     theta, phi, g = _inputs(b=2, n=200, m=150, c=8, cg=12, seed=11)
+    theta, phi = theta * scale, phi * scale
     dout = th.randn((2, 200, 12), 12)
-    fwd, bwd = _kernel_algorithm(*_torch((theta, phi, g)),
-                                 torch.from_numpy(dout))
-    jargs = tuple(map(jnp.asarray, (theta, phi, g)))
-    j_fwd = pallas_attention._attention_fwd_pallas(*jargs)
-    j_bwd = pallas_attention._attention_bwd_pallas(
-        *jargs, jnp.asarray(dout), j_fwd[1], j_fwd[2])
+    jargs = [jnp.asarray(a, jdtype) for a in (theta, phi, g, dout)]
+    # The same (possibly bf16-rounded) values on both sides, in f32.
+    t = [torch.from_numpy(np.array(a.astype(jnp.float32))) for a in jargs]
+    fwd, bwd = _kernel_algorithm(*t, mode=mode)
+    j_fwd = pallas_attention._attention_fwd_pallas(*jargs[:3])
+    j_bwd = pallas_attention._attention_bwd_pallas(*jargs, j_fwd[1],
+                                                   j_fwd[2])
+    return fwd, bwd, j_fwd, j_bwd
+
+
+def test_kernel_algorithm_matches_pallas_kernels():
+    """The tiling of the CUDA kernels, run in torch on the CPU in f32,
+    against the Pallas forward and backward kernels (interpret mode). f32,
+    1e-5 for the forward, 1e-4 for the gradients, as above."""
+    fwd, bwd, j_fwd, j_bwd = _algorithm_vs_pallas("f32", jnp.float32)
     for got, want in zip(fwd, j_fwd):
         th.assert_close(got, want, rtol=1e-5, atol=1e-5)
     for got, want in zip(bwd, j_bwd):
         th.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_kernel_f32_split_matches_pallas_kernels():
+    """The kernels' f32 path (every product as hi/lo bf16 parts on the
+    tensor cores) against the Pallas kernels in f32: 1e-4, the tolerance of
+    the f32 kernels against their plain versions on the card. theta and phi
+    are scaled by C**-0.25, as there, so the scores are unit normal."""
+    fwd, bwd, j_fwd, j_bwd = _algorithm_vs_pallas("split", jnp.float32,
+                                                  scale=8 ** -0.25)
+    for got, want in zip(fwd + bwd, j_fwd + j_bwd):
+        th.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_kernel_bf16_rounding_matches_pallas_kernels():
+    """The kernels' bf16 path rounds P to bf16 before the forward's P.g and
+    keeps P, P*dP and dS as hi + lo parts in the backward; nothing else
+    rounds beyond f32 sums. Unit-normal theta and phi at C = 8, so the
+    attention is peaked and the backward's sums cancel. Against the Pallas
+    kernels fed the
+    same bf16 inputs: out and the gradients at 2e-2, the bf16 tolerance of
+    the JAX package's tests; mx and den at 1e-4, since the products of bf16
+    inputs are exact in f32 and den sums the unrounded P."""
+    fwd, bwd, j_fwd, j_bwd = _algorithm_vs_pallas("bf16", jnp.bfloat16)
+    (out, mx, den), (j_out, j_mx, j_den) = fwd, j_fwd
+    th.assert_close(out.bfloat16(), j_out, rtol=2e-2, atol=2e-2)
+    th.assert_close(mx, j_mx, rtol=1e-4, atol=1e-4)
+    th.assert_close(den, j_den, rtol=1e-4, atol=1e-4)
+    dtheta, dphi, dg = bwd
+    th.assert_close(dtheta.bfloat16(), j_bwd[0], rtol=2e-2, atol=2e-2)
+    th.assert_close(dphi, j_bwd[1], rtol=2e-2, atol=2e-2)
+    th.assert_close(dg, j_bwd[2], rtol=2e-2, atol=2e-2)

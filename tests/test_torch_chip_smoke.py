@@ -1,0 +1,62 @@
+"""chip_smoke.py off the card: its bounds are the hand count of the kernels'
+work, and without a CUDA device, or outside a checkout, it fails and prints
+no result."""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+import chip_smoke  # noqa: E402
+
+
+@pytest.mark.parametrize("shape,fwd_us,bwd_us", [
+    # 2*B*N*M*(C + Cg) and 2*B*N*M*(3C + 2Cg) flops at 989 TFLOP/s.
+    ((32, 4096, 1024, 24, 96), 32.57, 71.66),
+    ((32, 4096, 1024, 12, 48), 16.28, 35.83),
+])
+def test_bf16_bounds_are_the_flop_count(shape, fwd_us, bwd_us):
+    bounds = chip_smoke.bounds_ms(shape, "bfloat16")
+    assert bounds["fwd"][1] == bounds["bwd"][1] == "operations"
+    assert abs(1e3 * bounds["fwd"][0] - fwd_us) < 0.01
+    assert abs(1e3 * bounds["bwd"][0] - bwd_us) < 0.01
+
+
+def test_a_memory_bound_shape_is_bound_by_bytes():
+    """With one key the work is a copy: bytes over 3.35 TB/s."""
+    b, n, m, c, cg = 4, 8192, 1, 32, 128
+    ms, by = chip_smoke.bounds_ms((b, n, m, c, cg), "float32")["fwd"]
+    nbytes = 4 * (b * n * c + b * m * (c + cg) + b * n * cg) + 8 * b * n
+    assert by == "bytes" and abs(ms - 1e3 * nbytes / 3.35e12) < 1e-9
+
+
+def _run(script, cwd):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.run([sys.executable, script], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def _printed_a_result(stdout):
+    for line in stdout.splitlines():
+        try:
+            if isinstance(json.loads(line), dict):
+                return True
+        except ValueError:
+            continue
+    return False
+
+
+def test_fails_without_a_card_and_outside_a_checkout(tmp_path):
+    out = _run(os.path.join(REPO, "chip_smoke.py"), REPO)
+    assert out.returncode != 0 and not _printed_a_result(out.stdout)
+    assert "no CUDA device" in out.stderr
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), alone)
+    out = _run(str(alone), tmp_path)
+    assert out.returncode != 0 and not _printed_a_result(out.stdout)
+    assert "compare_gan_torch/ is missing" in out.stderr

@@ -137,20 +137,32 @@ def test_checkpoint_retention(tmp_path):
     assert not (tmp_path / "model.ckpt-0.npz").exists()
 
 
-def test_importing_the_port_loads_no_jax():
+def test_importing_the_port_loads_no_jax(tmp_path):
+    """Importing the port, and training two CPU steps through its CLI, load
+    neither jax nor any module of the JAX package."""
+    argv = _argv(tmp_path / "run")
     code = ("import sys\n"
             "import compare_gan_torch, compare_gan_torch.main\n"
             "import compare_gan_torch.ops.fused_attention\n"
             "import compare_gan_torch.architectures, compare_gan_torch.interop\n"
             "import compare_gan_torch.checkpoint\n"
-            "assert 'jax' not in sys.modules, 'jax imported'\n"
-            "assert 'jaxlib' not in sys.modules and 'optax' not in sys.modules\n"
+            "def check():\n"
+            "    assert 'jax' not in sys.modules, 'jax imported'\n"
+            "    assert 'jaxlib' not in sys.modules\n"
+            "    assert 'optax' not in sys.modules\n"
+            "    jax_package = [m for m in sys.modules\n"
+            "                   if m.split('.')[0] == 'compare_gan_tpu']\n"
+            "    assert not jax_package, jax_package\n"
+            "check()\n"
+            f"report = compare_gan_torch.main.main({argv!r})\n"
+            "assert report.steps == [1, 2], report.steps\n"
+            "check()\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
+    assert out.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_resume_is_bitwise(tmp_path):

@@ -18,12 +18,19 @@ pytestmark = pytest.mark.gpu
 # which any installed package named `tests` shadows.)
 torch.set_num_threads(1)
 
-# (B, N, M, C, Cg): the two main-path shapes at a small batch, and a ragged
-# shape that takes the zero-padded generic instantiation.
+# (B, N, M, C, Cg): the two main-path shapes at a small batch and at the G
+# sub-step's batch of 16; a ragged shape that takes the zero-padded
+# instantiation with rows too narrow for cp.async; the widest operands the
+# kernels take (C = 32, Cg = 128, their own instantiation); and one row
+# block over fewer keys than one MMA tile.
 SHAPES = {
     "G_B4": (2, 4096, 1024, 24, 96),
     "D_B1": (2, 4096, 1024, 12, 48),
+    "G_B4_b16": (16, 4096, 1024, 24, 96),
+    "D_B1_b16": (16, 4096, 1024, 12, 48),
     "ragged": (3, 200, 70, 7, 20),
+    "widest": (2, 300, 130, 32, 128),
+    "tiny": (1, 5, 3, 1, 1),
 }
 # f32: the same f32 math summed in another order. bf16: both sides round
 # one f32 result to bf16 (dphi/dg stay f32 but come from bf16 inputs).
@@ -39,15 +46,16 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(shape, dtype, device, seed=0):
-    """theta and phi scaled by C**-0.25, so the scores are unit normal: with
-    unit-normal theta and phi the scores reach |s| ~ 20 at C = 24, where
-    the f32 rounding of s alone moves exp(s - mx) by ~2e-5 relative on
-    either side, beyond the 1e-4 absolute tolerance of the gradients."""
+def _inputs(shape, dtype, device, seed=0, scale=None):
+    """theta and phi scaled by C**-0.25 unless `scale` is given, so the
+    scores are unit normal: with unit-normal theta and phi the scores reach
+    |s| ~ 20 at C = 24, where the f32 rounding of s alone moves
+    exp(s - mx) by ~2e-5 relative on either side, beyond the 1e-4 absolute
+    tolerance of the gradients."""
     b, n, m, c, cg = shape
     gen = torch.Generator(device="cpu").manual_seed(seed)
     make = lambda *s: torch.randn(*s, generator=gen)  # noqa: E731
-    scale = c ** -0.25
+    scale = c ** -0.25 if scale is None else scale
     return tuple(t.to(device, dtype) for t in (
         make(b, n, c) * scale, make(b, m, c) * scale, make(b, m, cg)))
 
@@ -85,6 +93,27 @@ def test_backward_matches_plain(cuda, name, dtype):
     want = fa.attention_bwd_plain(theta, phi, g, dout, mx, den)
     for what, a, b in zip(("dtheta", "dphi", "dg"), got, want):
         _close(a, b, TOL[dtype], what)
+
+
+def test_bf16_backward_matches_plain_on_peaked_attention(cuda):
+    """Unit-normal theta and phi at C = 24: scores of |s| ~ 20, so most
+    rows put nearly all their weight on one key and the row pass's
+    dtheta = (P*dP).phi - row*(P.phi) cancels; bf16 at 2e-2 as above."""
+    theta, phi, g = _inputs(SHAPES["G_B4"], torch.bfloat16, cuda, seed=4,
+                            scale=1.0)
+    b, n, _, _, cg = SHAPES["G_B4"]
+    dout = torch.randn(b, n, cg, generator=torch.Generator().manual_seed(5)
+                       ).to(cuda, torch.bfloat16)
+    out, mx, den = fa.attention_fwd(theta, phi, g)
+    p_out, p_mx, p_den = fa.attention_fwd_plain(theta, phi, g)
+    _close(out, p_out, 2e-2, "out")
+    _close(mx, p_mx, 1e-4, "mx")
+    _close(den, p_den, 1e-4, "den")
+    got = fa.attention_bwd(theta, phi, g, dout, mx, den)
+    torch.cuda.synchronize()
+    want = fa.attention_bwd_plain(theta, phi, g, dout, mx, den)
+    for what, a, b in zip(("dtheta", "dphi", "dg"), got, want):
+        _close(a, b, 2e-2, what)
 
 
 def test_autograd_matches_reference(cuda):

@@ -67,7 +67,9 @@ def _setup():
     tgin.clear_config()
     pallas_attention._INTERPRET = True
     jdatasets.set_fake_dataset(True)
+    datasets.set_fake_dataset(True)
     yield
+    datasets.set_fake_dataset(False)
     jdatasets.set_fake_dataset(False)
     pallas_attention._INTERPRET = False
     tgin.clear_config()
