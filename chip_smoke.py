@@ -10,17 +10,21 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. Build: compiles the CUDA kernels of compare_gan_torch/csrc with nvcc
    (sm_90a) into compare_gan_torch/_build and prints the seconds it took.
 3. Kernels: the attention forward and backward kernels against their plain
-   PyTorch versions at the two main-path shapes (BigGAN-128 G after B4 and
-   D after B1, batch 32), in f32 and bf16. Prints each tensor's max abs and
+   PyTorch versions at the two training shapes (BigGAN-128 G after B4 and
+   D after B1, batch 32), in f32 and bf16, and the forward at the eval
+   shape (G after B4 at batch 64, f32: eval samples z in f32 and
+   `compute_dtype` does not apply). Prints each tensor's max abs and
    relative error with its tolerance; the time per call of the kernel, of
    the plain version and of the library call that computes the same
    function (torch's scaled_dot_product_attention with one head and
    scale 1, forward, and its backward through torch.autograd.grad; the
    port never calls it), with the SDPA backend that served it (CUDA
-   events, 20 calls after a warm-up); and each kernel's bound (the least
-   time the card could take: its operations over the peak rate for the
-   input type, or its bytes over the memory rate, whichever is larger)
-   with the kernel's share of it.
+   events, 20 calls after a warm-up); each kernel's bound (the least
+   time the card could take: its operations over the tensor-core peak for
+   the input type, bf16 or TF32 for f32, or its bytes over the memory
+   rate, whichever is larger) with the kernel's share of it; and the
+   forward's issued-MMA floor (the bf16 MMAs it issues, four per product
+   for f32 inputs split into hi + lo parts, at the bf16 peak).
 4. Main path: 3 BigGAN-128 training steps at full width through the port's
    CLI (compare_gan_torch.main.main) with the benchmark options: batch 16,
    bf16 activations, joint G forward for the D sub-steps, fake-only G loss,
@@ -30,9 +34,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    (launch counters reset to 0 just before it), and that G's samples are
    finite images in [0, 1]. Prints losses, counters, seconds per step
    after the first, and peak device memory.
-5. Prints one JSON line describing each kernel ("ms", "plain_ms",
-   "library_ms", "bound_ms": one call at each of the two main-path shapes
-   in bf16, summed), then, as the last line, {"ok": true, "device": {...}}.
+5. Eval: in the same model_dir, `compare_gan_torch.main.main` with
+   --schedule=eval_after_train --eval_every_steps=0: restore model.ckpt-3,
+   export the module to tfhub/3, fill the BN accumulators
+   (evaluation.num_accu_examples = 1024 at batch 64: 16 G forwards), sample
+   3 averaging runs of the 100 fake-ImageNet eval images with the EMA G (2
+   batches each), Inception features of fakes and reals, FID and IS, one
+   scores.csv row. Inception has random weights from a fixed seed (no real
+   weights are in the repository), written as the JAX package's .npz;
+   before the eval its features on the card are held against the CPU's on
+   4 images. Checks the row (finite FID and IS, no sentinel), the export,
+   the filled state (switch back at 0, 16 updates counted), eval-mode
+   samples, and the attention launches (16 + 3 * 2 forwards). Prints the
+   scores, the seconds and the peak device memory of each phase, and
+   images per second.
+6. Prints the eval shape's forward row as a JSON line of its own
+   (`eval_shape_forward {...}`, with its eval launches), then one JSON
+   line describing each kernel ("ms", "plain_ms", "library_ms",
+   "bound_ms": one call at each bf16 training shape, G and D at batch 32,
+   summed; "launches": the training and the eval runs together), then,
+   as the last line, {"ok": true, "device": {...}}.
 """
 
 import json
@@ -44,16 +65,25 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# (B, N, M, C, Cg) of the non-local block on the main path at 128 px.
+# (B, N, M, C, Cg) of the non-local block on the main path at 128 px: the
+# training shapes, run forward and backward in f32 and bf16, and the eval
+# shape, run forward in f32.
 SHAPES = {"G_B4": (32, 4096, 1024, 24, 96), "D_B1": (32, 4096, 1024, 12, 48)}
+EVAL_SHAPE = ("G_B4_eval", (64, 4096, 1024, 24, 96))
 # f32: the same f32 arithmetic summed in another order. bf16: both sides
 # round one f32 result to bf16 (the JAX package's Pallas tests use 2e-2).
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 G_PARAMS, D_PARAMS = 70433988, 87982370
 STEPS = 3
-# Published peaks of one H100 SXM (dense): tensor-core bf16, float32 outside
-# the tensor cores, and the memory rate.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+EVAL_BATCH, ACCU_EXAMPLES, AVERAGING_RUNS, EVAL_SAMPLES = 64, 1024, 3, 100
+# Inception on the card against the CPU, both full f32: relative to the
+# largest magnitude of the CPU's features.
+INCEPTION_TOL = 1e-4
+# Published peaks of one H100 SXM (dense) and the memory rate. f32 operands
+# take the TF32 tensor-core rate, the card's fastest for them (67 TFLOP/s
+# outside the tensor cores is no floor for a kernel that runs its f32
+# products on the tensor cores, as this one does).
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12}
 PEAK_BYTES = 3.35e12
 # torch.nn.attention.SDPBackend by value.
 SDPA_BACKENDS = {0: "math", 1: "flash", 2: "efficient", 3: "cudnn",
@@ -141,6 +171,19 @@ def bounds_ms(shape, dtype_name):
     return out
 
 
+def issued_fwd_ms(shape, dtype_name):
+    """The forward's own tensor-core floor: the bf16 MMAs it issues at its
+    padded widths (csrc/attention.cu: C to CP, Cg to GP) over 989 TFLOP/s.
+    f32 inputs are split into bf16 hi + lo parts, so S = theta.phi^T takes
+    four MMAs per product and O = P.g (P rounded to bf16) two."""
+    b, n, m, c, cg = shape
+    cp, gp = (16, 48) if c <= 16 and cg <= 48 else (
+        (32, 96) if cg <= 96 else (32, 128))
+    s_mmas, o_mmas = (4, 2) if dtype_name == "float32" else (1, 1)
+    return 1e3 * 2 * b * n * m * (s_mmas * cp + o_mmas * gp) \
+        / PEAK_FLOPS["bfloat16"]
+
+
 def _sdpa_backend(torch, q, k, v):
     try:
         return SDPA_BACKENDS.get(int(torch._fused_sdp_choice(q, k, v,
@@ -150,9 +193,20 @@ def _sdpa_backend(torch, q, k, v):
         return "unknown"
 
 
+def _cases():
+    """(name, shape, dtype name, with backward, summed into the JSON line)
+    of every kernel comparison: the line sums the bf16 training shapes; the
+    eval shape is reported on a line of its own."""
+    for name, shape in SHAPES.items():
+        for dtype_name in ("float32", "bfloat16"):
+            yield name, shape, dtype_name, True, dtype_name == "bfloat16"
+    yield EVAL_SHAPE + ("float32", False, False)
+
+
 def compare_kernels(torch):
-    """Kernel vs plain version per shape and type; returns per-kernel
-    max abs error and bf16 main-path times and bounds."""
+    """Kernel vs plain version per shape and type. Returns per kernel its
+    max abs error over every case, and times and bounds summed over the
+    bf16 training shapes; and the eval shape's forward row."""
     _phase("kernels")
     from compare_gan_torch.ops import fused_attention as fa
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -160,29 +214,32 @@ def compare_kernels(torch):
     result = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                   "library_ms": 0.0, "bound_ms": 0.0, "bound_by": ""}
               for k in ("fwd", "bwd")}
-    for name, (b, n, m, c, cg) in SHAPES.items():
-        for dtype_name in ("float32", "bfloat16"):
-            dtype = getattr(torch, dtype_name)
-            tol = TOL[dtype_name]
-            gen = torch.Generator(device=dev).manual_seed(0)
-            # theta, phi scaled by C**-0.25: unit-normal scores.
-            theta = (torch.randn(b, n, c, device=dev, generator=gen)
-                     * c ** -0.25).to(dtype)
-            phi = (torch.randn(b, m, c, device=dev, generator=gen)
-                   * c ** -0.25).to(dtype)
-            g = torch.randn(b, m, cg, device=dev, generator=gen).to(dtype)
-            dout = torch.randn(b, n, cg, device=dev, generator=gen).to(dtype)
-            print(f"{name} B={b} N={n} M={m} C={c} Cg={cg} {dtype_name}")
+    eval_row = None
+    for name, (b, n, m, c, cg), dtype_name, with_bwd, summed in _cases():
+        dtype = getattr(torch, dtype_name)
+        tol = TOL[dtype_name]
+        gen = torch.Generator(device=dev).manual_seed(0)
+        # theta, phi scaled by C**-0.25: unit-normal scores.
+        theta = (torch.randn(b, n, c, device=dev, generator=gen)
+                 * c ** -0.25).to(dtype)
+        phi = (torch.randn(b, m, c, device=dev, generator=gen)
+               * c ** -0.25).to(dtype)
+        g = torch.randn(b, m, cg, device=dev, generator=gen).to(dtype)
+        dout = torch.randn(b, n, cg, device=dev, generator=gen).to(dtype)
+        print(f"{name} B={b} N={n} M={m} C={c} Cg={cg} {dtype_name}"
+              + ("" if with_bwd else " (forward only)"))
 
-            out, mx, den = fa.attention_fwd(theta, phi, g)
-            torch.cuda.synchronize()
-            p_out, p_mx, p_den = fa.attention_fwd_plain(theta, phi, g)
-            err = max(_errors(torch, out, p_out, tol, "out"),
+        out, mx, den = fa.attention_fwd(theta, phi, g)
+        torch.cuda.synchronize()
+        p_out, p_mx, p_den = fa.attention_fwd_plain(theta, phi, g)
+        fwd_err = max(_errors(torch, out, p_out, tol, "out"),
                       _errors(torch, mx, p_mx, 1e-4, "mx"),
                       _errors(torch, den, p_den, 1e-4, "den"))
-            result["fwd"]["max_abs_err"] = max(result["fwd"]["max_abs_err"],
-                                               err)
+        result["fwd"]["max_abs_err"] = max(result["fwd"]["max_abs_err"],
+                                           fwd_err)
+        del p_out
 
+        if with_bwd:
             dth, dph, dg = fa.attention_bwd(theta, phi, g, dout, mx, den)
             torch.cuda.synchronize()
             plain = fa.attention_bwd_plain(theta, phi, g, dout, p_mx, p_den)
@@ -199,18 +256,19 @@ def compare_kernels(torch):
                                                err)
             del plain, auto, leaves
 
-            # The library call: one head, scale 1, value width Cg != C.
-            q, k, v = (x.unsqueeze(1) for x in (theta, phi, g))
+        # The library call: one head, scale 1, value width Cg != C.
+        q, k, v = (x.unsqueeze(1) for x in (theta, phi, g))
+        times = {
+            "fwd": _time_ms(torch, lambda: fa.attention_fwd(theta, phi, g)),
+            "fwd_plain": _time_ms(torch, lambda: fa.attention_fwd_plain(
+                theta, phi, g)),
+            "fwd_library": _time_ms(torch, lambda: sdpa(q, k, v, scale=1.0)),
+        }
+        if with_bwd:
             leaves = [x.detach().requires_grad_() for x in (q, k, v)]
             lib_out = sdpa(*leaves, scale=1.0)
             lib_dout = dout.unsqueeze(1)
-            times = {
-                "fwd": _time_ms(torch, lambda: fa.attention_fwd(theta, phi,
-                                                                g)),
-                "fwd_plain": _time_ms(torch, lambda: fa.attention_fwd_plain(
-                    theta, phi, g)),
-                "fwd_library": _time_ms(torch, lambda: sdpa(q, k, v,
-                                                            scale=1.0)),
+            times.update({
                 "bwd": _time_ms(torch, lambda: fa.attention_bwd(
                     theta, phi, g, dout, mx, den)),
                 "bwd_plain": _time_ms(torch, lambda: fa.attention_bwd_plain(
@@ -218,37 +276,50 @@ def compare_kernels(torch):
                 "bwd_library": _time_ms(torch, lambda: torch.autograd.grad(
                     lib_out, leaves, grad_outputs=lib_dout,
                     retain_graph=True)),
-            }
-            print("  ms/call " + " ".join(f"{k} {v:.4f}"
-                                          for k, v in times.items())
-                  + f" (sdpa backend {_sdpa_backend(torch, q, k, v)})")
-            bounds = bounds_ms((b, n, m, c, cg), dtype_name)
-            for kern, (bound, by) in bounds.items():
-                print(f"  {kern} bound {bound:.4f} ms ({by}, "
-                      f"{PEAK_FLOPS[dtype_name] / 1e12:g} TFLOP/s, "
-                      f"{PEAK_BYTES / 1e12:g} TB/s): kernel at "
-                      f"{100 * bound / times[kern]:.1f}% of it")
-            if dtype_name == "bfloat16":
-                for kern in ("fwd", "bwd"):
-                    r = result[kern]
-                    r["ms"] += times[kern]
-                    r["plain_ms"] += times[kern + "_plain"]
-                    r["library_ms"] += times[kern + "_library"]
-                    r["bound_ms"] += bounds[kern][0]
-                    r["bound_by"] = bounds[kern][1]
-            del q, k, v, leaves, lib_out, lib_dout
-            torch.cuda.empty_cache()
-    return result
+            })
+            del leaves, lib_out, lib_dout
+        print("  ms/call " + " ".join(f"{k} {v:.4f}"
+                                      for k, v in times.items())
+              + f" (sdpa backend {_sdpa_backend(torch, q, k, v)})")
+        kerns = ("fwd", "bwd") if with_bwd else ("fwd",)
+        shape = (b, n, m, c, cg)
+        bounds = bounds_ms(shape, dtype_name)
+        for kern in kerns:
+            bound, by = bounds[kern]
+            print(f"  {kern} bound {bound:.4f} ms ({by}, "
+                  f"{PEAK_FLOPS[dtype_name] / 1e12:g} TFLOP/s, "
+                  f"{PEAK_BYTES / 1e12:g} TB/s): kernel at "
+                  f"{100 * bound / times[kern]:.1f}% of it")
+            if summed:
+                r = result[kern]
+                r["ms"] += times[kern]
+                r["plain_ms"] += times[kern + "_plain"]
+                r["library_ms"] += times[kern + "_library"]
+                r["bound_ms"] += bound
+                r["bound_by"] = by
+        issued = issued_fwd_ms(shape, dtype_name)
+        print(f"  fwd issued-MMA floor {issued:.4f} ms (bf16 MMAs at "
+              f"{PEAK_FLOPS['bfloat16'] / 1e12:g} TFLOP/s): kernel at "
+              f"{100 * issued / times['fwd']:.1f}% of it")
+        if (name, shape) == EVAL_SHAPE:
+            eval_row = {
+                "name": "attention_fwd", "shape": name, "B": b,
+                "dtype": dtype_name, "max_abs_err": fwd_err,
+                "ms": times["fwd"], "plain_ms": times["fwd_plain"],
+                "library_ms": times["fwd_library"],
+                "bound_ms": bounds["fwd"][0], "bound_by": bounds["fwd"][1],
+                "issued_mma_ms": issued}
+        del q, k, v, theta, phi, g, dout, out, mx, den, p_mx, p_den
+        torch.cuda.empty_cache()
+    return result, eval_row
 
 
-def run_main_path(torch, model_dir):
-    _phase("main path")
-    from compare_gan_torch import core, main
-    from compare_gan_torch.ops import fused_attention as fa
-    argv = [
-        f"--model_dir={model_dir}", "--schedule=train", "--device=cuda",
-        "--data_fake_dataset",
-        f"--gin_config={os.path.join(ROOT, 'example_configs', 'biggan_imagenet128.gin')}",
+def _argv(model_dir, schedule):
+    """The CLI arguments of both main-path phases: the benchmark options."""
+    config = os.path.join(ROOT, "example_configs", "biggan_imagenet128.gin")
+    return [
+        f"--model_dir={model_dir}", f"--schedule={schedule}",
+        "--device=cuda", "--data_fake_dataset", f"--gin_config={config}",
         "--gin_bindings=options.batch_size = 16",
         f"--gin_bindings=options.training_steps = {STEPS}",
         "--gin_bindings=run_config.iterations_per_loop = 1",
@@ -257,9 +328,15 @@ def run_main_path(torch, model_dir):
         "--gin_bindings=ModularGAN.experimental_joint_gen_for_disc = True",
         "--gin_bindings=ModularGAN.experimental_fake_only_g_loss = True",
     ]
+
+
+def run_main_path(torch, model_dir):
+    _phase("main path")
+    from compare_gan_torch import core, main
+    from compare_gan_torch.ops import fused_attention as fa
     torch.cuda.reset_peak_memory_stats()
     fa.launches_fwd = fa.launches_bwd = 0
-    report = main.main(argv)
+    report = main.main(_argv(model_dir, "train"))
     launches = {"fwd": fa.launches_fwd, "bwd": fa.launches_bwd}
     torch.cuda.synchronize()
 
@@ -310,6 +387,140 @@ def run_main_path(torch, model_dir):
     return launches
 
 
+def check_inception(torch, npz_path):
+    """The port's Inception on the card against the same weights on the
+    CPU, on 4 fake-ImageNet-sized images, both in full f32."""
+    import numpy as np
+    from compare_gan_torch.metrics import inception_net
+    images = np.random.RandomState(0).rand(4, 128, 128, 3) * 255.0
+    t0 = time.perf_counter()
+    card = inception_net.make_feature_fn(npz_path, "cuda")(images)
+    cpu = inception_net.make_feature_fn(npz_path, "cpu")(images)
+    for what, got, want in zip(("pool_3", "logits"), card, cpu):
+        scale = float(np.abs(want).max())
+        err = float(np.abs(got - want).max())
+        ok = err <= INCEPTION_TOL * scale
+        print(f"  inception {what} card vs cpu: max_abs {err:.3e} "
+              f"(max |cpu| {scale:.3e}), relative {err / scale:.3e} tol "
+              f"{INCEPTION_TOL:g} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"Inception {what} on the card disagrees "
+                                 f"with the CPU beyond {INCEPTION_TOL:g}")
+    print(f"  inception check seconds {time.perf_counter() - t0:.2f}")
+
+
+def run_eval(torch, model_dir):
+    """eval_after_train on the trained model_dir through the CLI."""
+    _phase("eval")
+    import csv
+    import numpy as np
+    from compare_gan_torch import config as gin
+    from compare_gan_torch import datasets, eval_gan_lib, eval_utils, main
+    from compare_gan_torch import runner_lib
+    from compare_gan_torch.metrics import inception_net
+    from compare_gan_torch.ops import fused_attention as fa
+
+    npz_path = os.path.join(model_dir, "inception_random.npz")
+    np.savez(npz_path, **inception_net.init_random(
+        torch.Generator().manual_seed(0)))
+    os.environ[eval_utils.INCEPTION_NPZ_ENV] = npz_path
+    check_inception(torch, npz_path)
+
+    gin.clear_config()
+    argv = _argv(model_dir, "eval_after_train") + [
+        "--eval_every_steps=0",
+        f"--gin_bindings=evaluation.num_accu_examples = {ACCU_EXAMPLES}"]
+    torch.cuda.synchronize()
+    print(f"memory_allocated_GiB_before_eval "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f}")
+    fa.launches_fwd = fa.launches_bwd = 0
+    t0 = time.perf_counter()
+    report = main.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"fwd": fa.launches_fwd, "bwd": fa.launches_bwd}
+
+    with open(os.path.join(model_dir, "scores.csv"), newline="") as f:
+        rows = list(csv.DictReader(f))
+    if [r["step"] for r in rows] != [str(STEPS)]:
+        raise AssertionError(f"scores.csv rows for steps "
+                             f"{[r['step'] for r in rows]}, not [{STEPS}]")
+    for key in ("fid_score_mean", "inception_score_mean"):
+        value = float(rows[0][key])
+        print(f"{key} {rows[0][key]} ({key[:-5]}_list "
+              f"{rows[0][key[:-5] + '_list']})")
+        if not np.isfinite(value) or value in (eval_gan_lib.NAN_DETECTED,
+                                               4242.0):
+            raise AssertionError(f"{key} = {value}")
+    export_dir = os.path.join(model_dir, "tfhub", str(STEPS))
+    for name in ("module_spec.json", "module.npz", f"model.ckpt-{STEPS}.npz"):
+        if not os.path.exists(os.path.join(export_dir, name)):
+            raise AssertionError(f"tfhub/{STEPS}/{name} was not written")
+    fills = ACCU_EXAMPLES // EVAL_BATCH
+    with np.load(os.path.join(export_dir, f"model.ckpt-{STEPS}.npz")) as data:
+        switches = [float(data[k]) for k in data.files
+                    if k.endswith("accu/update_accus']")]
+        counters = [float(data[k]) for k in data.files
+                    if k.endswith("accu/accu_counter']")]
+    print(f"filled state: {len(switches)} accumulators, update_accus "
+          f"{sorted(set(switches))}, accu_counter {sorted(set(counters))}")
+    if not switches or set(switches) != {0.0} or any(
+            abs(c - fills) > 1e-3 for c in counters):
+        raise AssertionError("the BN accumulators were not filled "
+                             f"{fills} times with the switch set back to 0")
+
+    # Per checkpoint: the fill's forwards and one forward per sampled batch
+    # of each averaging run; eval runs no backward.
+    batches = -(-EVAL_SAMPLES // EVAL_BATCH)
+    expected = {"fwd": fills + AVERAGING_RUNS * batches, "bwd": 0}
+    print(f"eval kernel launches {launches} (expected {expected}: "
+          f"{fills} fill + {AVERAGING_RUNS} runs * {batches} batches)")
+    if launches != expected:
+        raise AssertionError(f"eval kernel launches {launches} != "
+                             f"{expected}")
+
+    record = report.evals[0]
+    phases = record["seconds"]
+    print("eval_seconds " + " ".join(f"{k} {v:.3f}"
+                                     for k, v in phases.items())
+          + f" total {seconds:.3f}")
+    # Each phase starts from a reset of the allocator's peak.
+    peaks = {k: v / 2 ** 30 for k, v in record["peak_bytes"].items()}
+    if set(peaks) != set(phases):
+        raise AssertionError(f"peak memory of phases {sorted(peaks)}, "
+                             f"timed {sorted(phases)}")
+    top = max(peaks, key=peaks.get)
+    print("eval_peak_memory_allocated_GiB " + " ".join(
+        f"{k} {v:.2f}" for k, v in peaks.items()) + f" (peak in {top})")
+    sampled = AVERAGING_RUNS * batches * EVAL_BATCH
+    inception_seconds = phases["inception_fake"] + phases["inception_real"]
+    print(f"sampling_images_per_second {sampled / phases['sampling']:.1f} "
+          f"inception_images_per_second "
+          f"{(sampled + EVAL_SAMPLES) / inception_seconds:.1f} "
+          f"peak_memory_allocated_GiB {peaks[top]:.2f}")
+
+    # Eval-mode samples of the filled checkpoint: EMA weights, accumulated
+    # BN statistics.
+    options = runner_lib.get_options_dict()
+    gan = options["gan_class"](dataset=datasets.get_dataset(),
+                               parameters=options, model_dir=model_dir,
+                               device="cuda")
+    ts = eval_gan_lib.restored_state(
+        gan, os.path.join(export_dir, f"model.ckpt-{STEPS}.npz"),
+        eval_gan_lib.EvalCache())
+    z, labels = eval_gan_lib.eval_draws(gan, EVAL_BATCH, "run0", 0)
+    images = gan.sample(ts, z, labels).float()
+    if tuple(images.shape) != (EVAL_BATCH, 128, 128, 3) or not bool(
+            torch.isfinite(images).all()) or images.min() < 0 \
+            or images.max() > 1:
+        raise AssertionError(f"bad eval samples: shape "
+                             f"{tuple(images.shape)}, range "
+                             f"[{images.min()}, {images.max()}]")
+    print(f"eval samples {tuple(images.shape)} in "
+          f"[{images.min().item():.3f}, {images.max().item():.3f}]")
+    return launches
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "compare_gan_torch")):
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -319,16 +530,20 @@ def main():
 
     check_device(torch)
     build_kernels()
-    kernels = compare_kernels(torch)
+    kernels, eval_row = compare_kernels(torch)
     model_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         launches = run_main_path(torch, model_dir)
+        eval_launches = run_eval(torch, model_dir)
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
+    launches = {k: launches[k] + eval_launches[k] for k in launches}
 
     source = "compare_gan_torch/csrc/attention.cu"
     replaces = {"fwd": "compare_gan_tpu/ops/pallas_attention.py:90",
                 "bwd": "compare_gan_tpu/ops/pallas_attention.py:146"}
+    eval_row["launches"] = eval_launches["fwd"]
+    print("eval_shape_forward " + json.dumps(eval_row))
     print(json.dumps({"kernels": [
         {"name": f"attention_{k}", "route": "cuda", "source": source,
          "replaces": replaces[k], "launches": launches[k],

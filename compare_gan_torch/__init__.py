@@ -13,6 +13,12 @@ reader, `hooks`), which the tests hold to the originals.
 The SAGAN attention of the non-local block, forward and backward, runs as
 hand-written CUDA kernels (`csrc/attention.cu`, built with nvcc at first use
 into `compare_gan_torch/_build/`).
+
+Checkpoints are evaluated by `eval_gan_lib` (BN accumulator fill, EMA
+sampling, Inception features from `metrics/inception_net.py` on the weights
+of the JAX package's `.npz` layout, FID and IS) behind the CLI's
+eval_after_train and continuous_eval schedules; `export` writes and loads
+module exports in the JAX package's layout.
 """
 
 __version__ = "0.1.0"

@@ -20,10 +20,16 @@ Mixed precision is explicit, as in `_cast_compute`: z and images are cast to
 `compute_dtype`, the ops follow their input's type, and parameters,
 optimizer moments, BN moments and losses stay f32. No autocast, so the f32
 CPU path and the bf16 GPU path are one code path.
+
+`sample` and `discriminate` are the inference surface (the reference's hub
+"gen" and "disc" tags): G runs with its EMA shadows swapped in for its
+weights, in the type of its z, committing no state unless asked (the BN
+accumulator fill of eval_gan_lib commits).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
 from typing import Dict, List, Optional
@@ -172,7 +178,10 @@ class ModularGAN(AbstractGAN):
             distribution_fn, shape=shape, generator=generator, minval=minval,
             maxval=maxval, stddev=stddev)
 
-    def _one_hot(self, labels):
+    def _get_one_hot_labels(self, labels):
+        if not self.conditional:
+            raise ValueError("_get_one_hot_labels() called but GAN is not "
+                             "conditional.")
         if labels.dim() == 2:  # Soft labels pass through.
             return labels.float()
         return F.one_hot(labels.long(), self._dataset.num_classes).float()
@@ -230,8 +239,8 @@ class ModularGAN(AbstractGAN):
         images = features["images"]
         generated = features["generated"]
         if self.conditional:
-            y = self._one_hot(labels)
-            sampled_y = self._one_hot(features["sampled_labels"])
+            y = self._get_one_hot_labels(labels)
+            sampled_y = self._get_one_hot_labels(features["sampled_labels"])
             all_y = torch.cat([y, sampled_y], dim=0)
         else:
             y = sampled_y = all_y = None
@@ -308,7 +317,7 @@ class ModularGAN(AbstractGAN):
                        precomputed_fake=None):
         """One D training sub-step (modular_gan.py:386-420)."""
         if precomputed_fake is None:
-            sampled_y = (self._one_hot(features["sampled_labels"])
+            sampled_y = (self._get_one_hot_labels(features["sampled_labels"])
                          if self.conditional else None)
             with torch.no_grad():
                 fake = self.generator(features["z"], y=sampled_y,
@@ -325,7 +334,7 @@ class ModularGAN(AbstractGAN):
 
     def _gen_sub_step(self, ts, images, labels, features, g_tx):
         """The G training sub-step + EMA (modular_gan.py:422-459)."""
-        sampled_y = (self._one_hot(features["sampled_labels"])
+        sampled_y = (self._get_one_hot_labels(features["sampled_labels"])
                      if self.conditional else None)
         features = dict(features, images=self._cast_compute(images))
         features["generated"] = self.generator(features["z"], y=sampled_y,
@@ -377,7 +386,7 @@ class ModularGAN(AbstractGAN):
             fakes = [None] * self._disc_iters
             if self._experimental_joint_gen_for_disc:
                 z = torch.cat([f["z"] for f in features[:-1]], dim=0)
-                y = (self._one_hot(torch.cat(
+                y = (self._get_one_hot_labels(torch.cat(
                     [f["sampled_labels"] for f in features[:-1]], dim=0))
                     if self.conditional else None)
                 with torch.no_grad():
@@ -400,6 +409,67 @@ class ModularGAN(AbstractGAN):
             return ts, metrics
 
         return train_step
+
+    # -- inference (the reference's TF-Hub module surface) -----------------
+
+    def _inference_params(self, ts: TrainState, use_ema=None
+                          ) -> Dict[str, Tensor]:
+        """Every parameter by JAX name, G's swapped for their EMA shadows
+        when the GAN keeps an EMA (the custom_getter of modular_gan.py
+        :266-284). State (SN u, BN accumulators) is not part of it."""
+        use_ema = self._g_use_ema if use_ema is None else use_ema
+        params = ts.params()
+        if use_ema:
+            if not ts.ema_params:
+                # An explicit EMA request on a non-EMA checkpoint must not
+                # silently evaluate raw weights as "EMA results".
+                raise ValueError(
+                    "use_ema=True but this TrainState has no EMA shadows "
+                    "(trained with g_use_ema=False).")
+            params.update(ts.ema_params)
+        return params
+
+    @contextlib.contextmanager
+    def _inference_weights(self, ts: TrainState, use_ema=None):
+        """G's parameters point at the inference params inside the block
+        (a swap of storage, no copy) and at their own storage after it."""
+        params = self._inference_params(ts, use_ema)
+        saved = []
+        try:
+            for name, p in ts.generator.jax_variables()[0].items():
+                if params[name] is not p:
+                    saved.append((p, p.data))
+                    p.data = params[name]
+            yield
+        finally:
+            for p, data in saved:
+                p.data = data
+
+    def sample(self, ts: TrainState, z, labels=None, use_ema=None,
+               is_training=False, commit_state=False):
+        """Images [B, H, W, C] in [0, 1] from z (and labels, for a
+        conditional GAN) with the inference params (the hub "gen" tag,
+        modular_gan.py:225-287). z runs in its own type: `compute_dtype`
+        does not apply, as in the JAX package. The forward commits no state
+        unless `commit_state` (the JAX function returns its new state,
+        which its eval callers drop except when filling BN accumulators)."""
+        z = self._to_device(z)
+        y = (self._get_one_hot_labels(self._to_device(labels))
+             if self.conditional else None)
+        no_commit = (contextlib.nullcontext() if commit_state
+                     else core.no_state_updates())
+        with torch.no_grad(), no_commit, \
+                self._inference_weights(ts, use_ema):
+            return ts.generator(z, y=y, is_training=is_training)
+
+    def discriminate(self, ts: TrainState, images, labels=None):
+        """The hub "disc" tag: (prediction, logits, features) of D in eval
+        mode with the raw params; commits no state."""
+        images = self._to_device(images)
+        y = (self._get_one_hot_labels(self._to_device(labels))
+             if self.conditional else None)
+        with torch.no_grad(), core.no_state_updates():
+            return ts.discriminator(images, y=y, is_training=False)
 
     # -- input -------------------------------------------------------------
 

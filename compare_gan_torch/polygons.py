@@ -100,13 +100,16 @@ def _rasterize_all(per_image_angles, scale, raster_dim, subpixel_res,
                    shift_to_mean=False, n_workers=0):
     """Rasterize a list of pre-drawn angle arrays, optionally across
     worker processes. The rng was already consumed by _draw_vertex_angles
-    in instance order, so worker scheduling cannot change the output."""
+    in instance order, so worker scheduling cannot change the output.
+    Workers are spawned, not forked: a fork of a process that runs torch
+    (or any other) threads can inherit a lock held by one of them and
+    deadlock."""
     if n_workers and len(per_image_angles) > 1:
         import multiprocessing
 
         args = [(a, scale, raster_dim, subpixel_res, shift_to_mean)
                 for a in per_image_angles]
-        with multiprocessing.Pool(n_workers) as pool:
+        with multiprocessing.get_context("spawn").Pool(n_workers) as pool:
             images = pool.starmap(_rasterize_polygon, args, chunksize=64)
         return np.stack(images)
     return np.stack([

@@ -4,6 +4,9 @@ compare_gan_tpu/utils/misc.py, which imports jax)."""
 from __future__ import annotations
 
 import inspect
+import math
+
+import numpy as np
 
 
 def call_with_accepted_args(fn, **kwargs):
@@ -20,3 +23,24 @@ def call_with_accepted_args(fn, **kwargs):
         return fn(**kwargs)
     return fn(**{k: v for k, v in kwargs.items() if k in sig.parameters})
 
+
+def image_grid(images, grid_shape=None):
+    """Tile [N, H, W, C] into one [gh*H, gw*W, C] image (summaries,
+    modular_gan.py:308-343). Without `grid_shape` the grid is the smallest
+    square-ish one that holds N; empty cells are black."""
+    images = np.asarray(images)
+    n, h, w, c = images.shape
+    if grid_shape is None:
+        gw = int(math.ceil(math.sqrt(n)))
+        gh = int(math.ceil(n / gw))
+    else:
+        gh, gw = grid_shape
+        if n > gh * gw:
+            images, n = images[:gh * gw], gh * gw  # Only first gh*gw used.
+    pad = gh * gw - n
+    if pad > 0:
+        images = np.concatenate(
+            [images, np.zeros((pad, h, w, c), images.dtype)], 0)
+    return (images.reshape(gh, gw, h, w, c)
+            .transpose(0, 2, 1, 3, 4)
+            .reshape(gh * h, gw * w, c))

@@ -27,6 +27,25 @@ def test_bf16_bounds_are_the_flop_count(shape, fwd_us, bwd_us):
     assert abs(1e3 * bounds["bwd"][0] - bwd_us) < 0.01
 
 
+def test_f32_bound_takes_the_tf32_tensor_core_rate():
+    """The eval shape (G after B4 at batch 64, f32): 2*B*N*M*(C + Cg)
+    flops at 495 TFLOP/s."""
+    ms, by = chip_smoke.bounds_ms((64, 4096, 1024, 24, 96), "float32")["fwd"]
+    assert by == "operations" and abs(1e3 * ms - 130.15) < 0.01
+
+
+@pytest.mark.parametrize("shape,dtype_name,us", [
+    # f32: 2*B*N*M*(4*CP + 2*GP) at 989 TFLOP/s (CP, GP = 32, 96 for G;
+    # 16, 48 for D); bf16: 2*B*N*M*(CP + GP).
+    ((64, 4096, 1024, 24, 96), "float32", 173.71),
+    ((32, 4096, 1024, 12, 48), "float32", 43.43),
+    ((32, 4096, 1024, 12, 48), "bfloat16", 17.37),
+])
+def test_issued_mma_floor_counts_the_split_and_the_padding(shape, dtype_name,
+                                                           us):
+    assert abs(1e3 * chip_smoke.issued_fwd_ms(shape, dtype_name) - us) < 0.01
+
+
 def test_a_memory_bound_shape_is_bound_by_bytes():
     """With one key the work is a copy: bytes over 3.35 TB/s."""
     b, n, m, c, cg = 4, 8192, 1, 32, 128

@@ -85,12 +85,19 @@ def test_cli_trains_and_checkpoints(tmp_path):
 
 
 def test_cli_refuses_a_missing_gpu_and_unported_schedules(tmp_path):
+    """Without a card, --device=cuda (the default) raises before any work,
+    on the train and the eval schedules alike; an unknown schedule raises
+    the JAX package's ValueError."""
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            main.main(_argv(tmp_path, "--device=cuda"))
+        for schedule in ("train", "eval_after_train"):
+            tgin.clear_config()
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                main.main(_argv(tmp_path, "--device=cuda",
+                                f"--schedule={schedule}"))
+        assert not os.listdir(tmp_path)
     tgin.clear_config()
-    with pytest.raises(NotImplementedError, match="eval_after_train"):
-        main.main(_argv(tmp_path, "--schedule=eval_after_train"))
+    with pytest.raises(ValueError, match="Schedule eval_once not supported"):
+        main.main(_argv(tmp_path, "--schedule=eval_once"))
 
 
 def test_checkpoint_round_trip_is_bitwise(tmp_path):
@@ -138,14 +145,18 @@ def test_checkpoint_retention(tmp_path):
 
 
 def test_importing_the_port_loads_no_jax(tmp_path):
-    """Importing the port, and training two CPU steps through its CLI, load
-    neither jax nor any module of the JAX package."""
+    """Importing the port (its eval modules included), and training two CPU
+    steps through its CLI, load neither jax nor any module of the JAX
+    package."""
     argv = _argv(tmp_path / "run")
     code = ("import sys\n"
             "import compare_gan_torch, compare_gan_torch.main\n"
             "import compare_gan_torch.ops.fused_attention\n"
             "import compare_gan_torch.architectures, compare_gan_torch.interop\n"
             "import compare_gan_torch.checkpoint\n"
+            "import compare_gan_torch.eval_gan_lib, compare_gan_torch.export\n"
+            "import compare_gan_torch.metrics.inception_net\n"
+            "import compare_gan_torch.metrics.fid_score\n"
             "def check():\n"
             "    assert 'jax' not in sys.modules, 'jax imported'\n"
             "    assert 'jaxlib' not in sys.modules\n"

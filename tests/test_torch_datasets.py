@@ -75,6 +75,21 @@ def test_polygon_set_equals_the_jax_package(tmp_path, monkeypatch):
     _assert_same_batches(sub, seed=5, batch_size=8, count=3, eval_batches=2)
 
 
+@pytest.mark.parametrize("generate", ["generate_multiclass_dataset",
+                                      "generate_oriented_dataset"])
+def test_worker_pool_rasterizes_what_the_serial_path_does(generate):
+    """`n_workers=2` rasterizes in spawned processes (a fork of a process
+    with torch threads can deadlock): the images and labels are bitwise
+    those of the port's and the JAX package's serial paths."""
+    kw = dict(n_instances=24, raster_dim=16, subpixel_res=4, seed=7)
+    pooled = getattr(polygons, generate)(n_workers=2, **kw)
+    serial = getattr(polygons, generate)(n_workers=0, **kw)
+    reference = getattr(jpolygons, generate)(n_workers=0, **kw)
+    for got, want in ((pooled, serial), (pooled, reference)):
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
 def test_gin_selects_the_dataset_and_its_transform():
     """`dataset.name` and `train_imagenet_transform.crop_method` bind in the
     port's own registry, as in the JAX package's."""
