@@ -48,12 +48,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    samples, and the attention launches (16 + 3 * 2 forwards). Prints the
    scores, the seconds and the peak device memory of each phase, and
    images per second.
-6. Prints the eval shape's forward row as a JSON line of its own
-   (`eval_shape_forward {...}`, with its eval launches), then one JSON
-   line describing each kernel ("ms", "plain_ms", "library_ms",
-   "bound_ms": one call at each bf16 training shape, G and D at batch 32,
-   summed; "launches": the training and the eval runs together), then,
-   as the last line, {"ok": true, "device": {...}}.
+6. S3GAN main path: 3 steps of S3GAN on BigGAN-128 at full width through
+   the CLI with example_configs/s3gan32_polygons_partial.gin on fake
+   ImageNet-128: batch 16, rotation (rotated_batch_fraction 4), projection
+   and soft predictor heads, bf16, joint G forward, fake-only G loss off.
+   D sees [real, real-rot, fake, fake-rot] = 2*16 + 2*3*1 = 38 rows, the
+   shape the kernels phase also holds to plain (D after B1 at batch 38,
+   f32 and bf16). Checks the parameter counts (G 70,433,988; D with its
+   heads 89,525,518), finite losses (the rotation and class losses
+   included), the three head scopes in model.ckpt-3.npz, TRAIN_DONE and
+   the attention launches (5 forward and 4 backward per step). Prints
+   seconds per step after the first and peak device memory.
+7. SSGAN main path: 3 steps of SSGAN on ResNet-CIFAR-32 at its published
+   widths through the CLI with example_configs/ssgan32_polygons_oriented.gin
+   on fake CIFAR-10 (batch 64, 64 rotated examples: D sees 224 rows, f32).
+   Checks the parameter counts (G 5,849,603; D with its head 1,483,653),
+   finite losses (the rotation losses included), the checkpoint and that
+   no attention kernel ran (the architecture has no attention). Prints
+   seconds per step and peak device memory.
+8. Prints the eval shape's forward row and the S3GAN D shape's bf16 row as
+   JSON lines of their own (`eval_shape_forward {...}`,
+   `s3gan_shape {...}`), then one JSON line describing each kernel ("ms",
+   "plain_ms", "library_ms", "bound_ms": one call at each bf16 training
+   shape of BigGAN-128, G and D at batch 32, summed; "launches": every
+   main-path run together, each counted from 0), then, as the last line,
+   {"ok": true, "device": {...}}.
 """
 
 import json
@@ -70,10 +89,22 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # shape, run forward in f32.
 SHAPES = {"G_B4": (32, 4096, 1024, 24, 96), "D_B1": (32, 4096, 1024, 12, 48)}
 EVAL_SHAPE = ("G_B4_eval", (64, 4096, 1024, 24, 96))
+# S3GAN's D batch at 16 per sub-step: real and fake, plus 3 rotations of
+# 16 / 4 / 4 = 1 example each.
+S3GAN_BATCH, S3GAN_ROTATED_FRACTION = 16, 4
+S3GAN_D_ROWS = 2 * S3GAN_BATCH + 2 * 3 * (S3GAN_BATCH
+                                          // S3GAN_ROTATED_FRACTION // 4)
+S3GAN_SHAPE = ("D_B1_s3gan", (S3GAN_D_ROWS, 4096, 1024, 12, 48))
 # f32: the same f32 arithmetic summed in another order. bf16: both sides
 # round one f32 result to bf16 (the JAX package's Pallas tests use 2e-2).
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 G_PARAMS, D_PARAMS = 70433988, 87982370
+# G and D with its heads (tests/test_torch_resnet_cifar.py takes both from
+# the JAX package's init_state).
+S3GAN_PARAMS = (70433988, 89525518)
+SSGAN_PARAMS = (5849603, 1483653)
+HEAD_SCOPES = ("discriminator_rotation/", "discriminator_predictor/",
+               "discriminator_projection/")
 STEPS = 3
 EVAL_BATCH, ACCU_EXAMPLES, AVERAGING_RUNS, EVAL_SAMPLES = 64, 1024, 3, 100
 # Inception on the card against the CPU, both full f32: relative to the
@@ -195,18 +226,22 @@ def _sdpa_backend(torch, q, k, v):
 
 def _cases():
     """(name, shape, dtype name, with backward, summed into the JSON line)
-    of every kernel comparison: the line sums the bf16 training shapes; the
-    eval shape is reported on a line of its own."""
+    of every kernel comparison: the line sums the bf16 training shapes of
+    BigGAN-128; the eval shape and the S3GAN D shape are reported on lines
+    of their own."""
     for name, shape in SHAPES.items():
         for dtype_name in ("float32", "bfloat16"):
             yield name, shape, dtype_name, True, dtype_name == "bfloat16"
     yield EVAL_SHAPE + ("float32", False, False)
+    for dtype_name in ("float32", "bfloat16"):
+        yield S3GAN_SHAPE + (dtype_name, True, False)
 
 
 def compare_kernels(torch):
     """Kernel vs plain version per shape and type. Returns per kernel its
     max abs error over every case, and times and bounds summed over the
-    bf16 training shapes; and the eval shape's forward row."""
+    bf16 training shapes; the eval shape's forward row; and the S3GAN D
+    shape's bf16 row (forward and backward)."""
     _phase("kernels")
     from compare_gan_torch.ops import fused_attention as fa
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -214,7 +249,7 @@ def compare_kernels(torch):
     result = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                   "library_ms": 0.0, "bound_ms": 0.0, "bound_by": ""}
               for k in ("fwd", "bwd")}
-    eval_row = None
+    eval_row = s3gan_row = None
     for name, (b, n, m, c, cg), dtype_name, with_bwd, summed in _cases():
         dtype = getattr(torch, dtype_name)
         tol = TOL[dtype_name]
@@ -239,6 +274,7 @@ def compare_kernels(torch):
                                            fwd_err)
         del p_out
 
+        bwd_err = 0.0
         if with_bwd:
             dth, dph, dg = fa.attention_bwd(theta, phi, g, dout, mx, den)
             torch.cuda.synchronize()
@@ -254,6 +290,7 @@ def compare_kernels(torch):
                                   what + "*"))
             result["bwd"]["max_abs_err"] = max(result["bwd"]["max_abs_err"],
                                                err)
+            bwd_err = err
             del plain, auto, leaves
 
         # The library call: one head, scale 1, value width Cg != C.
@@ -301,77 +338,121 @@ def compare_kernels(torch):
         print(f"  fwd issued-MMA floor {issued:.4f} ms (bf16 MMAs at "
               f"{PEAK_FLOPS['bfloat16'] / 1e12:g} TFLOP/s): kernel at "
               f"{100 * issued / times['fwd']:.1f}% of it")
+        rows = {kern: {
+            "name": f"attention_{kern}", "shape": name, "B": b,
+            "dtype": dtype_name,
+            "max_abs_err": fwd_err if kern == "fwd" else bwd_err,
+            "ms": times[kern], "plain_ms": times[kern + "_plain"],
+            "library_ms": times[kern + "_library"],
+            "bound_ms": bounds[kern][0], "bound_by": bounds[kern][1]}
+            for kern in kerns}
         if (name, shape) == EVAL_SHAPE:
-            eval_row = {
-                "name": "attention_fwd", "shape": name, "B": b,
-                "dtype": dtype_name, "max_abs_err": fwd_err,
-                "ms": times["fwd"], "plain_ms": times["fwd_plain"],
-                "library_ms": times["fwd_library"],
-                "bound_ms": bounds["fwd"][0], "bound_by": bounds["fwd"][1],
-                "issued_mma_ms": issued}
+            eval_row = dict(rows["fwd"], issued_mma_ms=issued)
+        if (name, shape) == S3GAN_SHAPE and dtype_name == "bfloat16":
+            s3gan_row = {"shape": name, "B": b, "dtype": dtype_name,
+                         "fwd": dict(rows["fwd"], issued_mma_ms=issued),
+                         "bwd": rows["bwd"]}
         del q, k, v, theta, phi, g, dout, out, mx, den, p_mx, p_den
         torch.cuda.empty_cache()
-    return result, eval_row
+    return result, eval_row, s3gan_row
 
 
-def _argv(model_dir, schedule):
-    """The CLI arguments of both main-path phases: the benchmark options."""
-    config = os.path.join(ROOT, "example_configs", "biggan_imagenet128.gin")
+def _cli_argv(model_dir, config, bindings, schedule="train"):
+    """A CLI run on the card with fake data: `config` from example_configs
+    with `bindings` on top, 3 steps, one host sync per step, one
+    checkpoint at the end."""
     return [
         f"--model_dir={model_dir}", f"--schedule={schedule}",
-        "--device=cuda", "--data_fake_dataset", f"--gin_config={config}",
-        "--gin_bindings=options.batch_size = 16",
+        "--device=cuda", "--data_fake_dataset",
+        f"--gin_config={os.path.join(ROOT, 'example_configs', config)}",
         f"--gin_bindings=options.training_steps = {STEPS}",
         "--gin_bindings=run_config.iterations_per_loop = 1",
         f"--gin_bindings=run_config.save_checkpoints_steps = {STEPS}",
-        "--gin_bindings=ModularGAN.compute_dtype = 'bfloat16'",
-        "--gin_bindings=ModularGAN.experimental_joint_gen_for_disc = True",
-        "--gin_bindings=ModularGAN.experimental_fake_only_g_loss = True",
-    ]
+    ] + [f"--gin_bindings={b}" for b in bindings]
 
 
-def run_main_path(torch, model_dir):
-    _phase("main path")
+def _argv(model_dir, schedule):
+    """The CLI arguments of both BigGAN-128 phases: the benchmark
+    options."""
+    return _cli_argv(model_dir, "biggan_imagenet128.gin", [
+        "options.batch_size = 16",
+        "ModularGAN.compute_dtype = 'bfloat16'",
+        "ModularGAN.experimental_joint_gen_for_disc = True",
+        "ModularGAN.experimental_fake_only_g_loss = True",
+    ], schedule)
+
+
+def _train_and_check(torch, model_dir, argv, params, expected_launches,
+                     losses=(), head_scopes=()):
+    """Train through the CLI with every launch counter at 0; check the
+    parameter counts (G, D with its heads), finite losses (`losses` among
+    them), the steps, model.ckpt-3.npz (with `head_scopes`), TRAIN_DONE
+    and the attention launches; print seconds per step and peak memory.
+    Returns (report, launches)."""
+    from compare_gan_torch import config as gin
     from compare_gan_torch import core, main
     from compare_gan_torch.ops import fused_attention as fa
+    gin.clear_config()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     fa.launches_fwd = fa.launches_bwd = 0
-    report = main.main(_argv(model_dir, "train"))
+    report = main.main(argv)
     launches = {"fwd": fa.launches_fwd, "bwd": fa.launches_bwd}
     torch.cuda.synchronize()
 
     ts = report.state
-    g_count = core.count_params(ts.generator)
-    d_count = core.count_params(ts.discriminator)
-    print(f"params G {g_count:,} D {d_count:,}")
-    if (g_count, d_count) != (G_PARAMS, D_PARAMS):
-        raise AssertionError(f"parameter counts {g_count}, {d_count} != "
-                             f"{G_PARAMS}, {D_PARAMS}")
-    for step, losses in zip(report.steps, report.metrics):
+    counts = (core.count_params(ts.generator),
+              core.count_params(ts.discriminator)
+              + core.count_params(ts.heads))
+    print(f"params G {counts[0]:,} D with heads {counts[1]:,}")
+    if counts != tuple(params):
+        raise AssertionError(f"parameter counts {counts} != {params}")
+    for step, metrics in zip(report.steps, report.metrics):
         print(f"step {step} " + " ".join(
-            f"{k}={v:.6f}" for k, v in sorted(losses.items())))
+            f"{k}={v:.6f}" for k, v in sorted(metrics.items())))
         if not all(v == v and abs(v) != float("inf")
-                   for v in losses.values()):
+                   for v in metrics.values()):
             raise AssertionError(f"non-finite losses at step {step}")
+        missing = set(losses) - set(metrics)
+        if missing:
+            raise AssertionError(f"losses {sorted(missing)} not reported")
     if report.steps != list(range(1, STEPS + 1)) or ts.step != STEPS:
         raise AssertionError(f"trained steps {report.steps}, not {STEPS}")
     for name in (f"model.ckpt-{STEPS}.npz", "TRAIN_DONE"):
         if not os.path.exists(os.path.join(model_dir, name)):
             raise AssertionError(f"{name} was not written")
-    # Per step: the joint G forward (1 fwd); two D sub-steps on
-    # concat(real, fake) (1 fwd + 1 bwd each); the G sub-step's G and D
-    # forwards and their backward (2 fwd + 2 bwd).
-    expected = {"fwd": 5 * STEPS, "bwd": 4 * STEPS}
-    print(f"kernel launches {launches} (expected {expected})")
-    if launches != expected:
-        raise AssertionError(f"kernel launches {launches} != {expected}")
+    if head_scopes:
+        import numpy as np
+        with np.load(os.path.join(model_dir, f"model.ckpt-{STEPS}.npz")) as d:
+            found = [scope for scope in head_scopes if any(
+                k.startswith(f".params['{scope}") for k in d.files)]
+        print(f"checkpoint head scopes {found}")
+        if found != list(head_scopes):
+            raise AssertionError(f"checkpoint lacks head scopes: "
+                                 f"{sorted(set(head_scopes) - set(found))}")
+    print(f"kernel launches {launches} (expected {expected_launches})")
+    if launches != expected_launches:
+        raise AssertionError(f"kernel launches {launches} != "
+                             f"{expected_launches}")
     per_step = report.seconds_per_step[1:]
     print("seconds_per_step_after_first " + " ".join(
         f"{s:.4f}" for s in per_step)
         + f" (first {report.seconds_per_step[0]:.3f})")
     print(f"peak_memory_allocated_GiB "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}")
+    return report, launches
 
+
+def run_main_path(torch, model_dir):
+    _phase("main path")
+    from compare_gan_torch import core
+    # Per step: the joint G forward (1 fwd); two D sub-steps on
+    # concat(real, fake) (1 fwd + 1 bwd each); the G sub-step's G and D
+    # forwards and their backward (2 fwd + 2 bwd).
+    report, launches = _train_and_check(
+        torch, model_dir, _argv(model_dir, "train"), (G_PARAMS, D_PARAMS),
+        {"fwd": 5 * STEPS, "bwd": 4 * STEPS})
+    ts = report.state
     with torch.no_grad(), core.no_state_updates():
         z = torch.randn(4, 120, device="cuda").to(torch.bfloat16)
         y = torch.nn.functional.one_hot(torch.arange(4, device="cuda"),
@@ -384,6 +465,42 @@ def run_main_path(torch, model_dir):
                              f"range [{images.min()}, {images.max()}]")
     print(f"samples {tuple(images.shape)} in [{images.min().item():.3f}, "
           f"{images.max().item():.3f}]")
+    return launches
+
+
+def run_s3gan(torch, model_dir):
+    """S3GAN-128 at full width, batch 16, bf16: the joint G forward, two D
+    sub-steps and the G sub-step each run the attention as BigGAN does (5
+    forward and 4 backward launches a step), D on 38 rows."""
+    _phase("S3GAN main path")
+    argv = _cli_argv(model_dir, "s3gan32_polygons_partial.gin", [
+        "dataset.name = 'imagenet_128'",
+        f"options.batch_size = {S3GAN_BATCH}",
+        f"S3GAN.rotated_batch_fraction = {S3GAN_ROTATED_FRACTION}",
+        "S3GAN.compute_dtype = 'bfloat16'",
+        "S3GAN.experimental_joint_gen_for_disc = True",
+    ])
+    _, launches = _train_and_check(
+        torch, model_dir, argv, S3GAN_PARAMS,
+        {"fwd": 5 * STEPS, "bwd": 4 * STEPS},
+        losses=("loss/rotation_real_loss", "loss/rotation_fake_loss",
+                "loss/rotation_accuracy_real", "loss/class_loss_real",
+                "loss/label_frac"),
+        head_scopes=HEAD_SCOPES)
+    return launches
+
+
+def run_ssgan(torch, model_dir):
+    """SSGAN on ResNet-CIFAR-32 at its published widths and batch (64, 64
+    rotated examples), f32: no attention on this path."""
+    _phase("SSGAN main path")
+    argv = _cli_argv(model_dir, "ssgan32_polygons_oriented.gin",
+                     ["dataset.name = 'cifar10'"])
+    _, launches = _train_and_check(
+        torch, model_dir, argv, SSGAN_PARAMS, {"fwd": 0, "bwd": 0},
+        losses=("loss/c_real_loss", "loss/c_fake_loss",
+                "loss/rotation_accuracy"),
+        head_scopes=HEAD_SCOPES[:1])
     return launches
 
 
@@ -530,20 +647,28 @@ def main():
 
     check_device(torch)
     build_kernels()
-    kernels, eval_row = compare_kernels(torch)
+    kernels, eval_row, s3gan_row = compare_kernels(torch)
     model_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        launches = run_main_path(torch, model_dir)
-        eval_launches = run_eval(torch, model_dir)
+        runs = {}
+        runs["train"] = run_main_path(torch, os.path.join(model_dir, "biggan"))
+        runs["eval"] = run_eval(torch, os.path.join(model_dir, "biggan"))
+        runs["s3gan"] = run_s3gan(torch, os.path.join(model_dir, "s3gan"))
+        runs["ssgan"] = run_ssgan(torch, os.path.join(model_dir, "ssgan"))
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
-    launches = {k: launches[k] + eval_launches[k] for k in launches}
+    launches = {k: sum(r[k] for r in runs.values()) for k in ("fwd", "bwd")}
 
     source = "compare_gan_torch/csrc/attention.cu"
     replaces = {"fwd": "compare_gan_tpu/ops/pallas_attention.py:90",
                 "bwd": "compare_gan_tpu/ops/pallas_attention.py:146"}
-    eval_row["launches"] = eval_launches["fwd"]
+    eval_row["launches"] = runs["eval"]["fwd"]
     print("eval_shape_forward " + json.dumps(eval_row))
+    # The counters count calls, not shapes: of the S3GAN phase's 5 forward
+    # and 4 backward launches a step, 3 of each run at D's 38 rows.
+    for kern in ("fwd", "bwd"):
+        s3gan_row[kern]["phase_launches"] = runs["s3gan"][kern]
+    print("s3gan_shape " + json.dumps(s3gan_row))
     print(json.dumps({"kernels": [
         {"name": f"attention_{k}", "route": "cuda", "source": source,
          "replaces": replaces[k], "launches": launches[k],

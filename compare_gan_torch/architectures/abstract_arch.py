@@ -59,7 +59,6 @@ class AbstractDiscriminator(_Arch):
                  num_classes=None, batch_norm_fn=None, layer_norm=False,
                  spectral_norm=False, device=None):
         super().__init__(name, batch_norm_fn, spectral_norm, device)
-        if layer_norm:
-            raise NotImplementedError("D.layer_norm is not ported yet.")
+        self._layer_norm = layer_norm
         self._image_shape = tuple(image_shape) if image_shape else None
         self._num_classes = num_classes

@@ -17,39 +17,41 @@ from compare_gan_torch.ops import arch_ops as ops
 
 
 @gin.configurable("BigGanResNetBlock")
-class BigGanResNetBlock(resnet_ops.ResNetBlock):
-    """BigGAN block (resnet_biggan.py:26-65): BN-ReLU-conv twice, plus a
-    1x1 shortcut conv unless `add_shortcut` is False, in which case the
-    block has no skip at all (the reference's semantics)."""
+class BigGanResNetBlock(resnet_ops.BlockLayout):
+    """BigGAN block (resnet_biggan.py:26-65): BN (+ layer norm) - ReLU -
+    conv twice, plus a 1x1 shortcut conv unless `add_shortcut` is False, in
+    which case the block has no skip at all (the reference's semantics)."""
 
     def __init__(self, in_channels, out_channels, scale, is_gen_block,
-                 add_shortcut=True, spectral_norm=False, bn1=None, bn2=None,
-                 device=None):
+                 add_shortcut=True, layer_norm=False, spectral_norm=False,
+                 bn1=None, bn2=None, device=None):
         super().__init__(in_channels, out_channels, scale, is_gen_block,
                          spectral_norm=spectral_norm)
         self._add_shortcut = add_shortcut
-        sn = spectral_norm
+        self._layer_norm = layer_norm
         self.bn1 = bn1
-        self._conv1 = resnet_ops.conv_name(self._scale1, "conv1")
-        self.add_module(self._conv1, resnet_ops.scale_conv(
-            in_channels, out_channels, self._scale1, (3, 3), sn, device))
+        if layer_norm:
+            self.ln1 = ops.LayerNorm(in_channels, device=device)
+        self._conv1 = self._add_conv(in_channels, out_channels, self._scale1,
+                                     "conv1", (3, 3), device)
         self.bn2 = bn2
-        self._conv2 = resnet_ops.conv_name(self._scale2, "conv2")
-        self.add_module(self._conv2, resnet_ops.scale_conv(
-            out_channels, out_channels, self._scale2, (3, 3), sn, device))
+        if layer_norm:
+            self.ln2 = ops.LayerNorm(out_channels, device=device)
+        self._conv2 = self._add_conv(out_channels, out_channels,
+                                     self._scale2, "conv2", (3, 3), device)
         if add_shortcut:
-            self._shortcut = resnet_ops.conv_name(scale, "conv_shortcut")
-            self.add_module(self._shortcut, resnet_ops.scale_conv(
-                in_channels, out_channels, scale, (1, 1), sn, device))
+            self._shortcut = self._add_conv(in_channels, out_channels, scale,
+                                            "conv_shortcut", (1, 1), device)
 
     def forward(self, inputs, z, y, is_training):
-        if inputs.shape[-1] != self._in_channels:
-            raise ValueError(
-                f"Unexpected number of input channels (expected "
-                f"{self._in_channels}, got {inputs.shape[-1]}).")
+        self._check_inputs(inputs)
         out = self.bn1(inputs, z=z, y=y, is_training=is_training)
+        if self._layer_norm:
+            out = self.ln1(out)
         out = self._modules[self._conv1](F.relu(out))
         out = self.bn2(out, z=z, y=y, is_training=is_training)
+        if self._layer_norm:
+            out = self.ln2(out)
         out = self._modules[self._conv2](F.relu(out))
         if self._add_shortcut:
             out = out + self._modules[self._shortcut](inputs)
@@ -201,7 +203,7 @@ class Discriminator(abstract_arch.AbstractDiscriminator):
             self.add_module(name, BigGanResNetBlock(
                 cin, cout, "none" if i == num_blocks - 1 else "down",
                 is_gen_block=False, add_shortcut=cin != cout,
-                spectral_norm=sn,
+                layer_norm=self._layer_norm, spectral_norm=sn,
                 bn1=self.make_batch_norm(cin, self._num_classes),
                 bn2=self.make_batch_norm(cout, self._num_classes),
                 device=dev))
@@ -219,6 +221,11 @@ class Discriminator(abstract_arch.AbstractDiscriminator):
             self.embedding_fc = ops.SpectralNormKernel(
                 (self._num_classes, out_channels[-1]),
                 ops.glorot_normal_init(), use_sn=sn, device=dev)
+
+    @property
+    def feature_dim(self):
+        """Width of the features h that D returns."""
+        return self.final_fc.kernel.shape[0]
 
     def _get_in_out_channels(self, colors, resolution):
         if colors not in (1, 3):

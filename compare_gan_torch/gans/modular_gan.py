@@ -14,7 +14,10 @@ state follows the JAX trainer exactly:
 * penalty forwards commit nothing (`core.no_state_updates`).
 
 The port updates weights, optimizer moments, state buffers and the EMA in
-place; `train_step` returns the same TrainState it was given.
+place; `train_step` returns the same TrainState it was given. D's optimizer
+steps D and its auxiliary heads (`DiscriminatorHeads`, built by subclasses
+such as SSGAN and S3GAN), and the step's metrics carry a subclass's extra
+losses as `loss/<key>`.
 
 Mixed precision is explicit, as in `_cast_compute`: z and images are cast to
 `compute_dtype`, the ops follow their input's type, and parameters,
@@ -36,7 +39,6 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from compare_gan_torch import config as gin
 from compare_gan_torch import core
@@ -46,6 +48,19 @@ from compare_gan_torch.gans.abstract_gan import AbstractGAN
 from compare_gan_torch.ops import rng
 
 Tensor = torch.Tensor
+
+
+class DiscriminatorHeads(core.Module):
+    """D's auxiliary heads (SSGAN, S3GAN), held beside D. Each child is
+    named by its JAX scope (`discriminator_rotation`, ...), so its variables
+    carry their JAX names with no prefix. The JAX package gives D every
+    variable whose name starts with "discriminator" (abstract_arch.py:27-33):
+    D's optimizer steps the heads."""
+    name = ""
+
+    def jax_variables(self):
+        """({jax_name: parameter}, {jax_name: buffer})."""
+        return core.named_variables(self, self.name)
 
 
 @dataclasses.dataclass
@@ -60,14 +75,23 @@ class TrainState:
     step: int                           # G steps (tf global_step)
     disc_step: int                      # D sub-steps
     seed: int                           # base of the per-step draws
+    heads: DiscriminatorHeads           # D's auxiliary heads (may be empty)
+
+    def _variables(self, modules, which):
+        return {k: v for m in modules
+                for k, v in m.jax_variables()[which].items()}
 
     def params(self) -> Dict[str, Tensor]:
-        return {**self.generator.jax_variables()[0],
-                **self.discriminator.jax_variables()[0]}
+        return self._variables(
+            (self.generator, self.discriminator, self.heads), 0)
 
     def state(self) -> Dict[str, Tensor]:
-        return {**self.generator.jax_variables()[1],
-                **self.discriminator.jax_variables()[1]}
+        return self._variables(
+            (self.generator, self.discriminator, self.heads), 1)
+
+    def d_params(self) -> Dict[str, Tensor]:
+        """What D's optimizer steps: D's parameters and its heads'."""
+        return self._variables((self.discriminator, self.heads), 0)
 
 
 @gin.configurable("ModularGAN",
@@ -120,6 +144,7 @@ class ModularGAN(AbstractGAN):
         self._disc_iters = self._parameters.get("disc_iters", 1)
         self._generator = None
         self._discriminator = None
+        self._heads = None
 
     # -- properties --------------------------------------------------------
 
@@ -165,6 +190,18 @@ class ModularGAN(AbstractGAN):
                 num_classes=self._num_classes(), device=self._device)
         return self._discriminator
 
+    @property
+    def heads(self) -> DiscriminatorHeads:
+        """D's auxiliary heads, built by `make_heads` on first use."""
+        if self._heads is None:
+            self._heads = self.make_heads()
+        return self._heads
+
+    def make_heads(self) -> DiscriminatorHeads:
+        """A subclass whose loss reads heads on D's features builds them
+        here; ModularGAN's are empty (no variables)."""
+        return DiscriminatorHeads()
+
     def _num_classes(self):
         return self._dataset.num_classes if self._conditional else None
 
@@ -184,7 +221,11 @@ class ModularGAN(AbstractGAN):
                              "conditional.")
         if labels.dim() == 2:  # Soft labels pass through.
             return labels.float()
-        return F.one_hot(labels.long(), self._dataset.num_classes).float()
+        # As jax.nn.one_hot: a label outside [0, num_classes), such as the
+        # -1 of an unlabeled example, is an all-zero row.
+        classes = torch.arange(self._dataset.num_classes,
+                               device=labels.device)
+        return (labels.long()[:, None] == classes).float()
 
     def _cast_compute(self, x):
         if self._compute_dtype is not None and x is not None and \
@@ -290,22 +331,25 @@ class ModularGAN(AbstractGAN):
     # -- init --------------------------------------------------------------
 
     def init_state(self, seed) -> TrainState:
-        """Build G and D on the device and fill every variable from its own
-        seeded stream (core.initialize)."""
-        g, d = self.generator, self.discriminator
+        """Build G, D and D's heads on the device and fill every variable
+        from its own seeded stream (core.initialize)."""
+        g, d, heads = self.generator, self.discriminator, self.heads
         for module, seed_name in ((g, "init/generator"),
-                                  (d, "init/discriminator")):
+                                  (d, "init/discriminator"),
+                                  (heads, "init/discriminator_heads")):
             core.assign_scopes(module, module.name)
             core.initialize(module, module.name,
                             core.seed_for(seed, seed_name))
-        g_params, d_params = g.jax_variables()[0], d.jax_variables()[0]
+        g_params = g.jax_variables()[0]
         g_tx, d_tx = self._make_optimizers()
-        return TrainState(
+        ts = TrainState(
             generator=g, discriminator=d,
             ema_params=({k: v.detach().clone() for k, v in g_params.items()}
                         if self._g_use_ema else {}),
-            g_opt=g_tx.init(g_params), d_opt=d_tx.init(d_params),
-            step=0, disc_step=0, seed=int(seed))
+            g_opt=g_tx.init(g_params), d_opt=None,
+            step=0, disc_step=0, seed=int(seed), heads=heads)
+        ts.d_opt = d_tx.init(ts.d_params())
+        return ts
 
     def _make_optimizers(self):
         return (self._g_optimizer_fn(self._g_lr),
@@ -327,8 +371,11 @@ class ModularGAN(AbstractGAN):
         features = dict(features, generated=fake.detach(),
                         images=self._cast_compute(images))
         losses = self.create_loss(features, labels, is_training=True)
-        d_params = self.discriminator.jax_variables()[0]
-        grads = torch.autograd.grad(losses["d_loss"], list(d_params.values()))
+        d_params = ts.d_params()
+        # A head the loss does not read (SSGAN's rotation head with
+        # self_supervision "none") gets a zero gradient, as under jax.grad.
+        grads = torch.autograd.grad(losses["d_loss"], list(d_params.values()),
+                                    materialize_grads=True)
         d_tx.step(d_params, dict(zip(d_params, grads)), ts.d_opt)
         return losses
 
@@ -404,6 +451,11 @@ class ModularGAN(AbstractGAN):
             losses = self._gen_sub_step(ts, images_s[-1], labels_s[-1],
                                         features[-1], g_tx)
             metrics["loss/g"] = losses["g_loss"].detach()
+            # A subclass's extra losses and rates (SSGAN, S3GAN), as the JAX
+            # step passes them on (modular_gan.py:523-528).
+            for k, v in losses.items():
+                if k not in ("d_loss", "g_loss", "penalty_loss"):
+                    metrics[f"loss/{k}"] = v.detach()
             ts.step += 1
             ts.disc_step += self._disc_iters
             return ts, metrics

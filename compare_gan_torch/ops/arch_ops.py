@@ -1,6 +1,8 @@
-"""Layers of the BigGAN main path, as nn.Modules with the JAX names.
+"""Layers of the ported architectures, as nn.Modules with the JAX names.
 
-Counterpart of compare_gan_tpu/ops/arch_ops.py (main-path ops only). Public
+Counterpart of compare_gan_tpu/ops/arch_ops.py (the ops of BigGAN and
+ResNet-CIFAR; deconv2d, self-modulated BN, evonorm and the weight-norm
+layers are not ported). Public
 layouts follow the JAX package: activations NHWC, linear kernels [in, out],
 conv kernels HWIO in checkpoints. The port stores conv kernels OIHW and runs
 `F.conv2d` on an NCHW view of the NHWC activations (a channels_last tensor,
@@ -449,6 +451,27 @@ class ConditionalBatchNorm(StandardizeBatch):
             beta = self.condition.beta(y)
             out = out + beta[:, None, None, :].to(out.dtype)
         return out
+
+
+class LayerNorm(core.Module):
+    """Layer norm over every non-batch axis with per-channel gamma/beta
+    (`layer_norm`, arch_ops.py:517-530): f32 moments, var = E[(x - mean)^2],
+    epsilon 1e-12, output in the input's type."""
+
+    def __init__(self, num_channels, device=None):
+        super().__init__()
+        self.gamma = self.add_param("gamma", (num_channels,), ones_init(),
+                                    device)
+        self.beta = self.add_param("beta", (num_channels,), zeros_init(),
+                                   device)
+
+    def forward(self, x):
+        x32 = x.float()
+        dims = tuple(range(1, x.dim()))
+        mean = x32.mean(dim=dims, keepdim=True)
+        var = (x32 - mean).square().mean(dim=dims, keepdim=True)
+        out = (x32 - mean) * torch.rsqrt(var + 1e-12)
+        return (out * self.gamma + self.beta).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

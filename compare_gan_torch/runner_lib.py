@@ -217,8 +217,10 @@ def train(gan, run_config: RunConfig, task_manager: TaskManager,
     seed = (547 if run_config.tf_random_seed is None
             else run_config.tf_random_seed)
     ts = gan.init_state(seed)
-    for module in (ts.generator, ts.discriminator):
-        logger.info("%s: %d variables, %s parameters", module.name,
+    for label, module in (("generator", ts.generator),
+                          ("discriminator", ts.discriminator),
+                          ("discriminator heads", ts.heads)):
+        logger.info("%s: %d variables, %s parameters", label,
                     len(module.jax_variables()[0]),
                     f"{core.count_params(module):,}")
     if latest:

@@ -7,6 +7,21 @@ import inspect
 import math
 
 import numpy as np
+import torch
+
+
+def rotate_images(images, rot90_scalars=(0, 1, 2, 3)):
+    """Rotated copies of an NHWC batch, grouped rotation-major: k
+    quarter-turns of each image as `jnp.rot90(x, k, axes=(1, 2))` turns it
+    (misc.py:53-64). Data movement only, so bitwise equal to the JAX
+    function."""
+    rotations = {
+        0: lambda x: x,
+        1: lambda x: x.transpose(1, 2).flip(1),
+        2: lambda x: x.flip(1).flip(2),
+        3: lambda x: x.transpose(1, 2).flip(2),
+    }
+    return torch.cat([rotations[i](images) for i in rot90_scalars], dim=0)
 
 
 def call_with_accepted_args(fn, **kwargs):

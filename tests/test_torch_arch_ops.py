@@ -1,7 +1,7 @@
 """The port's main-path ops against the JAX package's, on the same weights
 (carried across by interop.py) and the same inputs, f32 on the CPU:
 spectral norm (both modes), conv2d, up_conv2d, down_conv2d,
-standardize_batch (both modes), conditional_batch_norm and
+standardize_batch (both modes), conditional_batch_norm, layer_norm and
 non_local_block (through the attention kernel's plain path on the port's
 side and the Pallas kernel in interpret mode on the JAX side)."""
 
@@ -200,3 +200,26 @@ def test_non_local_block_forward_and_gradients():
                         atol=1e-5 * float(np.abs(want).max()), what=name)
     for name, value in new_s.items():
         th.assert_close(state[name], value, rtol=1e-5, atol=1e-6, what=name)
+
+
+@pytest.mark.parametrize("shape", [(4, 6, 6, 5), (3, 7)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm(shape, dtype):
+    """layer_norm (arch_ops.py:517-530) on non-unit gamma/beta: f32 moments
+    over every non-batch axis, output in the input's type (bf16: both
+    sides round one f32 result, so at most one bf16 ulp apart)."""
+    x = th.randn(shape, 3, scale=2.0) + 0.5
+
+    def fn():
+        return jops.layer_norm(jnp.asarray(x, dtype), is_training=True,
+                               scope="ln")
+
+    def params(p):
+        return {k: v * 1.5 + 0.25 for k, v in p.items()}
+
+    out, p, _, _ = _jax_run(fn, params=params)
+    module = _port(ops.LayerNorm(shape[-1]), "ln", p, {})
+    got = module(torch.from_numpy(x).to(getattr(torch, dtype)))
+    assert got.dtype == getattr(torch, dtype)
+    tol = 1e-5 if dtype == "float32" else 8e-3
+    th.assert_close(got, out, rtol=tol, atol=tol)

@@ -85,12 +85,26 @@ def _nonzero_gates(params):
                 else v) for k, v in params.items()}
 
 
-def test_generator_and_discriminator_forward_parity_32():
-    cfg = RECIPE + """
+SMALL = RECIPE + """
 resnet_biggan.Generator.ch = 8
 resnet_biggan.Generator.blocks_with_attention = "B2"
 resnet_biggan.Discriminator.ch = 8
 """
+
+
+def test_generator_and_discriminator_forward_parity_32():
+    _assert_forward_parity(SMALL)
+
+
+def test_discriminator_layer_norm_forward_parity_32():
+    """`D.layer_norm = True` adds ln1/ln2 to each D block under the JAX
+    names (resnet_biggan.py:44-55), with gamma/beta moved off their init
+    values so that both reach the output."""
+    _assert_forward_parity(SMALL + "D.layer_norm = True\n",
+                           layer_norm=True)
+
+
+def _assert_forward_parity(cfg, layer_norm=False):
     jgen, jdisc, gen, disc = _models(cfg)
     z = th.randn((4, 16), 0)
     y = np.eye(10, dtype=np.float32)[[1, 3, 3, 7]]
@@ -103,6 +117,10 @@ resnet_biggan.Discriminator.ch = 8
     _, params, state = jax.jit(lambda zz, yy: jcore.init(
         net, jax.random.PRNGKey(0), zz, yy))(jnp.asarray(z), jnp.asarray(y))
     params = _nonzero_gates(params)
+    lns = {k for k in params if "/ln" in k}
+    assert len(lns) == (16 if layer_norm else 0), sorted(lns)
+    params = {k: (v * 1.5 + 0.1 if k in lns else v)
+              for k, v in params.items()}
     (images, (prob, logits, h)), new_state = jax.jit(
         lambda p, s, zz, yy: jcore.apply(net, p, s, zz, yy))(
         params, state, jnp.asarray(z), jnp.asarray(y))

@@ -19,12 +19,28 @@ import chip_smoke  # noqa: E402
     # 2*B*N*M*(C + Cg) and 2*B*N*M*(3C + 2Cg) flops at 989 TFLOP/s.
     ((32, 4096, 1024, 24, 96), 32.57, 71.66),
     ((32, 4096, 1024, 12, 48), 16.28, 35.83),
+    ((38, 4096, 1024, 12, 48), 19.34, 42.55),
 ])
 def test_bf16_bounds_are_the_flop_count(shape, fwd_us, bwd_us):
     bounds = chip_smoke.bounds_ms(shape, "bfloat16")
     assert bounds["fwd"][1] == bounds["bwd"][1] == "operations"
     assert abs(1e3 * bounds["fwd"][0] - fwd_us) < 0.01
     assert abs(1e3 * bounds["bwd"][0] - bwd_us) < 0.01
+
+
+def test_s3gan_shape_is_the_d_batch_of_the_s3gan_phase():
+    """At 16 per sub-step with rotated_batch_fraction 4, S3GAN's D sees 16
+    real, 3 rotations of 1 real, 16 fake and 3 rotations of 1 fake: 38
+    rows, at D B1's widths. The phase pins the counts of
+    tests/test_torch_resnet_cifar.py."""
+    assert chip_smoke.S3GAN_SHAPE == ("D_B1_s3gan", (38, 4096, 1024, 12, 48))
+    assert chip_smoke.S3GAN_SHAPE[1][1:] == chip_smoke.SHAPES["D_B1"][1:]
+    assert chip_smoke.S3GAN_PARAMS == (70433988, 89525518)
+    assert chip_smoke.SSGAN_PARAMS == (5849603, 1483653)
+    cases = [(name, dtype, bwd, summed) for name, _, dtype, bwd, summed
+             in chip_smoke._cases() if name == "D_B1_s3gan"]
+    assert cases == [("D_B1_s3gan", "float32", True, False),
+                     ("D_B1_s3gan", "bfloat16", True, False)]
 
 
 def test_f32_bound_takes_the_tf32_tensor_core_rate():

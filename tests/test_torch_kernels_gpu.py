@@ -19,7 +19,8 @@ pytestmark = pytest.mark.gpu
 torch.set_num_threads(1)
 
 # (B, N, M, C, Cg): the two main-path shapes at a small batch and at the G
-# sub-step's batch of 16; a ragged shape that takes the zero-padded
+# sub-step's batch of 16; S3GAN's D batch of 38 (16 real, 16 fake and 3
+# rotations of one example each), not a multiple of 16; a ragged shape that takes the zero-padded
 # instantiation with rows too narrow for cp.async; the widest operands the
 # kernels take (C = 32, Cg = 128, their own instantiation); and one row
 # block over fewer keys than one MMA tile.
@@ -28,6 +29,7 @@ SHAPES = {
     "D_B1": (2, 4096, 1024, 12, 48),
     "G_B4_b16": (16, 4096, 1024, 24, 96),
     "D_B1_b16": (16, 4096, 1024, 12, 48),
+    "D_B1_s3gan": (38, 4096, 1024, 12, 48),
     "ragged": (3, 200, 70, 7, 20),
     "widest": (2, 300, 130, 32, 128),
     "tiny": (1, 5, 3, 1, 1),

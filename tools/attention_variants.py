@@ -11,8 +11,8 @@ O += P.g and the column pass's dg += P^T.dout products dropped), no_sync
 (no cp.async wait, proxy fence or barrier around a tile). nvcc builds all
 variants at once into compare_gan_torch/_build/variants/; each is loaded
 with ctypes in place of the port's library, and the bf16 forward, row pass
-and column pass are timed at the two main-path shapes (batch 32) with
-torch.profiler's device times. Prints one line per variant and shape.
+and column pass are timed at the two main-path shapes (batch 32) and at
+S3GAN's D batch of 38 with torch.profiler's device times. Prints one line per variant and shape.
 Needs a CUDA card.
 """
 
@@ -22,7 +22,8 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SHAPES = {"G_B4": (32, 4096, 1024, 24, 96), "D_B1": (32, 4096, 1024, 12, 48)}
+SHAPES = {"G_B4": (32, 4096, 1024, 24, 96), "D_B1": (32, 4096, 1024, 12, 48),
+          "D_B1_s3gan": (38, 4096, 1024, 12, 48)}
 
 SUBSTITUTIONS = {
     "no_stage": [(

@@ -1,12 +1,20 @@
 #!/usr/bin/env python3
-"""Profile the port's BigGAN-128 train step on one CUDA card.
+"""Profile one of the port's train steps on one CUDA card.
 
-    python3 tools/torch_profile_step.py [--warmup 3] [--steps 3] [--trace DIR]
+    python3 tools/torch_profile_step.py [--config biggan|s3gan|ssgan]
+        [--warmup 3] [--steps 3] [--trace DIR]
 
-Builds the main path as chip_smoke.py drives it (example_configs/
-biggan_imagenet128.gin at full width, batch 16, bf16 activations, joint G
-forward, fake-only G loss, fake ImageNet-128 data, seed 547) from the port's
-own pieces (gin, datasets, ModularGAN), runs warm-up steps, then:
+Builds a training configuration as chip_smoke.py drives it, on fake data
+with seed 547, from the port's own pieces (gin, datasets, the GAN class):
+
+- `biggan` (default): example_configs/biggan_imagenet128.gin at full
+  width, batch 16, bf16 activations, joint G forward, fake-only G loss;
+- `s3gan`: example_configs/s3gan32_polygons_partial.gin on ImageNet-128
+  (BigGAN at ch 96), batch 16, bf16, joint G forward;
+- `ssgan`: example_configs/ssgan32_polygons_oriented.gin on CIFAR-10
+  (ResNet-CIFAR-32), batch 64, f32 with TF32 off, as the smoke runs it.
+
+It runs warm-up steps, then:
 
 1. times `--steps` steps on the host clock, ending in a synchronize;
 2. traces as many steps with torch.profiler (CPU and CUDA activities) and
@@ -27,22 +35,31 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BINDINGS = [
-    "options.batch_size = 16",
-    "ModularGAN.compute_dtype = 'bfloat16'",
-    "ModularGAN.experimental_joint_gen_for_disc = True",
-    "ModularGAN.experimental_fake_only_g_loss = True",
-]
+# (gin file, bindings) of each configuration.
+CONFIGS = {
+    "biggan": ("biggan_imagenet128.gin", [
+        "options.batch_size = 16",
+        "ModularGAN.compute_dtype = 'bfloat16'",
+        "ModularGAN.experimental_joint_gen_for_disc = True",
+        "ModularGAN.experimental_fake_only_g_loss = True"]),
+    "s3gan": ("s3gan32_polygons_partial.gin", [
+        "dataset.name = 'imagenet_128'",
+        "options.batch_size = 16",
+        "S3GAN.compute_dtype = 'bfloat16'",
+        "S3GAN.experimental_joint_gen_for_disc = True"]),
+    "ssgan": ("ssgan32_polygons_oriented.gin", [
+        "dataset.name = 'cifar10'"]),
+}
 
 
-def _build(torch, model_dir):
+def _build(torch, model_dir, config):
     from compare_gan_torch import config as gin
     from compare_gan_torch import datasets, runner_lib
-    from compare_gan_torch import gans  # noqa: F401 (registers @ModularGAN)
+    from compare_gan_torch import gans  # noqa: F401 (registers the GANs)
     datasets.set_fake_dataset(True)
+    gin_file, bindings = CONFIGS[config]
     gin.parse_config_files_and_bindings(
-        [os.path.join(ROOT, "example_configs", "biggan_imagenet128.gin")],
-        BINDINGS)
+        [os.path.join(ROOT, "example_configs", gin_file)], bindings)
     options = runner_lib.get_options_dict()
     gan = options["gan_class"](dataset=datasets.get_dataset(seed=547),
                                parameters=options, model_dir=model_dir,
@@ -68,6 +85,7 @@ def _busy_ms(events):
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--config", choices=sorted(CONFIGS), default="biggan")
     p.add_argument("--warmup", type=int, default=3)
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--trace", default=None)
@@ -79,9 +97,12 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_step: no CUDA device.")
     from compare_gan_torch.ops import fused_attention as fa
+    # As chip_smoke.py: f32 convs and matmuls at full f32 precision.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     with tempfile.TemporaryDirectory() as model_dir:
-        ts, step, batches = _build(torch, model_dir)
+        ts, step, batches = _build(torch, model_dir, args.config)
         for _ in range(args.warmup):
             ts, _ = step(ts, next(batches))
         torch.cuda.synchronize()
@@ -105,7 +126,7 @@ def main():
     n = args.steps
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = _busy_ms(kernels) / n
-    print(torch.cuda.get_device_name(0))
+    print(f"{args.config}: {torch.cuda.get_device_name(0)}")
     print(f"wall_s_per_step {wall:.4f} (untraced), traced "
           f"{traced_wall:.4f}")
     print(f"device_busy_ms_per_step {busy:.2f}; idle share of the traced "
