@@ -66,7 +66,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    finite losses (the rotation losses included), the checkpoint and that
    no attention kernel ran (the architecture has no attention). Prints
    seconds per step and peak device memory.
-8. Prints the eval shape's forward row and the S3GAN D shape's bf16 row as
+8. Study zoo: 3 steps each of resnet_lsun-bedroom128.gin (ResNet5,
+   Wasserstein loss with the WGAN-GP penalty, lambda 10, 5 D sub-steps,
+   each with a double backward), sndcgan_celebahq128.gin and
+   dcgan_celeba64.gin through the CLI, as published (batch 64, 128, 128
+   and 64 px, f32 with TF32 off) on fake data. Checks the parameter counts
+   against the JAX package's (tests/test_torch_study_archs.py), finite
+   losses, a WGAN-GP penalty > 0, the checkpoint and that no attention
+   kernel ran. Then one WGAN-GP D sub-step's loss and D gradients on the
+   card against the port's CPU run on the same weights, images and alpha
+   (ResNet5 at ch 16, 128 px, batch 8), beside what another alpha moves
+   them by; and that a gradient penalty through the attention kernel
+   raises (its gradient is first order only). Prints seconds per step,
+   peak device memory and the gradient gaps, and a `study_zoo {...}` line.
+9. Prints the eval shape's forward row and the S3GAN D shape's bf16 row as
    JSON lines of their own (`eval_shape_forward {...}`,
    `s3gan_shape {...}`), then one JSON line describing each kernel ("ms",
    "plain_ms", "library_ms", "bound_ms": one call at each bf16 training
@@ -103,6 +116,19 @@ G_PARAMS, D_PARAMS = 70433988, 87982370
 # the JAX package's init_state).
 S3GAN_PARAMS = (70433988, 89525518)
 SSGAN_PARAMS = (5849603, 1483653)
+# The study zoo's configurations as published, with the JAX package's
+# (G, D) parameter counts (tests/test_torch_study_archs.py).
+STUDY_ZOO = {
+    "resnet5_wgangp": ("resnet_lsun-bedroom128.gin", (13786115, 15086529)),
+    "sndcgan": ("sndcgan_celebahq128.gin", (19926019, 5983745)),
+    "dcgan": ("dcgan_celeba64.gin", (5364739, 4314753)),
+}
+# The card-vs-CPU WGAN-GP D sub-step: ResNet5 at ch 16, 128 px, batch 8.
+# Its gradients are f32 sums of the same products taken in another order by
+# cuDNN and oneDNN (TF32 off), through ~20 convolutions forward and the
+# penalty's double backward: each tensor within 1e-3 of its largest entry
+# (1e-6 per conv compounded, with room); another alpha moves them by ~1e-1.
+GRAD_CHECK_CH, GRAD_CHECK_BATCH, GRAD_TOL = 16, 8, 1e-3
 HEAD_SCOPES = ("discriminator_rotation/", "discriminator_predictor/",
                "discriminator_projection/")
 STEPS = 3
@@ -504,6 +530,155 @@ def run_ssgan(torch, model_dir):
     return launches
 
 
+def run_study_zoo(torch, model_dir):
+    """The three study configurations through the CLI as published, f32;
+    no attention on these paths. Returns (launches, per-config summary)."""
+    _phase("study zoo")
+    summary = {}
+    launches = {"fwd": 0, "bwd": 0}
+    for name, (config, params) in STUDY_ZOO.items():
+        print(f"-- {name}: {config}")
+        report, runs = _train_and_check(
+            torch, os.path.join(model_dir, name),
+            _cli_argv(os.path.join(model_dir, name), config, []), params,
+            {"fwd": 0, "bwd": 0}, losses=("loss/penalty",))
+        penalties = [m["loss/penalty"] for m in report.metrics]
+        if name == "resnet5_wgangp" and not all(p > 0 for p in penalties):
+            raise AssertionError(f"WGAN-GP penalty {penalties} is not > 0")
+        summary[name] = {
+            "params": list(params),
+            "seconds_per_step": report.seconds_per_step,
+            "peak_memory_GiB": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "penalty": penalties}
+        for k in launches:
+            launches[k] += runs[k]
+    summary["penalty_gradients"] = check_penalty_gradients(torch)
+    check_attention_penalty_raises(torch)
+    return launches, summary
+
+
+def check_penalty_gradients(torch):
+    """One WGAN-GP D sub-step's loss and D gradients on the card against
+    the CPU: the same weights (initialized on the CPU), images, fakes and
+    alpha; resnet_lsun-bedroom128.gin at GRAD_CHECK_CH."""
+    import functools
+
+    import numpy as np
+    from compare_gan_torch import config as gin
+    from compare_gan_torch import datasets, gans, interop, runner_lib
+    from compare_gan_torch.architectures import DISCRIMINATORS, GENERATORS
+    from compare_gan_torch.architectures import resnet5
+    del gans  # Imported for its gin registrations.
+    gin.clear_config()
+    gin.parse_config_files_and_bindings(
+        [os.path.join(ROOT, "example_configs", "resnet_lsun-bedroom128.gin")],
+        [])
+    datasets.set_fake_dataset(True)
+    # resnet5's width is a constructor argument, as in JAX.
+    GENERATORS["resnet5_arch"] = functools.partial(resnet5.Generator,
+                                                   ch=GRAD_CHECK_CH)
+    DISCRIMINATORS["resnet5_arch"] = functools.partial(
+        resnet5.Discriminator, ch=GRAD_CHECK_CH)
+    options = runner_lib.get_options_dict()
+    rng = np.random.RandomState(0)
+    b = GRAD_CHECK_BATCH
+    images, fakes = (rng.rand(b, 128, 128, 3).astype(np.float32)
+                     for _ in range(2))
+    alpha = rng.rand(b, 1, 1, 1).astype(np.float32)
+
+    def sub_step(device, ts_from=None, alpha=alpha):
+        gan = options["gan_class"](dataset=datasets.get_dataset(),
+                                   parameters=options, model_dir="unused",
+                                   device=device)
+        ts = gan.init_state(seed=0)
+        if ts_from is None:
+            # D's kernels x5 put its slopes near 1 (about 1.17 here; 1e-5
+            # at the init's stddev 0.02), where the penalty is informative.
+            with torch.no_grad():
+                for k, v in ts.d_params().items():
+                    if k.endswith("/kernel"):
+                        v.mul_(5.0)
+        else:
+            interop.load_state_dict(ts, interop.state_dict(ts_from))
+        dev = torch.device(device)
+        features = {
+            "images": torch.from_numpy(images).to(dev),
+            "generated": torch.from_numpy(fakes).to(dev),
+            "penalty_draw": lambda n, s: torch.from_numpy(alpha).to(dev)}
+        losses = gan.create_loss(features, None, is_training=True)
+        d_params = ts.d_params()
+        grads = torch.autograd.grad(losses["d_loss"], list(d_params.values()),
+                                    materialize_grads=True)
+        return ts, losses, {k: g.detach().cpu()
+                            for k, g in zip(d_params, grads)}
+
+    try:
+        ts_cpu, cpu_losses, cpu = sub_step("cpu")
+        t0 = time.perf_counter()
+        _, card_losses, card = sub_step("cuda", ts_cpu)
+        torch.cuda.synchronize()
+        card_seconds = time.perf_counter() - t0
+        _, _, other = sub_step("cpu", ts_cpu, alpha=1.0 - alpha)
+    finally:
+        GENERATORS["resnet5_arch"] = resnet5.Generator
+        DISCRIMINATORS["resnet5_arch"] = resnet5.Discriminator
+
+    def gap(a, b):
+        return max(float((a[k] - b[k]).abs().max()
+                         / b[k].abs().max().clamp_min(1e-30)) for k in b)
+
+    out = {"d_loss_cpu": cpu_losses["d_loss"].item(),
+           "d_loss_card": card_losses["d_loss"].item(),
+           "penalty_cpu": cpu_losses["penalty_loss"].item(),
+           "penalty_card": card_losses["penalty_loss"].item(),
+           "max_rel_grad_gap": gap(card, cpu),
+           "other_alpha_gap": gap(other, cpu), "tol": GRAD_TOL,
+           "card_seconds": card_seconds}
+    print("penalty gradients card vs cpu " + " ".join(
+        f"{k} {v:.6g}" for k, v in out.items()))
+    loss_gap = abs(out["d_loss_card"] - out["d_loss_cpu"]) / max(
+        abs(out["d_loss_cpu"]), 1e-30)
+    if out["max_rel_grad_gap"] > GRAD_TOL or loss_gap > GRAD_TOL:
+        raise AssertionError(f"WGAN-GP D sub-step on the card disagrees "
+                             f"with the CPU beyond {GRAD_TOL:g}: {out}")
+    if out["other_alpha_gap"] <= 10 * GRAD_TOL:
+        raise AssertionError("the gradient check cannot tell another alpha "
+                             f"apart: {out}")
+    return out
+
+
+def check_attention_penalty_raises(torch):
+    """A WGAN-GP penalty through a non-local block on the card: the
+    attention kernel's gradient is first order only, so differentiating it
+    again raises, naming the kernel."""
+    from compare_gan_torch import core
+    from compare_gan_torch.gans import penalty_lib
+    from compare_gan_torch.ops import arch_ops as ops
+    from compare_gan_torch.ops import fused_attention as fa
+    block = ops.NonLocalBlock(64, use_sn=True, device="cuda")
+    core.assign_scopes(block, "non_local_block")
+    core.initialize(block, "non_local_block", 0)
+    with torch.no_grad():
+        block.sigma.fill_(0.5)
+    x = torch.rand(4, 16, 16, 64, device="cuda")
+
+    def d_logits_fn(xx):
+        with core.no_state_updates():
+            return block(xx).mean(dim=(1, 2, 3))[:, None]
+
+    try:
+        penalty_lib.wgangp_penalty(
+            d_logits_fn, x, x.flip(0),
+            lambda n, s: torch.rand(s, device="cuda")).backward()
+    except RuntimeError as e:
+        if fa.SECOND_ORDER_ERROR not in str(e):
+            raise
+        print(f"penalty through the attention kernel raises: {e}")
+        return
+    raise AssertionError("a gradient penalty through the attention kernel "
+                         "did not raise")
+
+
 def check_inception(torch, npz_path):
     """The port's Inception on the card against the same weights on the
     CPU, on 4 fake-ImageNet-sized images, both in full f32."""
@@ -655,6 +830,8 @@ def main():
         runs["eval"] = run_eval(torch, os.path.join(model_dir, "biggan"))
         runs["s3gan"] = run_s3gan(torch, os.path.join(model_dir, "s3gan"))
         runs["ssgan"] = run_ssgan(torch, os.path.join(model_dir, "ssgan"))
+        runs["study_zoo"], study_zoo = run_study_zoo(
+            torch, os.path.join(model_dir, "study_zoo"))
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
     launches = {k: sum(r[k] for r in runs.values()) for k in ("fwd", "bwd")}
@@ -669,6 +846,7 @@ def main():
     for kern in ("fwd", "bwd"):
         s3gan_row[kern]["phase_launches"] = runs["s3gan"][kern]
     print("s3gan_shape " + json.dumps(s3gan_row))
+    print("study_zoo " + json.dumps(study_zoo))
     print(json.dumps({"kernels": [
         {"name": f"attention_{k}", "route": "cuda", "source": source,
          "replaces": replaces[k], "launches": launches[k],

@@ -13,11 +13,7 @@ from __future__ import annotations
 from compare_gan_torch import config as gin
 from compare_gan_torch import core
 from compare_gan_torch import utils
-
-
-class _Identity(core.Module):
-    def forward(self, x, **unused):
-        return x
+from compare_gan_torch.ops import arch_ops as ops
 
 
 class _Arch(core.Module):
@@ -30,12 +26,14 @@ class _Arch(core.Module):
 
     def make_batch_norm(self, num_channels, y_dim=None):
         """A normalization module from the gin-selected `batch_norm_fn`
-        class (None: identity)."""
+        class (None: identity). A self-modulated norm reads G's z; D has
+        none, so it raises there as in the JAX package."""
         if self._batch_norm_fn is None:
-            return _Identity()
+            return ops.NoBatchNorm()
         return utils.call_with_accepted_args(
             self._batch_norm_fn, num_channels=num_channels, y_dim=y_dim,
-            use_sn=self._spectral_norm, device=self._device)
+            z_dim=getattr(self, "_z_dim", None), use_sn=self._spectral_norm,
+            device=self._device)
 
     def jax_variables(self):
         """({jax_name: parameter}, {jax_name: buffer})."""

@@ -1,0 +1,38 @@
+"""Single-linear-layer G and D for fast trainer tests (counterpart of
+compare_gan_tpu/architectures/dummy.py)."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from compare_gan_torch.architectures import abstract_arch
+from compare_gan_torch.ops import arch_ops as ops
+
+
+class Generator(abstract_arch.AbstractGenerator):
+    """sigmoid(linear(z)) reshaped to the image (dummy.py:15-26)."""
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.fc_noise = ops.Linear(self._z_dim, math.prod(self._image_shape),
+                                   device=self._device)
+
+    def forward(self, z, y, is_training):
+        out = torch.sigmoid(self.fc_noise(z))
+        return out.reshape((z.shape[0],) + self._image_shape)
+
+
+class Discriminator(abstract_arch.AbstractDiscriminator):
+    """A linear layer on the images' per-channel means (dummy.py:29-38)."""
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.linear = ops.Linear(self._image_shape[2], 1,
+                                 device=self._device)
+
+    def forward(self, x, y, is_training):
+        h = x.mean(dim=(1, 2))
+        out = self.linear(h)
+        return torch.sigmoid(out), out, h

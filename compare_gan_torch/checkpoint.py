@@ -4,13 +4,16 @@ compare_gan_tpu/checkpoint.py).
 `<model_dir>/model.ckpt-<step>.npz` holds the parameters, state and EMA
 shadows under the JAX package's checkpoint keys (`.params['<name>']`, ...)
 in the JAX layout (conv kernels HWIO), the step counters under `.step` and
-`.disc_step`, and the port's own entries: the draw seed (`.seed`) and the
-Adam moments (`.g_opt.count`, `.g_opt.mu['<name>']`, ...). A `checkpoint`
-pointer file lists the retained checkpoints, oldest first.
+`.disc_step`, and the port's own entries: the draw seed (`.seed`) and each
+optimizer's state, field by field (`.g_opt.count`, `.g_opt.mu['<name>']`,
+`.d_opt.trace['<name>']`, ...; a bf16 moment is stored as f32, which holds
+it exactly). A `checkpoint` pointer file lists the retained checkpoints,
+oldest first.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import re
 import threading
@@ -36,10 +39,16 @@ def step_of(path: str) -> int:
 
 
 def _opt_arrays(prefix, opt) -> Dict[str, np.ndarray]:
-    out = {f"{prefix}.count": np.asarray(opt.count, np.int32)}
-    for moment in ("mu", "nu"):
-        for name, v in getattr(opt, moment).items():
-            out[f"{prefix}.{moment}['{name}']"] = interop.to_jax(v)
+    """An optimizer state's counters and slots (optimizers.py)."""
+    out = {}
+    for field in dataclasses.fields(opt):
+        value = getattr(opt, field.name)
+        if isinstance(value, dict):
+            for name, v in value.items():
+                out[f"{prefix}.{field.name}['{name}']"] = interop.to_jax(
+                    v.float() if v.dtype == torch.bfloat16 else v)
+        else:
+            out[f"{prefix}.{field.name}"] = np.asarray(value, np.int32)
     return out
 
 
@@ -105,10 +114,16 @@ def latest_checkpoint(model_dir: str) -> Optional[str]:
 
 @torch.no_grad()
 def _load_opt(data, prefix, opt) -> None:
-    opt.count = int(data[f"{prefix}.count"])
-    for moment in ("mu", "nu"):
-        for name, target in getattr(opt, moment).items():
-            target.copy_(interop.to_port(data[f"{prefix}.{moment}['{name}']"]))
+    """Fill an optimizer state built from the same config; a checkpoint of
+    another optimizer lacks its keys and raises KeyError."""
+    for field in dataclasses.fields(opt):
+        value = getattr(opt, field.name)
+        if isinstance(value, dict):
+            for name, target in value.items():
+                target.copy_(interop.to_port(
+                    data[f"{prefix}.{field.name}['{name}']"]))
+        else:
+            setattr(opt, field.name, int(data[f"{prefix}.{field.name}"]))
 
 
 def restore_checkpoint(path: str, ts):

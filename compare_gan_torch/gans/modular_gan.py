@@ -13,6 +13,12 @@ state follows the JAX trainer exactly:
 * the G sub-step commits both G's state and the SN `u` of its D forward;
 * penalty forwards commit nothing (`core.no_state_updates`).
 
+A penalty's draws ("alpha", "dragan_noise") come from the named stream of
+their sub-step, or from the step's `draws` when a test hands them in. The G
+sub-step reads only `g_loss`, so ModularGAN's computes no penalty there: the
+JAX step computes one and drops it. SSGAN's `create_loss` takes no `g_step`
+and computes it, as JAX does.
+
 The port updates weights, optimizer moments, state buffers and the EMA in
 place; `train_step` returns the same TrainState it was given. D's optimizer
 steps D and its auxiliary heads (`DiscriminatorHeads`, built by subclasses
@@ -35,7 +41,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import inspect
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -70,8 +76,8 @@ class TrainState:
     generator: torch.nn.Module
     discriminator: torch.nn.Module
     ema_params: Dict[str, Tensor]       # EMA shadows of G ({} if unused)
-    g_opt: optimizers.AdamState
-    d_opt: optimizers.AdamState
+    g_opt: Any                          # the optimizers' states
+    d_opt: Any
     step: int                           # G steps (tf global_step)
     disc_step: int                      # D sub-steps
     seed: int                           # base of the per-step draws
@@ -253,27 +259,50 @@ class ModularGAN(AbstractGAN):
             x = torch.from_numpy(np.array(x))  # A writable host copy.
         return x.to(self._device)
 
-    def _features(self, draws):
-        """Sub-step features from draws (numpy arrays or tensors)."""
+    def _features(self, draws, seed, step, sub_step):
+        """Sub-step features from draws (numpy arrays or tensors), with the
+        sub-step's `penalty_draw(name, shape)`: uniform [0, 1) f32 draws
+        from the named stream of (seed, step, sub_step), or `draws[name]`
+        where the caller handed one in."""
         features = {"z": self._cast_compute(self._to_device(draws["z"]))}
         if self.conditional:
             features["sampled_labels"] = self._to_device(
                 draws["sampled_labels"])
+
+        def penalty_draw(name, shape):
+            if name not in draws:
+                return rng.uniform(shape, rng.stream(
+                    seed, step, sub_step, name, self._device))
+            value = self._to_device(draws[name]).float()
+            if tuple(value.shape) != tuple(shape):
+                raise ValueError(f"Draw {name} has shape "
+                                 f"{tuple(value.shape)}, not {tuple(shape)}.")
+            return value
+
+        features["penalty_draw"] = penalty_draw
         return features
 
     # -- loss --------------------------------------------------------------
 
-    def _penalty_loss(self, images, generated, y, is_training):
-        """Penalty term; its D forwards commit no state."""
+    def _penalty_loss(self, images, generated, y, is_training, draw):
+        """Penalty term (modular_gan.py:241-255): its D forwards commit no
+        state; `l2_penalty` reads D's trainable parameters by JAX name (D's
+        and its heads', as D's optimizer steps them), gathered only for a
+        penalty that reads them."""
 
         def d_logits_fn(xx):
             with core.no_state_updates():
                 return self.discriminator(xx, y=y,
                                           is_training=is_training)[1]
 
+        def d_params_fn():
+            return {**self.discriminator.jax_variables()[0],
+                    **self.heads.jax_variables()[0]}
+
         return penalty_lib.get_penalty_loss(
             x=images, x_fake=generated, y=y, is_training=is_training,
-            d_logits_fn=d_logits_fn, device=self._device)
+            d_logits_fn=d_logits_fn, d_params_fn=d_params_fn, draw=draw,
+            device=self._device)
 
     def create_loss(self, features, labels, is_training=True, g_step=False):
         """D and G losses + lambda * penalty (modular_gan.py:256-330)."""
@@ -323,7 +352,13 @@ class ModularGAN(AbstractGAN):
         d_loss, _, _, g_loss = loss_lib.get_losses(
             d_real=d_real, d_fake=d_fake, d_real_logits=d_real_logits,
             d_fake_logits=d_fake_logits)
-        penalty_loss = self._penalty_loss(images, generated, y, is_training)
+        if g_step:  # Nothing reads the G sub-step's d_loss.
+            penalty_loss = torch.zeros((), dtype=torch.float32,
+                                       device=self._device)
+        else:
+            penalty_loss = self._penalty_loss(
+                images, generated, y, is_training,
+                features.get("penalty_draw"))
         d_loss = d_loss + self._lambda * penalty_loss
         return {"d_loss": d_loss, "g_loss": g_loss,
                 "penalty_loss": penalty_loss}
@@ -427,7 +462,8 @@ class ModularGAN(AbstractGAN):
                 draws = [self.draw_sub_step_inputs(batch_size, labels_s[i],
                                                    ts.seed, ts.step, i)
                          for i in range(num_sub_steps)]
-            features = [self._features(d) for d in draws]
+            features = [self._features(d, ts.seed, ts.step, i)
+                        for i, d in enumerate(draws)]
             metrics = {}
 
             fakes = [None] * self._disc_iters

@@ -134,7 +134,8 @@ class SSGAN(modular_gan.ModularGAN):
             d_real=d_real[:bs], d_fake=d_fake[:bs],
             d_real_logits=d_real_logits[:bs],
             d_fake_logits=d_fake_logits[:bs])
-        penalty_loss = self._penalty_loss(images, generated, y, is_training)
+        penalty_loss = self._penalty_loss(images, generated, y, is_training,
+                                          features.get("penalty_draw"))
         d_loss = d_loss + self._lambda * penalty_loss
 
         if rotation:

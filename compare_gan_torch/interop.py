@@ -3,7 +3,9 @@
 Both packages name every variable by its JAX scope path
 (`generator/B1/bn1/condition/gamma/kernel`, `.../kernel/u_var`). The JAX
 package stores conv kernels HWIO; the port stores them OIHW (`F.conv2d`'s
-layout). Every other variable has the same shape in both.
+layout). The same permutation takes a transposed conv's HWOI kernel
+(`deconv2d`) to IOHW, `F.conv_transpose2d`'s layout. Every other variable
+has the same shape in both.
 
 A port state dict is flat and keyed as the JAX checkpoint keys its
 TrainState leaves (`jax.tree_util.keystr`): `.params['<name>']`,

@@ -1,12 +1,14 @@
 """Layers of the ported architectures, as nn.Modules with the JAX names.
 
-Counterpart of compare_gan_tpu/ops/arch_ops.py (the ops of BigGAN and
-ResNet-CIFAR; deconv2d, self-modulated BN, evonorm and the weight-norm
-layers are not ported). Public
+Counterpart of compare_gan_tpu/ops/arch_ops.py (evonorm and the
+weight-norm layers are not ported). Public
 layouts follow the JAX package: activations NHWC, linear kernels [in, out],
-conv kernels HWIO in checkpoints. The port stores conv kernels OIHW and runs
-`F.conv2d` on an NCHW view of the NHWC activations (a channels_last tensor,
-so no copy); `interop.py` transposes kernels between the two layouts.
+conv kernels HWIO and transposed-conv kernels HWOI in checkpoints. The port
+stores conv kernels OIHW and transposed-conv kernels IOHW (both the JAX
+kernel permuted by `HWIO_TO_OIHW`) and runs `F.conv2d` /
+`F.conv_transpose2d` on an NCHW view of the NHWC activations (a
+channels_last tensor, so no copy); `interop.py` transposes kernels between
+the two layouts.
 
 Types follow the JAX ops exactly, by explicit casts rather than autocast:
 weights are cast to the activation's type (`w.to(x.dtype)`), batch moments
@@ -291,6 +293,56 @@ class UpConv2d(Conv2d):
         return self._finish(_nhwc(out), sigma)
 
 
+class Deconv2d(_SNLayer):
+    """Transposed SAME conv to an explicit output size (arch_ops.py:297-328,
+    tf.nn.conv2d_transpose with output_shape): the gradient of a SAME conv
+    mapping `out_size` -> the input's size, with any ceil-div preimage as
+    the output (4 -> 7 at stride 2 on DCGAN's 28 px schedule). The kernel is
+    HWOI (k_h, k_w, C_out, C_in) in the JAX layout, so spectral norm
+    flattens it to (-1, C_in); the port stores it IOHW, the weight layout
+    of `F.conv_transpose2d`."""
+
+    def __init__(self, in_channels, output_dim, k_h, k_w, d_h, d_w,
+                 stddev=0.02, use_sn=False, device=None):
+        super().__init__()
+        self._add_kernel((k_h, k_w, output_dim, in_channels),
+                         weight_initializer(stddev=stddev), use_sn, device,
+                         permute=HWIO_TO_OIHW)
+        self.strides = (d_h, d_w)
+        self.use_bias = True
+        self.bias = self.add_param("bias", (output_dim,), zeros_init(),
+                                   device)
+
+    def forward(self, x, output_size):
+        """x: NHWC; output_size: (H, W) of the result."""
+        sigma = self._sigma(x.dtype)
+        lo, extra = [], []
+        for in_size, out_size, k, s in zip(x.shape[1:3], output_size,
+                                           self.kernel.shape[2:],
+                                           self.strides):
+            if -(-out_size // s) != in_size:
+                raise ValueError(
+                    f"deconv2d: requested output size {out_size} is not a "
+                    f"stride-{s} SAME preimage of input size {in_size}.")
+            full = (in_size - 1) * s + k  # The uncropped transposed conv.
+            lo.append(max(full - out_size, 0) // 2)  # The SAME conv's pad.
+            extra.append(out_size - (full - 2 * lo[-1]))
+        # conv_transpose2d crops `padding` from both ends and adds
+        # `output_padding` (< stride) back at the end; where the SAME pad
+        # is larger at the end (lo < hi), the slice crops one more.
+        out = F.conv_transpose2d(
+            _nchw(x), self.kernel.to(x.dtype), stride=self.strides,
+            padding=tuple(lo), output_padding=tuple(max(e, 0) for e in extra))
+        out = out[:, :, :output_size[0], :output_size[1]]
+        return self._finish(_nhwc(out), sigma)
+
+
+def lrelu(x, leak=0.2):
+    """max(x, leak * x) (arch_ops.py:331-332): at x = 0 the gradient splits
+    as jnp.maximum's does, which F.leaky_relu's does not."""
+    return torch.maximum(x, leak * x)
+
+
 class DownConv2d(Conv2d):
     """avg_pool_2x2(conv2d(x)) as one stride-2 conv with the pool folded
     into a (k+1)x(k+1) kernel (arch_ops.py:249-275). Spectral norm applies
@@ -394,7 +446,8 @@ class StandardizeBatch(core.Module):
 
 @gin.configurable("batch_norm")
 class BatchNorm(StandardizeBatch):
-    """BN with trainable gamma/beta (arch_ops.py:454-466)."""
+    """BN with trainable gamma/beta (arch_ops.py:454-466), on rank-4 NHWC
+    or rank-2 [B, C] inputs (InfoGAN's and SNDCGAN's linear outputs)."""
 
     def __init__(self, num_channels, center=True, scale=True, device=None):
         super().__init__(num_channels, device=device)
@@ -412,6 +465,65 @@ class BatchNorm(StandardizeBatch):
             out = out * self.gamma.to(out.dtype)
         if self.center:
             out = out + self.beta.to(out.dtype)
+        return out
+
+
+@gin.configurable("no_batch_norm")
+class NoBatchNorm(core.Module):
+    """The identity, with no variables (arch_ops.py:449-451)."""
+
+    def __init__(self, **unused):
+        super().__init__()
+
+    def forward(self, x, **unused):
+        return x
+
+
+class _SelfModulation(core.Module):
+    def __init__(self, z_dim, num_channels, center, scale, use_sn,
+                 num_hidden, device):
+        super().__init__()
+        h_dim = z_dim
+        if num_hidden > 0:
+            self.hidden = Linear(z_dim, num_hidden, use_sn=use_sn,
+                                 device=device)
+            h_dim = num_hidden
+        if scale:
+            self.gamma = Linear(h_dim, num_channels, bias_start=1.0,
+                                use_sn=use_sn, device=device)
+        if center:
+            self.beta = Linear(h_dim, num_channels, use_sn=use_sn,
+                               device=device)
+
+
+@gin.configurable("self_modulated_batch_norm")
+class SelfModulatedBatchNorm(StandardizeBatch):
+    """Self-modulation: gamma/beta = MLP(z) (arch_ops.py:469-491,
+    arXiv:1810.01365), the MLP under `sbn/`."""
+
+    def __init__(self, num_channels, z_dim, use_sn, center=True, scale=True,
+                 num_hidden=32, device=None):
+        super().__init__(num_channels, device=device)
+        if z_dim is None:
+            raise ValueError("You must provide z for self modulation.")
+        self.center, self.scale = center, scale
+        self._num_hidden = num_hidden
+        self.sbn = _SelfModulation(z_dim, num_channels, center, scale,
+                                   use_sn, num_hidden, device)
+
+    def forward(self, x, is_training, z=None, **unused):
+        if z is None:
+            raise ValueError("You must provide z for self modulation.")
+        out = self.standardize(x, is_training)
+        h = z
+        if self._num_hidden > 0:
+            h = F.relu(self.sbn.hidden(h))
+        if self.scale:
+            gamma = self.sbn.gamma(h)
+            out = out * gamma[:, None, None, :].to(out.dtype)
+        if self.center:
+            beta = self.sbn.beta(h)
+            out = out + beta[:, None, None, :].to(out.dtype)
         return out
 
 

@@ -7,6 +7,13 @@ the kernels do not take. On a CPU tensor they run the plain PyTorch versions
 below, which compute what the kernels compute (same saved statistics, same
 backward formula) with materialized [B, N, M] scores.
 
+`fused_attention`, what the non-local block calls, takes the device-based
+choice of the JAX package (arch_ops.py:668-706): the kernels on a card, the
+differentiable `reference_attention` on the CPU. The kernels' gradient is
+first order only, as the Pallas kernel's is on the TPU (its
+`custom_partitioning` has no differentiation rule): asking for it with
+`create_graph`, as a gradient penalty through a non-local block does, raises.
+
 theta: [B, N, C]; phi: [B, M, C]; g: [B, M, Cg] -> out [B, N, Cg].
 Scores, softmax and sums are f32 whatever the input type; `out` and
 `dtheta` come back in the input type, `mx`/`den` ([B, N, 1]) and the raw
@@ -163,10 +170,16 @@ def attention_bwd(theta, phi, g, dout, mx, den):
     return dtheta, dphi, dg
 
 
+SECOND_ORDER_ERROR = (
+    "The fused attention kernel (compare_gan_torch/csrc/attention.cu) has no "
+    "second-order gradient: a gradient penalty through a non-local block "
+    "cannot run on the card, as it cannot on the JAX package's TPU path.")
+
+
 class FusedAttention(torch.autograd.Function):
     """The custom_vjp of pallas_attention.py:246-268: saves theta, phi, g
     and the forward's row statistics; the backward casts dphi/dg (f32) back
-    to the input type."""
+    to the input type. Its gradient is first order only."""
 
     @staticmethod
     def forward(ctx, theta, phi, g):
@@ -176,6 +189,8 @@ class FusedAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
+        if torch.is_grad_enabled():  # Under create_graph: a second order.
+            raise RuntimeError(SECOND_ORDER_ERROR)
         theta, phi, g, mx, den = ctx.saved_tensors
         dtheta, dphi, dg = attention_bwd(theta, phi, g, dout.contiguous(),
                                          mx, den)
@@ -183,5 +198,11 @@ class FusedAttention(torch.autograd.Function):
 
 
 def fused_attention(theta, phi, g):
-    """softmax(theta @ phi^T) @ g with a kernel-computed gradient."""
+    """softmax(theta @ phi^T) @ g: through the kernels (`FusedAttention`)
+    on CUDA tensors, through the differentiable `reference_attention` on
+    CPU tensors, as the JAX package picks its einsum reference off the
+    TPU."""
+    if _on_cpu(theta, phi, g):
+        _check_operands(theta, phi, g)  # What the kernels would take.
+        return reference_attention(theta, phi, g)
     return FusedAttention.apply(theta, phi, g)

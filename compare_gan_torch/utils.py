@@ -24,19 +24,26 @@ def rotate_images(images, rot90_scalars=(0, 1, 2, 3)):
     return torch.cat([rotations[i](images) for i in rot90_scalars], dim=0)
 
 
-def call_with_accepted_args(fn, **kwargs):
-    """Call fn with only the kwargs its signature accepts, looking through
+def accepted_args(fn):
+    """The names of the kwargs fn accepts (None: any), looking through
     gin-configurable wrappers and classes to the real signature."""
     target = fn
     while hasattr(target, "__wrapped_fn__"):
         target = target.__wrapped_fn__
     if inspect.isclass(target):
         target = target.__init__
-    sig = inspect.signature(target)
-    if any(p.kind == inspect.Parameter.VAR_KEYWORD
-           for p in sig.parameters.values()):
+    params = inspect.signature(target).parameters
+    if any(p.kind == inspect.Parameter.VAR_KEYWORD for p in params.values()):
+        return None
+    return params.keys()
+
+
+def call_with_accepted_args(fn, **kwargs):
+    """Call fn with only the kwargs its signature accepts."""
+    accepted = accepted_args(fn)
+    if accepted is None:
         return fn(**kwargs)
-    return fn(**{k: v for k, v in kwargs.items() if k in sig.parameters})
+    return fn(**{k: v for k, v in kwargs.items() if k in accepted})
 
 
 def image_grid(images, grid_shape=None):

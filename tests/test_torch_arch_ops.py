@@ -2,8 +2,9 @@
 (carried across by interop.py) and the same inputs, f32 on the CPU:
 spectral norm (both modes), conv2d, up_conv2d, down_conv2d,
 standardize_batch (both modes), conditional_batch_norm, layer_norm and
-non_local_block (through the attention kernel's plain path on the port's
-side and the Pallas kernel in interpret mode on the JAX side)."""
+non_local_block (through the differentiable reference attention, the
+port's CPU path, on the port's side and the Pallas kernel in interpret mode
+on the JAX side)."""
 
 import jax
 import jax.numpy as jnp
@@ -162,8 +163,8 @@ def test_conditional_batch_norm():
 
 
 def test_non_local_block_forward_and_gradients():
-    """The block with the attention kernel on both sides (JAX: Pallas in
-    interpret mode; port: the kernel's plain CPU path), a nonzero gate,
+    """The block with the attention on both sides (JAX: Pallas in
+    interpret mode; port: its CPU path, the reference), a nonzero gate,
     and the gradient of sum(sin(out)) w.r.t. x and every parameter."""
     jgin.parse_config("attention.use_pallas = True")
     x_np = th.randn((2, 8, 8, 32), 9)

@@ -1,7 +1,9 @@
-"""The port's fused attention on the CPU (plain path of the CUDA kernels)
-against the JAX package's Pallas kernel in interpret mode and its einsum
-reference: forward, gradients, multi-tile and bf16 cases, the wrapper's
-input checks, and the CUDA kernels' tiled algorithm emulated in torch.
+"""The port's fused attention on the CPU against the JAX package's Pallas
+kernel in interpret mode and its einsum reference: forward and gradients
+of `fused_attention` (the reference on CPU tensors) and of
+`FusedAttention` (the kernels' Function, on its plain CPU path),
+multi-tile and bf16 cases, the wrapper's input checks, and the CUDA
+kernels' tiled algorithm emulated in torch.
 The CUDA kernels themselves are compared with the plain path on the card
 (tests/test_torch_kernels_gpu.py, chip_smoke.py)."""
 
@@ -41,12 +43,13 @@ def _torch(arrays, dtype=torch.float32, grad=False):
 @pytest.mark.parametrize("n,m", [(64, 16), (128, 32), (96, 24)])
 def test_forward_matches_pallas_and_reference(n, m):
     arrays = _inputs(n=n, m=m)
-    out = fa.fused_attention(*_torch(arrays))
     pallas = pallas_attention.fused_attention(*map(jnp.asarray, arrays))
     ref = pallas_attention.reference_attention(*map(jnp.asarray, arrays))
-    assert tuple(out.shape) == (2, n, 12)
-    th.assert_close(out, pallas, rtol=1e-5, atol=1e-5)
-    th.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    for fn in (fa.fused_attention, fa.FusedAttention.apply):
+        out = fn(*_torch(arrays))
+        assert tuple(out.shape) == (2, n, 12)
+        th.assert_close(out, pallas, rtol=1e-5, atol=1e-5)
+        th.assert_close(out, ref, rtol=1e-5, atol=1e-5)
 
 
 def test_forward_statistics_match_pallas_kernel():
@@ -66,8 +69,6 @@ def test_gradients_match_pallas_and_reference(n, m):
     """Gradients of sum(sin(out)); n=128 spans several TPU row tiles, so
     the Pallas side accumulates dphi/dg across its grid."""
     arrays = _inputs(n=n, m=m, seed=3)
-    t = _torch(arrays, grad=True)
-    torch.sin(fa.fused_attention(*t)).sum().backward()
 
     def loss(fn):
         return lambda a, b, c: jnp.sum(jnp.sin(fn(a, b, c)))
@@ -79,9 +80,12 @@ def test_gradients_match_pallas_and_reference(n, m):
                      argnums=(0, 1, 2))(*jargs)
     # f32 gradients through exp/softmax: 1e-4 relative, as the JAX
     # package's own gradient test.
-    for got, want_p, want_r in zip(t, g_pallas, g_ref):
-        th.assert_close(got.grad, want_p, rtol=1e-4, atol=1e-5)
-        th.assert_close(got.grad, want_r, rtol=1e-4, atol=1e-5)
+    for fn in (fa.fused_attention, fa.FusedAttention.apply):
+        t = _torch(arrays, grad=True)
+        torch.sin(fn(*t)).sum().backward()
+        for got, want_p, want_r in zip(t, g_pallas, g_ref):
+            th.assert_close(got.grad, want_p, rtol=1e-4, atol=1e-5)
+            th.assert_close(got.grad, want_r, rtol=1e-4, atol=1e-5)
 
 
 def test_torch_reference_matches_jax_reference():

@@ -43,6 +43,20 @@ def test_s3gan_shape_is_the_d_batch_of_the_s3gan_phase():
                      ("D_B1_s3gan", "bfloat16", True, False)]
 
 
+def test_study_zoo_phase_runs_the_published_configs():
+    """The study zoo phase trains three example configs as they are and
+    pins the JAX package's parameter counts
+    (tests/test_torch_study_archs.py)."""
+    assert chip_smoke.STUDY_ZOO == {
+        "resnet5_wgangp": ("resnet_lsun-bedroom128.gin",
+                           (13786115, 15086529)),
+        "sndcgan": ("sndcgan_celebahq128.gin", (19926019, 5983745)),
+        "dcgan": ("dcgan_celeba64.gin", (5364739, 4314753))}
+    for config, _ in chip_smoke.STUDY_ZOO.values():
+        assert os.path.exists(os.path.join(REPO, "example_configs", config))
+    assert chip_smoke.GRAD_TOL == 1e-3
+
+
 def test_f32_bound_takes_the_tf32_tensor_core_rate():
     """The eval shape (G after B4 at batch 64, f32): 2*B*N*M*(C + Cg)
     flops at 495 TFLOP/s."""

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Profile one of the port's train steps on one CUDA card.
 
-    python3 tools/torch_profile_step.py [--config biggan|s3gan|ssgan]
+    python3 tools/torch_profile_step.py
+        [--config biggan|s3gan|ssgan|resnet5|sndcgan|dcgan]
         [--warmup 3] [--steps 3] [--trace DIR]
 
 Builds a training configuration as chip_smoke.py drives it, on fake data
@@ -12,7 +13,11 @@ with seed 547, from the port's own pieces (gin, datasets, the GAN class):
 - `s3gan`: example_configs/s3gan32_polygons_partial.gin on ImageNet-128
   (BigGAN at ch 96), batch 16, bf16, joint G forward;
 - `ssgan`: example_configs/ssgan32_polygons_oriented.gin on CIFAR-10
-  (ResNet-CIFAR-32), batch 64, f32 with TF32 off, as the smoke runs it.
+  (ResNet-CIFAR-32), batch 64, f32 with TF32 off, as the smoke runs it;
+- `resnet5`, `sndcgan`, `dcgan`: the study zoo's
+  resnet_lsun-bedroom128.gin (WGAN-GP), sndcgan_celebahq128.gin and
+  dcgan_celeba64.gin as published, f32 with TF32 off, as the smoke runs
+  them.
 
 It runs warm-up steps, then:
 
@@ -49,6 +54,9 @@ CONFIGS = {
         "S3GAN.experimental_joint_gen_for_disc = True"]),
     "ssgan": ("ssgan32_polygons_oriented.gin", [
         "dataset.name = 'cifar10'"]),
+    "resnet5": ("resnet_lsun-bedroom128.gin", []),
+    "sndcgan": ("sndcgan_celebahq128.gin", []),
+    "dcgan": ("dcgan_celeba64.gin", []),
 }
 
 
