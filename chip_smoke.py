@@ -8,12 +8,16 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. Device: a CUDA card must be present; prints its name and power limit
    (nvidia-smi) and turns TF32 off for the comparisons.
 2. Build: compiles the CUDA kernels of compare_gan_torch/csrc with nvcc
-   (sm_90a) into compare_gan_torch/_build and prints the seconds it took.
+   (sm_90a) into compare_gan_torch/_build and prints the seconds it took
+   and, per kernel, ptxas's registers and spill bytes.
 3. Kernels: the attention forward and backward kernels against their plain
    PyTorch versions at the two training shapes (BigGAN-128 G after B4 and
    D after B1, batch 32), in f32 and bf16, and the forward at the eval
    shape (G after B4 at batch 64, f32: eval samples z in f32 and
-   `compute_dtype` does not apply). Prints each tensor's max abs and
+   `compute_dtype` does not apply); S3GAN's D shape (batch 38) and
+   BigGAN-deep's (G after B8 and D after B2: C = 32, Cg = 128) in both
+   types, and BigGAN-deep's eval forward (batch 64, f32). Prints each
+   tensor's max abs and
    relative error with its tolerance; the time per call of the kernel, of
    the plain version and of the library call that computes the same
    function (torch's scaled_dot_product_attention with one head and
@@ -34,7 +38,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    (launch counters reset to 0 just before it), and that G's samples are
    finite images in [0, 1]. Prints losses, counters, seconds per step
    after the first, and peak device memory.
-5. Eval: in the same model_dir, `compare_gan_torch.main.main` with
+5. Eval: in the same model_dir (with evaluation.eval_tasks = IS and FID),
+   `compare_gan_torch.main.main` with
    --schedule=eval_after_train --eval_every_steps=0: restore model.ckpt-3,
    export the module to tfhub/3, fill the BN accumulators
    (evaluation.num_accu_examples = 1024 at batch 64: 16 G forwards), sample
@@ -79,9 +84,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    them by; and that a gradient penalty through the attention kernel
    raises (its gradient is first order only). Prints seconds per step,
    peak device memory and the gradient gaps, and a `study_zoo {...}` line.
-9. Prints the eval shape's forward row and the S3GAN D shape's bf16 row as
-   JSON lines of their own (`eval_shape_forward {...}`,
-   `s3gan_shape {...}`), then one JSON line describing each kernel ("ms",
+9. BigGAN-deep main path: 3 steps of BigGAN-deep-128 as published (ch
+   128, z_dim 128; arXiv:1809.11096, Tables 7-9) through the CLI with the
+   BigGAN-128 phases' config and options (batch 16, bf16, joint G forward,
+   fake-only G loss, fake ImageNet-128) and options.architecture =
+   'resnet_biggan_deep_arch'. G concatenates z to the f32 label embedding,
+   so it runs in f32, as in the JAX package; D runs in bf16. Checks the
+   parameter counts (G 50,244,484, D 34,590,210), finite losses, the
+   checkpoint and the attention launches (5 forward and 4 backward a
+   step). Then eval_after_train of its checkpoint at the eval phase's cut
+   with IS, FID, KID, PRD, MS-SSIM and the fractal dimension: every metric
+   finite in the row, 16 + 3 * 2 forward launches, each phase's and each
+   task's seconds and peak memory.
+10. G/D-access tasks: eval_after_train of the study zoo's DCGAN-64
+   checkpoint (dcgan_celeba64.gin as published: unconditional, uniform z)
+   with all ten tasks, adding the Jacobian's conditioning, D's accuracy
+   and GILBO at its defaults (2,000 regressor steps at batch 64, its
+   artifacts written and checked). Every metric finite; each task's
+   seconds.
+11. Prints the eval shape's forward row, the S3GAN D shape's bf16 row and
+   the BigGAN-deep rows as JSON lines of their own (`eval_shape_forward
+   {...}`, `s3gan_shape {...}`, one `biggan_deep_shape {...}` per type and
+   the eval forward: tolerances, SDPA backend, times, bound and share),
+   the BigGAN-deep eval and G/D-task summaries, each phase's seconds, then
+   one JSON line describing each kernel ("ms",
    "plain_ms", "library_ms", "bound_ms": one call at each bf16 training
    shape of BigGAN-128, G and D at batch 32, summed; "launches": every
    main-path run together, each counted from 0), then, as the last line,
@@ -108,6 +134,23 @@ S3GAN_BATCH, S3GAN_ROTATED_FRACTION = 16, 4
 S3GAN_D_ROWS = 2 * S3GAN_BATCH + 2 * 3 * (S3GAN_BATCH
                                           // S3GAN_ROTATED_FRACTION // 4)
 S3GAN_SHAPE = ("D_B1_s3gan", (S3GAN_D_ROWS, 4096, 1024, 12, 48))
+# BigGAN-deep-128 at ch 128: G after B8 and D after B2 are both the 64x64
+# map with 256 channels (C = 32, Cg = 128), batch 32 in training (the
+# joint G forward over two D sub-steps; D on real and fake); the eval's G
+# forward at batch 64, f32.
+DEEP_SHAPE = ("deep_B8_B2", (32, 4096, 1024, 32, 128))
+DEEP_EVAL_SHAPE = ("deep_G_B8_eval", (64, 4096, 1024, 32, 128))
+DEEP_PARAMS = (50244484, 34590210)
+DEEP_BINDINGS = ("options.architecture = 'resnet_biggan_deep_arch'",
+                 "options.z_dim = 128")
+# The eval tasks of the two eval phases that add tasks (class names of
+# compare_gan_torch.metrics): the six that read only samples and features
+# on BigGAN-deep, and with them the three that need G or D on DCGAN-64
+# (unconditional, uniform z: GILBO refuses any other prior and every G/D
+# task a conditional model).
+SESSION_TASKS = ("InceptionScoreTask", "FIDScoreTask", "KIDScoreTask",
+                 "PRDTask", "MultiscaleSSIMTask", "FractalDimensionTask")
+GAN_TASKS = ("GeneratorConditionNumberTask", "AccuracyTask", "GILBOTask")
 # f32: the same f32 arithmetic summed in another order. bf16: both sides
 # round one f32 result to bf16 (the JAX package's Pallas tests use 2e-2).
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -167,15 +210,41 @@ def check_device(torch):
     torch.backends.cudnn.allow_tf32 = False
 
 
+def ptxas_report(log):
+    """[(kernel, registers, spill store bytes, spill load bytes)] of each
+    entry function in nvcc's `-Xptxas -v` output, the kernel named as
+    `attention_bwd_cols_kernel<bf16, 32, 128>` from its mangled name."""
+    import re
+    out, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name, spills = m.group(1), (0, 0)
+            k = re.search(r"(attention_(?:fwd|bwd_rows|bwd_cols)_kernel)I"
+                          r"(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", name)
+            if k:
+                dtype = "f32" if k.group(2) == "f" else "bf16"
+                name = f"{k.group(1)}<{dtype}, {k.group(3)}, {k.group(4)}>"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out.append((name, int(m.group(1))) + spills)
+            name = None
+    return out
+
+
 def build_kernels():
     _phase("build")
     from compare_gan_torch.ops import _build
     t0 = time.perf_counter()
     _build.library()
     print(f"build_seconds {time.perf_counter() - t0:.2f}")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas", line.strip())
+    for name, registers, stores, loads in ptxas_report(_build.build_log):
+        print(f"  ptxas {name}: {registers} registers, {stores} bytes "
+              f"spill stores, {loads} bytes spill loads")
 
 
 def _time_ms(torch, fn, iters=20):
@@ -261,13 +330,17 @@ def _cases():
     yield EVAL_SHAPE + ("float32", False, False)
     for dtype_name in ("float32", "bfloat16"):
         yield S3GAN_SHAPE + (dtype_name, True, False)
+    for dtype_name in ("float32", "bfloat16"):
+        yield DEEP_SHAPE + (dtype_name, True, False)
+    yield DEEP_EVAL_SHAPE + ("float32", False, False)
 
 
 def compare_kernels(torch):
     """Kernel vs plain version per shape and type. Returns per kernel its
     max abs error over every case, and times and bounds summed over the
-    bf16 training shapes; the eval shape's forward row; and the S3GAN D
-    shape's bf16 row (forward and backward)."""
+    bf16 training shapes; the eval shape's forward row; the S3GAN D
+    shape's bf16 row (forward and backward); and the BigGAN-deep rows
+    (each type's forward and backward at batch 32, the eval forward)."""
     _phase("kernels")
     from compare_gan_torch.ops import fused_attention as fa
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -276,6 +349,7 @@ def compare_kernels(torch):
                   "library_ms": 0.0, "bound_ms": 0.0, "bound_by": ""}
               for k in ("fwd", "bwd")}
     eval_row = s3gan_row = None
+    deep_rows = []
     for name, (b, n, m, c, cg), dtype_name, with_bwd, summed in _cases():
         dtype = getattr(torch, dtype_name)
         tol = TOL[dtype_name]
@@ -341,9 +415,10 @@ def compare_kernels(torch):
                     retain_graph=True)),
             })
             del leaves, lib_out, lib_dout
+        backend = _sdpa_backend(torch, q, k, v)
         print("  ms/call " + " ".join(f"{k} {v:.4f}"
                                       for k, v in times.items())
-              + f" (sdpa backend {_sdpa_backend(torch, q, k, v)})")
+              + f" (sdpa backend {backend})")
         kerns = ("fwd", "bwd") if with_bwd else ("fwd",)
         shape = (b, n, m, c, cg)
         bounds = bounds_ms(shape, dtype_name)
@@ -378,9 +453,25 @@ def compare_kernels(torch):
             s3gan_row = {"shape": name, "B": b, "dtype": dtype_name,
                          "fwd": dict(rows["fwd"], issued_mma_ms=issued),
                          "bwd": rows["bwd"]}
+        if (name, shape) in (DEEP_SHAPE, DEEP_EVAL_SHAPE):
+            deep_rows.append(deep_shape_row(name, b, dtype_name, backend,
+                                            rows, issued))
         del q, k, v, theta, phi, g, dout, out, mx, den, p_mx, p_den
         torch.cuda.empty_cache()
-    return result, eval_row, s3gan_row
+    return result, eval_row, s3gan_row, deep_rows
+
+
+def deep_shape_row(name, b, dtype_name, backend, rows, issued):
+    """The `biggan_deep_shape` line's object: the tolerances, the SDPA
+    backend, per kernel ("fwd", "bwd" when timed) its row of
+    `compare_kernels` with the kernel's share of its bound, and the
+    forward's issued-MMA floor."""
+    return {"shape": name, "B": b, "dtype": dtype_name,
+            "tol": TOL[dtype_name], "mx_den_tol": 1e-4,
+            "sdpa_backend": backend,
+            **{kern: dict(row, share=row["bound_ms"] / row["ms"])
+               for kern, row in rows.items()},
+            "fwd_issued_mma_ms": issued}
 
 
 def _cli_argv(model_dir, config, bindings, schedule="train"):
@@ -397,15 +488,21 @@ def _cli_argv(model_dir, config, bindings, schedule="train"):
     ] + [f"--gin_bindings={b}" for b in bindings]
 
 
-def _argv(model_dir, schedule):
+def _argv(model_dir, schedule, extra=()):
     """The CLI arguments of both BigGAN-128 phases: the benchmark
-    options."""
+    options, and `extra` bindings."""
     return _cli_argv(model_dir, "biggan_imagenet128.gin", [
         "options.batch_size = 16",
         "ModularGAN.compute_dtype = 'bfloat16'",
         "ModularGAN.experimental_joint_gen_for_disc = True",
         "ModularGAN.experimental_fake_only_g_loss = True",
-    ], schedule)
+    ] + list(extra), schedule)
+
+
+def _deep_argv(model_dir, schedule):
+    """BigGAN-deep-128 as published (ch 128, z_dim 128; arXiv:1809.11096,
+    Tables 7-9) with the BigGAN-128 phases' options."""
+    return _argv(model_dir, schedule, DEEP_BINDINGS)
 
 
 def _train_and_check(torch, model_dir, argv, params, expected_launches,
@@ -701,27 +798,51 @@ def check_inception(torch, npz_path):
     print(f"  inception check seconds {time.perf_counter() - t0:.2f}")
 
 
-def run_eval(torch, model_dir):
-    """eval_after_train on the trained model_dir through the CLI."""
-    _phase("eval")
-    import csv
+def setup_inception(torch, model_dir):
+    """A random-init Inception `.npz` (no real weights are in the
+    repository) that $COMPARE_GAN_INCEPTION_NPZ points every eval at,
+    checked on the card against the CPU."""
     import numpy as np
-    from compare_gan_torch import config as gin
-    from compare_gan_torch import datasets, eval_gan_lib, eval_utils, main
-    from compare_gan_torch import runner_lib
+    from compare_gan_torch import eval_utils
     from compare_gan_torch.metrics import inception_net
-    from compare_gan_torch.ops import fused_attention as fa
-
     npz_path = os.path.join(model_dir, "inception_random.npz")
     np.savez(npz_path, **inception_net.init_random(
         torch.Generator().manual_seed(0)))
     os.environ[eval_utils.INCEPTION_NPZ_ENV] = npz_path
     check_inception(torch, npz_path)
 
+
+def _metric_keys(task_names):
+    from compare_gan_torch import runner_lib
+    from compare_gan_torch import config as gin
+    runner_lib._import_eval_task_modules()
+    return sorted(m for name in task_names
+                  for m in gin.get_configurable(name)().metric_list())
+
+
+def run_eval(torch, model_dir, argv, tasks, image_shape, attention,
+             accumulators, phase="eval"):
+    """eval_after_train on a trained model_dir through the CLI with the
+    eval tasks `tasks` (class names). Checks that every metric of the
+    tasks is finite in the scores.csv row, the export, the filled state
+    (with `accumulators`), the attention launches (`attention` non-local
+    blocks in G) and eval-mode samples of `image_shape`; prints each
+    phase's and each task's seconds and the peak memory."""
+    _phase(phase)
+    import csv
+    import numpy as np
+    from compare_gan_torch import config as gin
+    from compare_gan_torch import datasets, eval_gan_lib, main
+    from compare_gan_torch import runner_lib
+    from compare_gan_torch.ops import fused_attention as fa
+
+    keys = _metric_keys(tasks)
     gin.clear_config()
-    argv = _argv(model_dir, "eval_after_train") + [
+    argv = argv + [
         "--eval_every_steps=0",
-        f"--gin_bindings=evaluation.num_accu_examples = {ACCU_EXAMPLES}"]
+        f"--gin_bindings=evaluation.num_accu_examples = {ACCU_EXAMPLES}",
+        "--gin_bindings=evaluation.eval_tasks = ["
+        + ", ".join(f"@{t}()" for t in tasks) + "]"]
     torch.cuda.synchronize()
     print(f"memory_allocated_GiB_before_eval "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.2f}")
@@ -737,34 +858,40 @@ def run_eval(torch, model_dir):
     if [r["step"] for r in rows] != [str(STEPS)]:
         raise AssertionError(f"scores.csv rows for steps "
                              f"{[r['step'] for r in rows]}, not [{STEPS}]")
-    for key in ("fid_score_mean", "inception_score_mean"):
-        value = float(rows[0][key])
-        print(f"{key} {rows[0][key]} ({key[:-5]}_list "
-              f"{rows[0][key[:-5] + '_list']})")
+    for key in keys:
+        value = float(rows[0][key + "_mean"])
+        print(f"{key}_mean {rows[0][key + '_mean']} ({key}_list "
+              f"{rows[0][key + '_list']})")
         if not np.isfinite(value) or value in (eval_gan_lib.NAN_DETECTED,
                                                4242.0):
-            raise AssertionError(f"{key} = {value}")
+            raise AssertionError(f"{key}_mean = {value}")
     export_dir = os.path.join(model_dir, "tfhub", str(STEPS))
-    for name in ("module_spec.json", "module.npz", f"model.ckpt-{STEPS}.npz"):
+    for name in ("module_spec.json", "module.npz"):
         if not os.path.exists(os.path.join(export_dir, name)):
             raise AssertionError(f"tfhub/{STEPS}/{name} was not written")
-    fills = ACCU_EXAMPLES // EVAL_BATCH
-    with np.load(os.path.join(export_dir, f"model.ckpt-{STEPS}.npz")) as data:
-        switches = [float(data[k]) for k in data.files
-                    if k.endswith("accu/update_accus']")]
-        counters = [float(data[k]) for k in data.files
-                    if k.endswith("accu/accu_counter']")]
-    print(f"filled state: {len(switches)} accumulators, update_accus "
-          f"{sorted(set(switches))}, accu_counter {sorted(set(counters))}")
-    if not switches or set(switches) != {0.0} or any(
-            abs(c - fills) > 1e-3 for c in counters):
-        raise AssertionError("the BN accumulators were not filled "
-                             f"{fills} times with the switch set back to 0")
+    fills = ACCU_EXAMPLES // EVAL_BATCH if accumulators else 0
+    if accumulators:
+        with np.load(os.path.join(export_dir,
+                                  f"model.ckpt-{STEPS}.npz")) as data:
+            switches = [float(data[k]) for k in data.files
+                        if k.endswith("accu/update_accus']")]
+            counters = [float(data[k]) for k in data.files
+                        if k.endswith("accu/accu_counter']")]
+        print(f"filled state: {len(switches)} accumulators, update_accus "
+              f"{sorted(set(switches))}, accu_counter "
+              f"{sorted(set(counters))}")
+        if not switches or set(switches) != {0.0} or any(
+                abs(c - fills) > 1e-3 for c in counters):
+            raise AssertionError("the BN accumulators were not filled "
+                                 f"{fills} times with the switch set back "
+                                 f"to 0")
 
     # Per checkpoint: the fill's forwards and one forward per sampled batch
-    # of each averaging run; eval runs no backward.
+    # of each averaging run, times the non-local blocks of G; eval runs no
+    # backward (the Jacobian of G runs on DCGAN, which has no attention).
     batches = -(-EVAL_SAMPLES // EVAL_BATCH)
-    expected = {"fwd": fills + AVERAGING_RUNS * batches, "bwd": 0}
+    expected = {"fwd": attention * (fills + AVERAGING_RUNS * batches),
+                "bwd": 0}
     print(f"eval kernel launches {launches} (expected {expected}: "
           f"{fills} fill + {AVERAGING_RUNS} runs * {batches} batches)")
     if launches != expected:
@@ -776,6 +903,8 @@ def run_eval(torch, model_dir):
     print("eval_seconds " + " ".join(f"{k} {v:.3f}"
                                      for k, v in phases.items())
           + f" total {seconds:.3f}")
+    print("eval_task_seconds " + " ".join(
+        f"{k} {v:.3f}" for k, v in record["task_seconds"].items()))
     # Each phase starts from a reset of the allocator's peak.
     peaks = {k: v / 2 ** 30 for k, v in record["peak_bytes"].items()}
     if set(peaks) != set(phases):
@@ -785,32 +914,75 @@ def run_eval(torch, model_dir):
     print("eval_peak_memory_allocated_GiB " + " ".join(
         f"{k} {v:.2f}" for k, v in peaks.items()) + f" (peak in {top})")
     sampled = AVERAGING_RUNS * batches * EVAL_BATCH
-    inception_seconds = phases["inception_fake"] + phases["inception_real"]
+    inception_seconds = phases["inception_fake"] + phases.get(
+        "inception_real", 0.0)
     print(f"sampling_images_per_second {sampled / phases['sampling']:.1f} "
           f"inception_images_per_second "
           f"{(sampled + EVAL_SAMPLES) / inception_seconds:.1f} "
           f"peak_memory_allocated_GiB {peaks[top]:.2f}")
 
-    # Eval-mode samples of the filled checkpoint: EMA weights, accumulated
-    # BN statistics.
+    # Eval-mode samples of the evaluated checkpoint: EMA weights and, with
+    # accumulators, the filled BN statistics.
     options = runner_lib.get_options_dict()
     gan = options["gan_class"](dataset=datasets.get_dataset(),
                                parameters=options, model_dir=model_dir,
                                device="cuda")
-    ts = eval_gan_lib.restored_state(
-        gan, os.path.join(export_dir, f"model.ckpt-{STEPS}.npz"),
-        eval_gan_lib.EvalCache())
+    path = (os.path.join(export_dir, f"model.ckpt-{STEPS}.npz")
+            if accumulators else
+            os.path.join(model_dir, f"model.ckpt-{STEPS}.npz"))
+    ts = eval_gan_lib.restored_state(gan, path, eval_gan_lib.EvalCache())
     z, labels = eval_gan_lib.eval_draws(gan, EVAL_BATCH, "run0", 0)
     images = gan.sample(ts, z, labels).float()
-    if tuple(images.shape) != (EVAL_BATCH, 128, 128, 3) or not bool(
-            torch.isfinite(images).all()) or images.min() < 0 \
+    if tuple(images.shape) != (EVAL_BATCH,) + tuple(image_shape) or not \
+            bool(torch.isfinite(images).all()) or images.min() < 0 \
             or images.max() > 1:
         raise AssertionError(f"bad eval samples: shape "
                              f"{tuple(images.shape)}, range "
                              f"[{images.min()}, {images.max()}]")
     print(f"eval samples {tuple(images.shape)} in "
           f"[{images.min().item():.3f}, {images.max().item():.3f}]")
+    return launches, {"seconds": phases, "task_seconds":
+                      record["task_seconds"], "total_seconds": seconds,
+                      "peak_memory_GiB": peaks,
+                      "scores": {k: float(rows[0][k + "_mean"])
+                                 for k in keys}}
+
+
+def run_biggan_deep(torch, model_dir):
+    """BigGAN-deep-128 at full width, batch 16, bf16, through the CLI: the
+    joint G forward, two D sub-steps and the G sub-step run the attention
+    as BigGAN does (5 forward and 4 backward launches a step). G
+    concatenates z to the f32 label embedding, so it runs in f32 (as in
+    the JAX package); D runs in bf16."""
+    _phase("BigGAN-deep main path")
+    _, launches = _train_and_check(
+        torch, model_dir, _deep_argv(model_dir, "train"), DEEP_PARAMS,
+        {"fwd": 5 * STEPS, "bwd": 4 * STEPS})
     return launches
+
+
+def run_gan_tasks(torch, model_dir):
+    """All ten eval tasks on the study zoo's DCGAN-64 checkpoint
+    (dcgan_celeba64.gin as published: unconditional, uniform z, z_dim 128),
+    GILBO at its defaults (2,000 regressor steps at batch 64) with its
+    artifacts written to <model_dir>/gilbo."""
+    outdir = os.path.join(model_dir, "gilbo")
+    argv = _cli_argv(model_dir, "dcgan_celeba64.gin",
+                     [f"GILBOTask.outdir = '{outdir}'"], "eval_after_train")
+    launches, summary = run_eval(torch, model_dir, argv,
+                                 SESSION_TASKS + GAN_TASKS, (64, 64, 3),
+                                 attention=0, accumulators=False,
+                                 phase="G/D-access tasks")
+    files = sorted(os.listdir(outdir))
+    print(f"gilbo artifacts {files}")
+    for want in ("eval_dists.p", "train_consistency_dists.p",
+                 "eval_consistency_dists.p", "self_consistency_dists.p"):
+        if want not in files:
+            raise AssertionError(f"GILBO did not write {want}")
+    for prefix in ("gilbo_model-", "consistency_image_self_"):
+        if not any(f.startswith(prefix) for f in files):
+            raise AssertionError(f"GILBO wrote no {prefix}* file")
+    return launches, summary
 
 
 def main():
@@ -820,18 +992,46 @@ def main():
     sys.path.insert(0, ROOT)
     import torch
 
+    t_start = time.perf_counter()
     check_device(torch)
     build_kernels()
-    kernels, eval_row, s3gan_row = compare_kernels(torch)
+    kernels, eval_row, s3gan_row, deep_rows = compare_kernels(torch)
     model_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    runs, seconds = {}, {}
+
+    def timed(name, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        seconds[name] = time.perf_counter() - t0
+        print(f"phase_seconds {name} {seconds[name]:.2f}")
+        return out
+
     try:
-        runs = {}
-        runs["train"] = run_main_path(torch, os.path.join(model_dir, "biggan"))
-        runs["eval"] = run_eval(torch, os.path.join(model_dir, "biggan"))
-        runs["s3gan"] = run_s3gan(torch, os.path.join(model_dir, "s3gan"))
-        runs["ssgan"] = run_ssgan(torch, os.path.join(model_dir, "ssgan"))
-        runs["study_zoo"], study_zoo = run_study_zoo(
-            torch, os.path.join(model_dir, "study_zoo"))
+        biggan = os.path.join(model_dir, "biggan")
+        deep = os.path.join(model_dir, "biggan_deep")
+        dcgan = os.path.join(model_dir, "study_zoo", "dcgan")
+        runs["train"] = timed("train", run_main_path, torch, biggan)
+        setup_inception(torch, model_dir)
+        runs["eval"], _ = timed(
+            "eval", run_eval, torch, biggan,
+            _argv(biggan, "eval_after_train"), SESSION_TASKS[:2],
+            (128, 128, 3), attention=1, accumulators=True)
+        runs["s3gan"] = timed("s3gan", run_s3gan, torch,
+                              os.path.join(model_dir, "s3gan"))
+        runs["ssgan"] = timed("ssgan", run_ssgan, torch,
+                              os.path.join(model_dir, "ssgan"))
+        runs["study_zoo"], study_zoo = timed(
+            "study_zoo", run_study_zoo, torch,
+            os.path.join(model_dir, "study_zoo"))
+        runs["deep_train"] = timed("deep_train", run_biggan_deep, torch,
+                                   deep)
+        runs["deep_eval"], deep_eval = timed(
+            "deep_eval", run_eval, torch, deep,
+            _deep_argv(deep, "eval_after_train"), SESSION_TASKS,
+            (128, 128, 3), attention=1, accumulators=True,
+            phase="BigGAN-deep eval")
+        runs["gan_tasks"], gan_tasks = timed("gan_tasks", run_gan_tasks,
+                                             torch, dcgan)
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
     launches = {k: sum(r[k] for r in runs.values()) for k in ("fwd", "bwd")}
@@ -846,7 +1046,17 @@ def main():
     for kern in ("fwd", "bwd"):
         s3gan_row[kern]["phase_launches"] = runs["s3gan"][kern]
     print("s3gan_shape " + json.dumps(s3gan_row))
+    # BigGAN-deep's training launches (G's in f32, D's in bf16) and its
+    # eval's forwards, all at C = 32, Cg = 128.
+    for row in deep_rows:
+        row["phase_launches"] = (runs["deep_eval"] if "eval" in row["shape"]
+                                 else runs["deep_train"])
+        print("biggan_deep_shape " + json.dumps(row))
+    print("biggan_deep_eval " + json.dumps(deep_eval))
+    print("gan_tasks " + json.dumps(gan_tasks))
     print("study_zoo " + json.dumps(study_zoo))
+    seconds["total"] = time.perf_counter() - t_start
+    print("phase_seconds " + json.dumps(seconds))
     print(json.dumps({"kernels": [
         {"name": f"attention_{k}", "route": "cuda", "source": source,
          "replaces": replaces[k], "launches": launches[k],

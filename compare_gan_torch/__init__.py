@@ -16,7 +16,8 @@ into `compare_gan_torch/_build/`).
 
 Checkpoints are evaluated by `eval_gan_lib` (BN accumulator fill, EMA
 sampling, Inception features from `metrics/inception_net.py` on the weights
-of the JAX package's `.npz` layout, FID and IS) behind the CLI's
+of the JAX package's `.npz` layout, and the ten eval tasks of `metrics/`)
+behind the CLI's
 eval_after_train and continuous_eval schedules; `export` writes and loads
 module exports in the JAX package's layout.
 """

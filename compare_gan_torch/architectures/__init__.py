@@ -1,6 +1,6 @@
 """Architecture registry (counterpart of
 compare_gan_tpu/architectures/__init__.py): every architecture of the JAX
-package but BigGAN-deep."""
+package."""
 
 from compare_gan_torch.architectures import (
     dcgan,
@@ -9,6 +9,7 @@ from compare_gan_torch.architectures import (
     resnet5,
     resnet30,
     resnet_biggan,
+    resnet_biggan_deep,
     resnet_cifar,
     resnet_stl,
     sndcgan,
@@ -22,6 +23,7 @@ GENERATORS = {
     c.RESNET5_ARCH: resnet5.Generator,
     c.RESNET30_ARCH: resnet30.Generator,
     c.RESNET_BIGGAN_ARCH: resnet_biggan.Generator,
+    c.RESNET_BIGGAN_DEEP_ARCH: resnet_biggan_deep.Generator,
     c.RESNET_CIFAR_ARCH: resnet_cifar.Generator,
     c.RESNET_STL_ARCH: resnet_stl.Generator,
     c.SNDCGAN_ARCH: sndcgan.Generator,
@@ -34,6 +36,7 @@ DISCRIMINATORS = {
     c.RESNET5_ARCH: resnet5.Discriminator,
     c.RESNET30_ARCH: resnet30.Discriminator,
     c.RESNET_BIGGAN_ARCH: resnet_biggan.Discriminator,
+    c.RESNET_BIGGAN_DEEP_ARCH: resnet_biggan_deep.Discriminator,
     c.RESNET_CIFAR_ARCH: resnet_cifar.Discriminator,
     c.RESNET_STL_ARCH: resnet_stl.Discriminator,
     c.SNDCGAN_ARCH: sndcgan.Discriminator,

@@ -24,16 +24,18 @@ class _Arch(core.Module):
         self._spectral_norm = spectral_norm
         self._device = device
 
-    def make_batch_norm(self, num_channels, y_dim=None):
+    def make_batch_norm(self, num_channels, y_dim=None, z_dim=None):
         """A normalization module from the gin-selected `batch_norm_fn`
-        class (None: identity). A self-modulated norm reads G's z; D has
-        none, so it raises there as in the JAX package."""
+        class (None: identity). A self-modulated norm reads G's z (of
+        width `z_dim`, by default G's z_dim); D has none, so it raises
+        there as in the JAX package."""
         if self._batch_norm_fn is None:
             return ops.NoBatchNorm()
+        if z_dim is None:
+            z_dim = getattr(self, "_z_dim", None)
         return utils.call_with_accepted_args(
             self._batch_norm_fn, num_channels=num_channels, y_dim=y_dim,
-            z_dim=getattr(self, "_z_dim", None), use_sn=self._spectral_norm,
-            device=self._device)
+            z_dim=z_dim, use_sn=self._spectral_norm, device=self._device)
 
     def jax_variables(self):
         """({jax_name: parameter}, {jax_name: buffer})."""

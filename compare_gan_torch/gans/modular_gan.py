@@ -534,19 +534,20 @@ class ModularGAN(AbstractGAN):
                 p.data = data
 
     def sample(self, ts: TrainState, z, labels=None, use_ema=None,
-               is_training=False, commit_state=False):
+               is_training=False, commit_state=False, differentiable=False):
         """Images [B, H, W, C] in [0, 1] from z (and labels, for a
         conditional GAN) with the inference params (the hub "gen" tag,
         modular_gan.py:225-287). z runs in its own type: `compute_dtype`
         does not apply, as in the JAX package. The forward commits no state
         unless `commit_state` (the JAX function returns its new state,
-        which its eval callers drop except when filling BN accumulators)."""
+        which its eval callers drop except when filling BN accumulators).
+        With `differentiable`, the images carry their graph back to z."""
         z = self._to_device(z)
         y = (self._get_one_hot_labels(self._to_device(labels))
              if self.conditional else None)
         no_commit = (contextlib.nullcontext() if commit_state
                      else core.no_state_updates())
-        with torch.no_grad(), no_commit, \
+        with torch.set_grad_enabled(differentiable), no_commit, \
                 self._inference_weights(ts, use_ema):
             return ts.generator(z, y=y, is_training=is_training)
 

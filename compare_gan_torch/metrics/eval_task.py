@@ -2,7 +2,10 @@
 
 A task consumes a pair of `EvalDataSample`s (fake, real) that carry images
 and their Inception activations and logits, after sampling is done: the
-reference's `run_after_session` protocol.
+reference's `run_after_session` protocol. A task that needs the generator
+or the discriminator (GILBO, D accuracy, Jacobian conditioning) defines
+`run_with_gan(gan, ts, ...)` instead, which the eval calls once per
+checkpoint.
 """
 
 from __future__ import annotations
@@ -14,6 +17,9 @@ class EvalTask(abc.ABC):
     """Class that describes a single evaluation task, e.g. compute FID."""
 
     _LABEL = None
+    # Whether run_after_session reads the fake images (not only their
+    # features): the eval then keeps the images of every averaging run.
+    reads_images = False
 
     def metric_list(self):
         """Frozenset of metric names computed by this task."""

@@ -310,10 +310,19 @@ def _default_eval_tasks():
 
 
 def _import_eval_task_modules():
-    """Register the ported eval-task classes for `evaluation.eval_tasks`
-    references (KID, PRD, MS-SSIM, GILBO and the other tasks of the JAX
-    package are not ported)."""
-    for cls in (fid_score.FIDScoreTask, inception_score.InceptionScoreTask):
+    """Register the ten eval-task classes of the JAX package for
+    `evaluation.eval_tasks` references (runner_lib.py:372-389 there).
+    GILBOTask is gin-configurable (outdir, train_steps, ...); the others
+    take no arguments."""
+    from compare_gan_torch.metrics import (
+        accuracy, fractal_dimension, gilbo, jacobian_conditioning,
+        kid_score, ms_ssim_score, prd_score)
+    for cls in (accuracy.AccuracyTask, fid_score.FIDScoreTask,
+                fractal_dimension.FractalDimensionTask, gilbo.GILBOTask,
+                inception_score.InceptionScoreTask,
+                jacobian_conditioning.GeneratorConditionNumberTask,
+                kid_score.KIDScoreTask, ms_ssim_score.MultiscaleSSIMTask,
+                prd_score.PRDTask):
         gin.register(cls.__name__, cls)
 
 
@@ -345,10 +354,11 @@ def evaluate_and_record_checkpoint(gan, checkpoint_path, task_manager,
     """One checkpoint: module export, metric eval, scores.csv row. NaN
     gives sentinel 31337.0 in every metric column. `cache`
     (`eval_gan_lib.EvalCache`) is shared by the checkpoints of one run.
-    Returns {"checkpoint", "step", "results", "seconds", "peak_bytes"}:
-    per phase (restore, export, fill, save_accu, sampling,
-    inception_fake, inception_real, metrics) its wall seconds and, on a
-    CUDA device, the peak bytes allocated while it ran."""
+    Returns {"checkpoint", "step", "results", "seconds", "peak_bytes",
+    "task_seconds"}: per phase (restore, export, fill, save_accu, sampling,
+    inception_fake, inception_real, metrics, gan_tasks) its wall seconds
+    and, on a CUDA device, the peak bytes allocated while it ran; per
+    task its seconds."""
     eval_tasks, num_accu_examples = _resolved_eval_settings(eval_tasks)
     cache = cache if cache is not None else eval_gan_lib.EvalCache()
     step = ckpt_lib.step_of(checkpoint_path)
@@ -378,7 +388,7 @@ def evaluate_and_record_checkpoint(gan, checkpoint_path, task_manager,
                 result_dict, log.seconds)
     return {"checkpoint": checkpoint_path, "step": step,
             "results": result_dict, "seconds": log.seconds,
-            "peak_bytes": log.peak_bytes}
+            "peak_bytes": log.peak_bytes, "task_seconds": log.task_seconds}
 
 
 def _run_eval(gan, checkpoints, task_manager, run_config, batch_size,

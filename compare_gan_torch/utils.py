@@ -66,3 +66,40 @@ def image_grid(images, grid_shape=None):
     return (images.reshape(gh, gw, h, w, c)
             .transpose(0, 2, 1, 3, 4)
             .reshape(gh * h, gw * w, c))
+
+
+def write_png(path, image):
+    """Write a uint8 [H, W] or [H, W, C] (C in 1, 3, 4) array as an 8-bit
+    PNG, with zlib and no other dependency."""
+    import struct
+    import zlib
+
+    arr = np.ascontiguousarray(image, np.uint8)
+    if arr.ndim == 2:
+        arr = arr[:, :, None]
+    h, w, c = arr.shape
+    color_type = {1: 0, 3: 2, 4: 6}[c]
+    # Each scanline starts with filter type 0 (none).
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          arr.reshape(h, w * c)], axis=1).tobytes()
+
+    def chunk(tag, data):
+        body = tag + data
+        return (struct.pack(">I", len(data)) + body
+                + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type,
+                                           0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(raw)))
+        f.write(chunk(b"IEND", b""))
+
+
+def save_images(images, image_path):
+    """Save an image, or a grid of a [N, H, W, C] batch, in [0, 1] as a PNG
+    (misc.save_images of the JAX package)."""
+    arr = np.asarray(images)
+    if arr.ndim == 4:
+        arr = image_grid(arr)
+    write_png(image_path, np.clip(arr * 255.0, 0, 255).astype(np.uint8))

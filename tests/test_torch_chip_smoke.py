@@ -109,3 +109,85 @@ def test_fails_without_a_card_and_outside_a_checkout(tmp_path):
     out = _run(str(alone), tmp_path)
     assert out.returncode != 0 and not _printed_a_result(out.stdout)
     assert "compare_gan_torch/ is missing" in out.stderr
+
+
+@pytest.mark.parametrize("shape,dtype_name,kern,us", [
+    # BigGAN-deep-128 at ch 128: C = 32, Cg = 128. 2*B*N*M*(C + Cg) and
+    # 2*B*N*M*(3C + 2Cg) flops at 989 (bf16) or 495 (TF32) TFLOP/s.
+    ((32, 4096, 1024, 32, 128), "bfloat16", "fwd", 43.43),
+    ((32, 4096, 1024, 32, 128), "bfloat16", "bwd", 95.54),
+    ((32, 4096, 1024, 32, 128), "float32", "fwd", 86.77),
+    ((32, 4096, 1024, 32, 128), "float32", "bwd", 190.89),
+    ((64, 4096, 1024, 32, 128), "float32", "fwd", 173.53),
+])
+def test_biggan_deep_bounds(shape, dtype_name, kern, us):
+    ms, by = chip_smoke.bounds_ms(shape, dtype_name)[kern]
+    assert by == "operations" and abs(1e3 * ms - us) < 0.01
+
+
+def test_biggan_deep_phases_run_the_published_shape_and_tasks():
+    """G after B8 and D after B2 of BigGAN-deep-128 share one shape; the
+    kernels phase holds it in both types forward and backward, and the
+    eval forward at batch 64 in f32. The eval phases name task classes
+    that the port registers."""
+    from compare_gan_torch import config as tgin
+    from compare_gan_torch import runner_lib
+    assert chip_smoke.DEEP_SHAPE == ("deep_B8_B2", (32, 4096, 1024, 32, 128))
+    assert chip_smoke.DEEP_EVAL_SHAPE[1] == (64, 4096, 1024, 32, 128)
+    assert chip_smoke.DEEP_PARAMS == (50244484, 34590210)
+    cases = [(name, dtype, bwd) for name, _, dtype, bwd, _
+             in chip_smoke._cases() if name.startswith("deep_")]
+    assert cases == [("deep_B8_B2", "float32", True),
+                     ("deep_B8_B2", "bfloat16", True),
+                     ("deep_G_B8_eval", "float32", False)]
+    runner_lib._import_eval_task_modules()
+    tasks = chip_smoke.SESSION_TASKS + chip_smoke.GAN_TASKS
+    assert len(set(tasks)) == 9
+    for name in tasks:
+        assert tgin.get_configurable(name)().metric_list()
+
+
+def test_biggan_deep_shape_line_parses():
+    """The `biggan_deep_shape` line is its tag and one JSON object: the
+    tolerances, the SDPA backend, each kernel's times, bound and share."""
+    shape = (32, 4096, 1024, 32, 128)
+    bounds = chip_smoke.bounds_ms(shape, "bfloat16")
+    rows = {kern: {"name": f"attention_{kern}", "max_abs_err": 1e-3,
+                   "ms": 2 * bounds[kern][0], "plain_ms": 1.0,
+                   "library_ms": 0.5, "bound_ms": bounds[kern][0],
+                   "bound_by": bounds[kern][1]} for kern in ("fwd", "bwd")}
+    row = chip_smoke.deep_shape_row("deep_B8_B2", 32, "bfloat16", "cudnn",
+                                    rows, 0.05)
+    line = "biggan_deep_shape " + json.dumps(row)
+    tag, text = line.split(" ", 1)
+    parsed = json.loads(text)
+    assert tag == "biggan_deep_shape"
+    assert parsed["tol"] == 2e-2 and parsed["mx_den_tol"] == 1e-4
+    assert parsed["sdpa_backend"] == "cudnn"
+    for kern in ("fwd", "bwd"):
+        assert parsed[kern]["share"] == pytest.approx(0.5)
+        assert parsed[kern]["bound_by"] == "operations"
+        assert {"ms", "plain_ms", "library_ms", "bound_ms",
+                "max_abs_err"} <= set(parsed[kern])
+
+
+def test_ptxas_report_names_each_kernel_and_its_spills():
+    log = (
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125"
+        "attention_bwd_cols_kernelI13__nv_bfloat16Li32ELi128EEEvPKT_' for "
+        "'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN46_GLOBAL__N__"
+        "attention_cu_d52b45ab25attention_bwd_cols_kernelI13__nv_bfloat16"
+        "Li32ELi128EEEvPKT_\n"
+        "    240 bytes stack frame, 644 bytes spill stores, 732 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 128 registers, used 1 barriers, 240 bytes "
+        "cumulative stack size, 46592 bytes smem\n"
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_120"
+        "attention_fwd_kernelIfLi16ELi48EEEvPKT_\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 113 registers, used 1 barriers, 16384 bytes "
+        "smem\n")
+    assert chip_smoke.ptxas_report(log) == [
+        ("attention_bwd_cols_kernel<bf16, 32, 128>", 128, 644, 732),
+        ("attention_fwd_kernel<f32, 16, 48>", 113, 0, 0)]

@@ -23,7 +23,7 @@ from compare_gan_tpu import runner_lib as jrunner
 from compare_gan_tpu.architectures import DISCRIMINATORS as JDISCRIMINATORS
 from compare_gan_tpu.architectures import GENERATORS as JGENERATORS
 from compare_gan_torch import config as tgin
-from compare_gan_torch import core, datasets, runner_lib
+from compare_gan_torch import core, datasets, interop, runner_lib
 from compare_gan_torch import gans  # noqa: F401 (gin)
 from compare_gan_torch.architectures import (DISCRIMINATORS, GENERATORS,
                                              resnet_biggan)
@@ -253,3 +253,68 @@ def test_biggan_high_res_golden_counts(resolution, z_dim, g_att, d_att,
     disc = resnet_biggan.Discriminator(image_shape=shape, num_classes=1000,
                                        device="meta")
     assert (core.count_params(gen), core.count_params(disc)) == want
+
+
+def _forward_from_port_weights(arch, shape, z, dtype=torch.float32):
+    """(JAX outputs, port outputs, port outputs in f64) of G then D in
+    training mode on the port's initial weights, carried to the JAX package
+    (its jitted init is the slowest part of such a test on a CPU). Each
+    output is (images, prob, logits, h)."""
+    gen = GENERATORS[arch](image_shape=shape, z_dim=z.shape[1])
+    disc = DISCRIMINATORS[arch](image_shape=shape)
+    variables = {}
+    for module in (gen, disc):
+        core.assign_scopes(module, module.name)
+        core.initialize(module, module.name, 0)
+        for tree in module.jax_variables():
+            variables.update({k: jnp.array(interop.to_jax(v), copy=True)
+                              for k, v in tree.items()})
+    params = {k: variables[k] for k in {**gen.jax_variables()[0],
+                                        **disc.jax_variables()[0]}}
+    state = {k: v for k, v in variables.items() if k not in params}
+    jgen = JGENERATORS[arch](image_shape=shape)
+    jdisc = JDISCRIMINATORS[arch]()
+
+    def net(zz):
+        images = jgen(zz, None, is_training=True)
+        return (images,) + tuple(jdisc(images, None, is_training=True))
+
+    want, _ = jax.jit(lambda p, s, zz: jcore.apply(net, p, s, zz))(
+        params, state, z)
+    outs = []
+    for dt in (torch.float32, torch.float64):
+        g, d = gen.to(dt), disc.to(dt)
+        with core.no_state_updates():
+            images = g(torch.from_numpy(z).to(dt), None, is_training=True)
+            outs.append((images,) + tuple(d(images, None, is_training=True)))
+    return want, outs[0], outs[1]
+
+
+@pytest.mark.parametrize("arch,shape,images_tol", [
+    # ResNet-STL at its 48 px: every output within 1e-5 of the largest.
+    (c.RESNET_STL_ARCH, (48, 48, 3), 1e-5),
+    # ResNet30 at its 128 px: 30 BN'd blocks whose variance is
+    # E[x^2] - mean^2 in f32 on both sides. Against the port's own f64
+    # forward, the port's f32 images lie 2.2e-4 of their largest entry away
+    # and JAX's 8.6e-5: the two f32 results differ by their rounding, 5e-4.
+    (c.RESNET30_ARCH, (128, 128, 3), 5e-4),
+])
+def test_forward_parity_of_resnet_stl_and_resnet30(arch, shape, images_tol):
+    """G then D, training mode, batch 2 with RECIPE: the images and D's
+    outputs against the JAX package's on the same weights, and both f32
+    results against the port's f64 forward."""
+    jgin.parse_config(RECIPE)
+    tgin.parse_config(RECIPE)
+    z = th.randn((2, 128), 5)
+    want, got, exact = _forward_from_port_weights(arch, shape, z)
+    for what, w, g, e in zip(("images", "prob", "logits", "h"), want, got,
+                             exact):
+        w, g, e = th.np32(w), th.np32(g), e.detach().double().numpy()
+        scale = float(np.abs(e).max())
+        # Images and h: of their largest entry. The logits (~1e-2 here)
+        # sum h times final_fc's ~1e-2 weights; their rounding is ~1e-7.
+        tol = {"images": images_tol * scale, "h": 1e-5 * scale,
+               "logits": 1e-6, "prob": 1e-6}[what]
+        np.testing.assert_allclose(g, w, rtol=0, atol=tol, err_msg=what)
+        np.testing.assert_allclose(g, e, rtol=0, atol=tol, err_msg=what)
+        np.testing.assert_allclose(w, e, rtol=0, atol=tol, err_msg=what)

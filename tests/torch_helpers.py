@@ -69,6 +69,27 @@ def jax_draws(jgan, ts, labels, batch_size):
     return draws
 
 
+def jax_train_state(jgan, ts_t):
+    """The JAX TrainState holding the port TrainState's values, with fresh
+    optimizer states and step counters at 0. Copies: a JAX array may alias
+    the numpy memory it was made from, which the port updates in place."""
+    import jax
+    import jax.numpy as jnp
+    from compare_gan_tpu.gans import modular_gan as jmodular
+    from compare_gan_torch import interop
+
+    params, state, ema = (
+        {k: jnp.array(v, copy=True) for k, v in tree.items()}
+        for tree in interop.params_to_jax(interop.state_dict(ts_t)))
+    g_tx, d_tx = jgan._make_optimizers()
+    return jmodular.TrainState(
+        params=params, state=state, ema_params=ema,
+        g_opt=g_tx.init(jgan.generator.trainable_variables(params)),
+        d_opt=d_tx.init(jgan.discriminator.trainable_variables(params)),
+        step=jnp.zeros((), jnp.int32), disc_step=jnp.zeros((), jnp.int32),
+        rng=jax.random.PRNGKey(3))
+
+
 def _max_abs(tree):
     return max(float(np.abs(np.asarray(v)).max()) for v in tree.values())
 

@@ -8,11 +8,14 @@ Each variant is the source with named text substitutions (the results are
 wrong; only the times count): no_stage (no key/row tiles are copied into
 shared memory), no_exp (ex2 replaced by its argument), no_pv (the forward's
 O += P.g and the column pass's dg += P^T.dout products dropped), no_sync
-(no cp.async wait, proxy fence or barrier around a tile). nvcc builds all
+(no cp.async wait, proxy fence or barrier around a tile); and one that
+keeps the work, bf16_bwd_uncapped (the bf16 backward at Cg > 96 without
+the 128-register cap of `min_blocks`). nvcc builds all
 variants at once into compare_gan_torch/_build/variants/; each is loaded
 with ctypes in place of the port's library, and the bf16 forward, row pass
-and column pass are timed at the two main-path shapes (batch 32) and at
-S3GAN's D batch of 38 with torch.profiler's device times. Prints one line per variant and shape.
+and column pass are timed at the two main-path shapes (batch 32), at
+S3GAN's D batch of 38 and at BigGAN-deep's C = 32, Cg = 128 with
+torch.profiler's device times. Prints one line per variant and shape.
 Needs a CUDA card.
 """
 
@@ -23,7 +26,8 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = {"G_B4": (32, 4096, 1024, 24, 96), "D_B1": (32, 4096, 1024, 12, 48),
-          "D_B1_s3gan": (38, 4096, 1024, 12, 48)}
+          "D_B1_s3gan": (38, 4096, 1024, 12, 48),
+          "deep_B8_B2": (32, 4096, 1024, 32, 128)}
 
 SUBSTITUTIONS = {
     "no_stage": [(
@@ -43,6 +47,12 @@ SUBSTITUTIONS = {
         mma<true, kSplit>(dgv[2 * np + 1], pa, b1);""",
         """        dgv[2 * np][0] += __uint_as_float(b0.h[0] ^ pa.h[0]);
         dgv[2 * np + 1][0] += __uint_as_float(b1.h[1] ^ pa.l[3]);""", 1)],
+    # Not a removal: the bf16 backward at Cg > 96 (BigGAN-deep's
+    # <32, 128>) without the 128-register cap, as the f32 backward at
+    # Cg > 48 already runs.
+    "bf16_bwd_uncapped": [(
+        "  return split && backward && GP > 48 ? 1 : 2;",
+        "  return backward && GP > (split ? 48 : 96) ? 1 : 2;", 1)],
     "no_sync": [(
         """      cp_async_wait<1>();
       fence_proxy_async();

@@ -2,7 +2,7 @@
 """Profile one of the port's train steps on one CUDA card.
 
     python3 tools/torch_profile_step.py
-        [--config biggan|s3gan|ssgan|resnet5|sndcgan|dcgan]
+        [--config biggan|biggan_deep|s3gan|ssgan|resnet5|sndcgan|dcgan]
         [--warmup 3] [--steps 3] [--trace DIR]
 
 Builds a training configuration as chip_smoke.py drives it, on fake data
@@ -10,6 +10,8 @@ with seed 547, from the port's own pieces (gin, datasets, the GAN class):
 
 - `biggan` (default): example_configs/biggan_imagenet128.gin at full
   width, batch 16, bf16 activations, joint G forward, fake-only G loss;
+- `biggan_deep`: the same with options.architecture =
+  'resnet_biggan_deep_arch' and z_dim 128 (BigGAN-deep-128 at ch 128);
 - `s3gan`: example_configs/s3gan32_polygons_partial.gin on ImageNet-128
   (BigGAN at ch 96), batch 16, bf16, joint G forward;
 - `ssgan`: example_configs/ssgan32_polygons_oriented.gin on CIFAR-10
@@ -43,6 +45,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (gin file, bindings) of each configuration.
 CONFIGS = {
     "biggan": ("biggan_imagenet128.gin", [
+        "options.batch_size = 16",
+        "ModularGAN.compute_dtype = 'bfloat16'",
+        "ModularGAN.experimental_joint_gen_for_disc = True",
+        "ModularGAN.experimental_fake_only_g_loss = True"]),
+    "biggan_deep": ("biggan_imagenet128.gin", [
+        "options.architecture = 'resnet_biggan_deep_arch'",
+        "options.z_dim = 128",
         "options.batch_size = 16",
         "ModularGAN.compute_dtype = 'bfloat16'",
         "ModularGAN.experimental_joint_gen_for_disc = True",
