@@ -53,7 +53,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    samples, and the attention launches (16 + 3 * 2 forwards). Prints the
    scores, the seconds and the peak device memory of each phase, and
    images per second.
-6. S3GAN main path: 3 steps of S3GAN on BigGAN-128 at full width through
+6. Data parallel: (a) the BigGAN-128 phases' CLI run with --num_devices=1
+   (3 steps at full width, batch 16, bf16) goes through the data-parallel
+   path on a one-rank NCCL group: the same checks as phase 4 (parameter
+   counts, finite losses, model.ckpt-3.npz, TRAIN_DONE, 5 forward and 4
+   backward attention launches a step), every all-reduce counted and on
+   NCCL; prints its seconds per step beside phase 4's; and
+   --num_devices=2 must raise on a one-card machine. (b) Two spawned
+   workers, both on cuda:0 over gloo (NCCL puts no two ranks on one
+   device), take one BigGAN-128 step at full width and global batch 16
+   (8 a worker) in f32 with TF32 off, deterministic cuDNN and Adam's
+   epsilon at 1e-3; their states must be equal bitwise, and rank 0's is
+   held to the one-process step on the same batch and draws, tensor by
+   tensor and by state kind (parameters, Adam moments, BN accumulators, SN
+   u, EMA) at the tolerances of DP_TOL. Beside it are printed the gaps of
+   the one-process step run again and with autotuned cuDNN algorithms
+   (the card's own spread), and of a control in which the workers do not
+   sum their gradients, which must fail DP_TOL. Each worker runs 5
+   forward and 4 backward attention launches at 8 rows. Its seconds are
+   gloo through the host on one card, no figure for NCCL on several
+   cards.
+7. S3GAN main path: 3 steps of S3GAN on BigGAN-128 at full width through
    the CLI with example_configs/s3gan32_polygons_partial.gin on fake
    ImageNet-128: batch 16, rotation (rotated_batch_fraction 4), projection
    and soft predictor heads, bf16, joint G forward, fake-only G loss off.
@@ -64,14 +84,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    included), the three head scopes in model.ckpt-3.npz, TRAIN_DONE and
    the attention launches (5 forward and 4 backward per step). Prints
    seconds per step after the first and peak device memory.
-7. SSGAN main path: 3 steps of SSGAN on ResNet-CIFAR-32 at its published
+8. SSGAN main path: 3 steps of SSGAN on ResNet-CIFAR-32 at its published
    widths through the CLI with example_configs/ssgan32_polygons_oriented.gin
    on fake CIFAR-10 (batch 64, 64 rotated examples: D sees 224 rows, f32).
    Checks the parameter counts (G 5,849,603; D with its head 1,483,653),
    finite losses (the rotation losses included), the checkpoint and that
    no attention kernel ran (the architecture has no attention). Prints
    seconds per step and peak device memory.
-8. Study zoo: 3 steps each of resnet_lsun-bedroom128.gin (ResNet5,
+9. Study zoo: 3 steps each of resnet_lsun-bedroom128.gin (ResNet5,
    Wasserstein loss with the WGAN-GP penalty, lambda 10, 5 D sub-steps,
    each with a double backward), sndcgan_celebahq128.gin and
    dcgan_celeba64.gin through the CLI, as published (batch 64, 128, 128
@@ -84,7 +104,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    them by; and that a gradient penalty through the attention kernel
    raises (its gradient is first order only). Prints seconds per step,
    peak device memory and the gradient gaps, and a `study_zoo {...}` line.
-9. BigGAN-deep main path: 3 steps of BigGAN-deep-128 as published (ch
+10. BigGAN-deep main path: 3 steps of BigGAN-deep-128 as published (ch
    128, z_dim 128; arXiv:1809.11096, Tables 7-9) through the CLI with the
    BigGAN-128 phases' config and options (batch 16, bf16, joint G forward,
    fake-only G loss, fake ImageNet-128) and options.architecture =
@@ -96,17 +116,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    with IS, FID, KID, PRD, MS-SSIM and the fractal dimension: every metric
    finite in the row, 16 + 3 * 2 forward launches, each phase's and each
    task's seconds and peak memory.
-10. G/D-access tasks: eval_after_train of the study zoo's DCGAN-64
+11. G/D-access tasks: eval_after_train of the study zoo's DCGAN-64
    checkpoint (dcgan_celeba64.gin as published: unconditional, uniform z)
    with all ten tasks, adding the Jacobian's conditioning, D's accuracy
    and GILBO at its defaults (2,000 regressor steps at batch 64, its
    artifacts written and checked). Every metric finite; each task's
    seconds.
-11. Prints the eval shape's forward row, the S3GAN D shape's bf16 row and
+12. Prints the eval shape's forward row, the S3GAN D shape's bf16 row and
    the BigGAN-deep rows as JSON lines of their own (`eval_shape_forward
    {...}`, `s3gan_shape {...}`, one `biggan_deep_shape {...}` per type and
    the eval forward: tolerances, SDPA backend, times, bound and share),
-   the BigGAN-deep eval and G/D-task summaries, each phase's seconds, then
+   the BigGAN-deep eval, G/D-task and data-parallel summaries, each
+   phase's seconds, then
    one JSON line describing each kernel ("ms",
    "plain_ms", "library_ms", "bound_ms": one call at each bf16 training
    shape of BigGAN-128, G and D at batch 32, summed; "launches": every
@@ -575,6 +596,7 @@ def run_main_path(torch, model_dir):
     report, launches = _train_and_check(
         torch, model_dir, _argv(model_dir, "train"), (G_PARAMS, D_PARAMS),
         {"fwd": 5 * STEPS, "bwd": 4 * STEPS})
+    run_main_path.seconds_per_step = report.seconds_per_step
     ts = report.state
     with torch.no_grad(), core.no_state_updates():
         z = torch.randn(4, 120, device="cuda").to(torch.bfloat16)
@@ -774,6 +796,264 @@ def check_attention_penalty_raises(torch):
         return
     raise AssertionError("a gradient penalty through the attention kernel "
                          "did not raise")
+
+
+def run_data_parallel(torch, model_dir):
+    """(a) The CLI with --num_devices=1: the BigGAN-128 main path's argv
+    through the data-parallel path, a one-rank NCCL group on the card
+    (every all-reduce counted, with its backend); --num_devices=2 raises on
+    a one-card machine. (b) Two spawned workers on cuda:0 over gloo, one
+    BigGAN-128 step at global batch 16 against the one-process step.
+    Returns (launches of (a), summary)."""
+    _phase("data parallel")
+    import torch.distributed as dist
+    from compare_gan_torch import main
+    print("-- (a) CLI --num_devices=1: one-rank NCCL group")
+    reduces = {"calls": 0, "backends": set()}
+    all_reduce = dist.all_reduce
+
+    def counted(tensor, *args, **kwargs):
+        reduces["calls"] += 1
+        reduces["backends"].add(dist.get_backend(kwargs.get("group")))
+        return all_reduce(tensor, *args, **kwargs)
+
+    dist.all_reduce = counted
+    try:
+        argv = _argv(model_dir, "train", ()) + ["--num_devices=1"]
+        report, launches = _train_and_check(
+            torch, model_dir, argv, (G_PARAMS, D_PARAMS),
+            {"fwd": 5 * STEPS, "bwd": 4 * STEPS})
+    finally:
+        dist.all_reduce = all_reduce
+    print(f"all-reduces {reduces['calls']} on {sorted(reduces['backends'])}")
+    if reduces["calls"] == 0 or reduces["backends"] != {"nccl"}:
+        raise AssertionError(f"the data-parallel run made no NCCL "
+                             f"all-reduce: {reduces}")
+    dp_seconds = report.seconds_per_step[1:]
+    main_seconds = run_main_path.seconds_per_step[1:]
+    print("seconds_per_step_after_first one-rank NCCL group "
+          + " ".join(f"{t:.4f}" for t in dp_seconds) + " | main path "
+          + " ".join(f"{t:.4f}" for t in main_seconds))
+    try:
+        main.main(argv + ["--num_devices=2"])
+    except ValueError as e:
+        print(f"--num_devices=2 raises: {e}")
+    else:
+        raise AssertionError("--num_devices=2 ran on a one-card machine")
+
+    print("-- (b) two gloo workers on cuda:0 against one process "
+          "(gloo copies through the host on one card: its seconds are no "
+          "figure for NCCL on several cards)")
+    out = os.path.join(model_dir, "two_workers.json")
+    from compare_gan_torch.parallel import mesh_utils
+    t0 = time.perf_counter()
+    torch.multiprocessing.start_processes(
+        _dp_worker, args=(mesh_utils.free_port(), out), nprocs=2,
+        join=True, start_method="spawn")
+    with open(out) as f:
+        two = json.load(f)
+    two["seconds"] = time.perf_counter() - t0
+    for kind, (rtol, atol) in DP_TOL.items():
+        print(f"{kind} (rms gap of a tensor, tol {rtol:.3g} of its rms "
+              f"+ {atol:.3g} of the largest): "
+              + "; ".join(f"{run} {two[run][kind]['max']:.3g} abs, "
+                          f"{two[run][kind]['ratio']:.3g} of tol"
+                          for run in DP_RUNS))
+    print(f"ranks bitwise equal: {two['bitwise']}; kernel launches per "
+          f"rank {two['launches']}; step seconds (gloo over the host on one "
+          f"card) {two['step_seconds']:.3f}, phase {two['seconds']:.1f}")
+    failed = [k for k, g in two["two_workers"].items() if g["ratio"] > 1]
+    if failed or not two["bitwise"] \
+            or two["launches"] != [{"fwd": 5, "bwd": 4}] * 2:
+        raise AssertionError(f"two workers disagree with one process: "
+                             f"{failed} {two}")
+    for control in ("unsummed", "local_bn"):
+        caught = {k for k, g in two[control].items() if g["ratio"] > 1}
+        if not {"params", "ema", "adam_mu", "adam_nu", "sn_u"} <= caught:
+            raise AssertionError(f"DP_TOL passes the {control} control: "
+                                 f"{caught} {two[control]}")
+    return launches, {"one_rank_nccl": {
+        "seconds_per_step": report.seconds_per_step,
+        "main_path_seconds_per_step": run_main_path.seconds_per_step,
+        "all_reduces": reduces["calls"]}, "two_gloo_workers": two}
+
+
+# (b) runs the BigGAN-128 config with Adam's epsilon at 1e-3 (as
+# tests/test_torch_dp_step.py and the JAX package's tests/test_parallel.py
+# do): at the config's 1e-8 Adam's first update is lr * g / (|g| + eps),
+# +-lr on the sign of a gradient that is rounding noise (a bias feeding a
+# batch norm), so whole tensors of any two f32 runs differ by up to 2 lr,
+# and SN u, one power iteration of the updated kernels, follows them.
+DP_BINDINGS = ("options.batch_size = 16",
+               "ModularGAN.experimental_joint_gen_for_disc = True",
+               "ModularGAN.experimental_fake_only_g_loss = True",
+               "tf.train.AdamOptimizer.epsilon = 1e-3")
+# The runs whose state (b) holds to the one-process step's: the two
+# workers; the one-process step again and with autotuned cuDNN (the card's
+# own spread); and the controls, two workers that do not sum their
+# gradients or that take BN moments of their own rows.
+DP_RUNS = ("two_workers", "again", "autotuned", "unsummed", "local_bn")
+# Tolerance by state kind, (rtol, atol): each tensor passes when
+# rms(got - want) <= rtol * rms(ref) + atol * (the largest rms(ref) of its
+# kind in its network, G or D); ref is a parameter's (and the EMA's)
+# update in the step, any other tensor itself. The workers sum half-batch
+# gradients and BN moments where one process sums the whole batch, and
+# cuDNN runs other algorithms at batch 8 than at 16: f32 sums in another
+# order, which can flip a ReLU whose input lies within rounding of 0: a
+# few gradient entries move far past rounding (0.0164 in Adam's first
+# moment here), and a parameter by up to 2 lr where its update's sign
+# flips, so the check is per tensor, not per entry. The one-process
+# step with autotuned cuDNN algorithms moves the state as far; run again
+# with the same algorithms it is bitwise equal. rtol: parameters and EMA
+# 5e-2 of the update, Adam's moments 2e-2, SN u (unit vectors) 1e-2.
+# atol, for the biases that feed a batch norm, whose gradient is rounding
+# noise and whose gap is as large as their update: 1e-4 of the largest
+# update, and 1e-6 (first moment) or 1e-12 (second) of the largest
+# moment. BN accumulators are not written in training, so equal. On an
+# NVIDIA H100 80GB HBM3 at 700 W this phase measured the workers at 0.29
+# of the tolerance (parameters), 0.099 (EMA), 0.17 (mu), 0.28 (nu) and
+# 0.033 (u), and the controls, which must fail every kind but the
+# accumulators, at 17.9 or more (parameters, EMA), 30.5 (mu), 46.2 (nu)
+# and 3.57 (u).
+DP_TOL = {"params": (5e-2, 1e-4), "ema": (5e-2, 1e-4),
+          "adam_mu": (2e-2, 1e-6), "adam_nu": (2e-2, 1e-12),
+          "sn_u": (1e-2, 0.0), "bn_accumulators": (0.0, 0.0)}
+
+
+def _state_kind(key):
+    if key.startswith(".ema_params"):
+        return "ema"
+    if key.startswith(".params"):
+        return "params"
+    if ".mu[" in key:
+        return "adam_mu"
+    if ".nu[" in key:
+        return "adam_nu"
+    if key.endswith("u_var']"):
+        return "sn_u"
+    return "bn_accumulators"
+
+
+def _dp_worker(rank, port, out):
+    """One of two gloo workers on cuda:0: one BigGAN-128 step of global
+    batch 16 (8 here) with DP_BINDINGS, f32 with TF32 off and
+    deterministic cuDNN; then its state against rank 0's bitwise, and the
+    control step with unsummed gradients. Rank 0 then takes the
+    one-process step of the same batch and draws, again, and with
+    autotuned cuDNN, and writes each run's gaps (`_state_gaps`) to `out`
+    as JSON."""
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    import torch
+    from compare_gan_torch import checkpoint
+    from compare_gan_torch import config as gin
+    from compare_gan_torch import datasets, gans, runner_lib
+    from compare_gan_torch.ops import fused_attention as fa
+    from compare_gan_torch.parallel import mesh_utils, tpu_ops
+    del gans  # Imported for its gin registrations.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    device = torch.device("cuda", 0)
+    replicas = mesh_utils.init_process_group(rank, 2, "127.0.0.1", port,
+                                             device, backend="gloo")
+    gin.parse_config_files_and_bindings(
+        [os.path.join(ROOT, "example_configs", "biggan_imagenet128.gin")],
+        list(DP_BINDINGS))
+    datasets.set_fake_dataset(True)
+    options = runner_lib.get_options_dict()
+    batch_size = options["batch_size"]
+    rng = np.random.RandomState(0)
+    total = batch_size * (options["disc_iters"] + 1)
+    batch = {"images": rng.rand(total, 128, 128, 3).astype(np.float32),
+             "labels": rng.randint(0, 1000, total).astype(np.int32)}
+
+    def step(reps, init=None):
+        gan = options["gan_class"](dataset=datasets.get_dataset(),
+                                   parameters=options, model_dir="unused",
+                                   device=device)
+        ts = gan.init_state(seed=0)
+        if init is not None:  # The parameters and EMA before the step.
+            init.update({k: v.detach().clone() for k, v in
+                         checkpoint.live_tensors(ts).items()
+                         if _state_kind(k) in ("params", "ema")})
+        train_step = gan.make_train_step(batch_size, reps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, _ = train_step(ts, batch)
+        torch.cuda.synchronize()
+        return checkpoint.live_tensors(ts), time.perf_counter() - t0
+
+    moments = tpu_ops.cross_replica_moments
+    controls = {  # Each a fault of a data-parallel step.
+        "unsummed": (mesh_utils, "sum_over_replicas",
+                     lambda tensors, reps: None),
+        "local_bn": (tpu_ops, "cross_replica_moments",
+                     lambda value, reps, axes=(0,), group_size=None:
+                     moments(value, reps, axes, group_size=1))}
+    try:
+        fa.launches_fwd = fa.launches_bwd = 0
+        states = {}
+        states["two_workers"], seconds = step(replicas)
+        launches = [{"fwd": fa.launches_fwd, "bwd": fa.launches_bwd}]
+        try:
+            mesh_utils.assert_replicated(states["two_workers"], replicas)
+            bitwise = True
+        except AssertionError:
+            bitwise = False
+        gathered = [None, None]
+        torch.distributed.all_gather_object(gathered, launches[0])
+        for name, (module, attr, fault) in controls.items():
+            right = getattr(module, attr)
+            setattr(module, attr, fault)
+            try:
+                states[name], _ = step(replicas)
+            finally:
+                setattr(module, attr, right)
+    finally:
+        mesh_utils.destroy_process_group()
+    if rank != 0:
+        return
+    init = {}
+    want, _ = step(None, init)
+    states["again"], _ = step(None)
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    states["autotuned"], _ = step(None)
+    result = {run: _state_gaps(states[run], want, init) for run in DP_RUNS}
+    with open(out, "w") as f:
+        json.dump(dict(result, bitwise=bitwise, launches=gathered,
+                       step_seconds=seconds), f)
+
+
+def _state_gaps(got, want, init):
+    """{state kind: {"max": largest |got - want| of an entry, "ratio":
+    largest rms(got - want) / (rtol * rms(ref) + atol * largest rms(ref))
+    of a tensor of the kind, with the kind's DP_TOL}}. `init` holds the
+    parameters and EMA before the step: their ref is the step's update."""
+    def rms(t):
+        return float(t.square().mean().sqrt())
+
+    refs = {key: (w.detach().double() - init[key].detach().double()
+                  if key in init else w.detach().double())
+            for key, w in want.items()}
+    largest = {}
+    for key, ref in refs.items():
+        scope = (_state_kind(key), "generator/" in key)
+        largest[scope] = max(largest.get(scope, 0.0), rms(ref))
+    gaps = {kind: {"max": 0.0, "ratio": 0.0} for kind in DP_TOL}
+    for key, ref in refs.items():
+        kind = _state_kind(key)
+        rtol, atol = DP_TOL[kind]
+        diff = got[key].detach().double() - want[key].detach().double()
+        gap, bound = rms(diff), (rtol * rms(ref) + atol
+                                 * largest[kind, "generator/" in key])
+        entry = gaps[kind]
+        entry["max"] = max(entry["max"], float(diff.abs().max()))
+        if gap:
+            entry["ratio"] = max(entry["ratio"],
+                                 gap / bound if bound else float("inf"))
+    return gaps
 
 
 def check_inception(torch, npz_path):
@@ -1016,6 +1296,9 @@ def main():
             "eval", run_eval, torch, biggan,
             _argv(biggan, "eval_after_train"), SESSION_TASKS[:2],
             (128, 128, 3), attention=1, accumulators=True)
+        runs["data_parallel"], data_parallel = timed(
+            "data_parallel", run_data_parallel, torch,
+            os.path.join(model_dir, "data_parallel"))
         runs["s3gan"] = timed("s3gan", run_s3gan, torch,
                               os.path.join(model_dir, "s3gan"))
         runs["ssgan"] = timed("ssgan", run_ssgan, torch,
@@ -1055,6 +1338,7 @@ def main():
     print("biggan_deep_eval " + json.dumps(deep_eval))
     print("gan_tasks " + json.dumps(gan_tasks))
     print("study_zoo " + json.dumps(study_zoo))
+    print("data_parallel " + json.dumps(data_parallel))
     seconds["total"] = time.perf_counter() - t_start
     print("phase_seconds " + json.dumps(seconds))
     print(json.dumps({"kernels": [

@@ -14,6 +14,12 @@ The SAGAN attention of the non-local block, forward and backward, runs as
 hand-written CUDA kernels (`csrc/attention.cu`, built with nvcc at first use
 into `compare_gan_torch/_build/`).
 
+Training runs in one process, or over several GPUs as synchronous data
+parallelism with the JAX package's global-batch semantics (`parallel`:
+one worker per device joined by torch.distributed, batch-norm moments and
+losses over the global batch, gradients summed over the workers), launched
+by `main --num_devices` or `--multihost`.
+
 Checkpoints are evaluated by `eval_gan_lib` (BN accumulator fill, EMA
 sampling, Inception features from `metrics/inception_net.py` on the weights
 of the JAX package's `.npz` layout, and the ten eval tasks of `metrics/`)

@@ -32,6 +32,12 @@ class Discriminator(abstract_arch.AbstractDiscriminator):
         self.linear = ops.Linear(self._image_shape[2], 1,
                                  device=self._device)
 
+    @property
+    def feature_dim(self):
+        """Width of the features D returns (what SSGAN's and S3GAN's heads
+        read): the image's channels."""
+        return self._image_shape[2]
+
     def forward(self, x, y, is_training):
         h = x.mean(dim=(1, 2))
         out = self.linear(h)

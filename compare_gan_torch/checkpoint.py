@@ -38,29 +38,33 @@ def step_of(path: str) -> int:
     return int(m.group(1))
 
 
-def _opt_arrays(prefix, opt) -> Dict[str, np.ndarray]:
-    """An optimizer state's counters and slots (optimizers.py)."""
-    out = {}
-    for field in dataclasses.fields(opt):
-        value = getattr(opt, field.name)
-        if isinstance(value, dict):
-            for name, v in value.items():
-                out[f"{prefix}.{field.name}['{name}']"] = interop.to_jax(
-                    v.float() if v.dtype == torch.bfloat16 else v)
-        else:
-            out[f"{prefix}.{field.name}"] = np.asarray(value, np.int32)
+def live_tensors(ts) -> Dict[str, torch.Tensor]:
+    """Every tensor of a TrainState, on its device, by checkpoint key: the
+    variables, the EMA shadows and the optimizers' slots."""
+    out = dict(interop.state_dict(ts))
+    for prefix, opt in ((".g_opt", ts.g_opt), (".d_opt", ts.d_opt)):
+        for field in dataclasses.fields(opt):
+            value = getattr(opt, field.name)
+            if isinstance(value, dict):
+                for name, v in value.items():
+                    out[f"{prefix}.{field.name}['{name}']"] = v
     return out
 
 
 def to_arrays(ts) -> Dict[str, np.ndarray]:
     """Every entry of a checkpoint, as host numpy arrays."""
-    arrays = {k: interop.to_jax(v)
-              for k, v in interop.state_dict(ts).items()}
+    arrays = {k: interop.to_jax(v.float() if v.dtype == torch.bfloat16
+                                else v)
+              for k, v in live_tensors(ts).items()}
     arrays[".step"] = np.asarray(ts.step, np.int32)
     arrays[".disc_step"] = np.asarray(ts.disc_step, np.int32)
     arrays[".seed"] = np.asarray(ts.seed, np.int64)
-    arrays.update(_opt_arrays(".g_opt", ts.g_opt))
-    arrays.update(_opt_arrays(".d_opt", ts.d_opt))
+    for prefix, opt in ((".g_opt", ts.g_opt), (".d_opt", ts.d_opt)):
+        for field in dataclasses.fields(opt):
+            value = getattr(opt, field.name)
+            if not isinstance(value, dict):
+                arrays[f"{prefix}.{field.name}"] = np.asarray(value,
+                                                              np.int32)
     return arrays
 
 

@@ -7,8 +7,9 @@ dataset name, seed and batch size they are bitwise equal to the JAX
 package's (tests/test_torch_datasets.py).
 
 * Deterministic seeding: effective seed = seed + host_id (reference
-  datasets.py:147-172). The port is one process: host (1, 0) unless a
-  dataset is built with other values.
+  datasets.py:147-172). The hosts are those of the data-parallel process
+  group (`parallel.mesh_utils.process_topology`; one host, (1, 0),
+  outside it) unless a dataset is built with other values.
 * Fake in-memory dataset behind `set_fake_dataset(True)` for tests
   (reference datasets.py:52-54,136-145; `--data_fake_dataset`).
 * Real data from either `.npz` shards or TFRecord files under
@@ -40,6 +41,7 @@ import numpy as np
 
 from compare_gan_torch import config as gin
 from compare_gan_torch import native
+from compare_gan_torch.parallel import mesh_utils
 
 # Process-level options (reference: absl flags, datasets.py:46-63).
 # No shuffle-buffer knob: shuffling is a full per-epoch permutation
@@ -533,11 +535,14 @@ class ImageDatasetV2:
             f"(set_fake_dataset(True)).")
 
     def _resolved_hosts(self):
-        """(num_hosts, host_id): the constructor's values, else (1, 0): the
-        port runs as one process. With several hosts each reads its own
-        disjoint shard of each epoch (reference abstract_gan.py:41-47,
+        """(num_hosts, host_id): the constructor's values, else those of
+        the process group (`mesh_utils.process_topology`; (1, 0) outside
+        data parallelism). With several hosts each reads its own disjoint
+        shard of each epoch (reference abstract_gan.py:41-47,
         datasets.py:147-172)."""
-        return self._num_hosts or 1, self._host_id or 0
+        if self._num_hosts is not None or self._host_id is not None:
+            return self._num_hosts or 1, self._host_id or 0
+        return mesh_utils.process_topology()
 
     def _host_seed(self, host_id=None):
         """seed + host index (reference datasets.py:147-172)."""

@@ -2,7 +2,8 @@
 
 Each loss maps the discriminator outputs on real/fake batches to
 `(d_loss, d_loss_real, d_loss_fake, g_loss)` f32 scalars, means over the
-batch. Gin-selected via `loss.fn`.
+global batch (`tpu_ops.batch_mean`: in a data-parallel step, this worker's
+share of it). Gin-selected via `loss.fn`.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import torch.nn.functional as F
 
 from compare_gan_torch import config as gin
 from compare_gan_torch import utils
+from compare_gan_torch.parallel.tpu_ops import batch_mean
 
 
 def check_dimensions(d_real, d_fake, d_real_logits, d_fake_logits):
@@ -40,36 +42,36 @@ def _sigmoid_ce_with_logits(logits, labels):
 @gin.configurable("non_saturating")
 def non_saturating(d_real_logits, d_fake_logits, d_real=None, d_fake=None):
     check_dimensions(d_real, d_fake, d_real_logits, d_fake_logits)
-    d_loss_real = _sigmoid_ce_with_logits(d_real_logits, 1.0).mean()
-    d_loss_fake = _sigmoid_ce_with_logits(d_fake_logits, 0.0).mean()
-    g_loss = _sigmoid_ce_with_logits(d_fake_logits, 1.0).mean()
+    d_loss_real = batch_mean(_sigmoid_ce_with_logits(d_real_logits, 1.0))
+    d_loss_fake = batch_mean(_sigmoid_ce_with_logits(d_fake_logits, 0.0))
+    g_loss = batch_mean(_sigmoid_ce_with_logits(d_fake_logits, 1.0))
     return d_loss_real + d_loss_fake, d_loss_real, d_loss_fake, g_loss
 
 
 @gin.configurable("wasserstein")
 def wasserstein(d_real_logits, d_fake_logits, d_real=None, d_fake=None):
     check_dimensions(d_real, d_fake, d_real_logits, d_fake_logits)
-    d_loss_real = -d_real_logits.float().mean()
-    d_loss_fake = d_fake_logits.float().mean()
+    d_loss_real = -batch_mean(d_real_logits.float())
+    d_loss_fake = batch_mean(d_fake_logits.float())
     return d_loss_real + d_loss_fake, d_loss_real, d_loss_fake, -d_loss_fake
 
 
 @gin.configurable("least_squares")
 def least_squares(d_real, d_fake, d_real_logits=None, d_fake_logits=None):
     check_dimensions(d_real, d_fake, d_real_logits, d_fake_logits)
-    d_loss_real = torch.square(d_real.float() - 1.0).mean()
-    d_loss_fake = torch.square(d_fake.float()).mean()
+    d_loss_real = batch_mean(torch.square(d_real.float() - 1.0))
+    d_loss_fake = batch_mean(torch.square(d_fake.float()))
     d_loss = 0.5 * (d_loss_real + d_loss_fake)
-    g_loss = 0.5 * torch.square(d_fake.float() - 1.0).mean()
+    g_loss = 0.5 * batch_mean(torch.square(d_fake.float() - 1.0))
     return d_loss, d_loss_real, d_loss_fake, g_loss
 
 
 @gin.configurable("hinge")
 def hinge(d_real_logits, d_fake_logits, d_real=None, d_fake=None):
     check_dimensions(d_real, d_fake, d_real_logits, d_fake_logits)
-    d_loss_real = F.relu(1.0 - d_real_logits.float()).mean()
-    d_loss_fake = F.relu(1.0 + d_fake_logits.float()).mean()
-    g_loss = -d_fake_logits.float().mean()
+    d_loss_real = batch_mean(F.relu(1.0 - d_real_logits.float()))
+    d_loss_fake = batch_mean(F.relu(1.0 + d_fake_logits.float()))
+    g_loss = -batch_mean(d_fake_logits.float())
     return d_loss_real + d_loss_fake, d_loss_real, d_loss_fake, g_loss
 
 

@@ -30,6 +30,18 @@ Mixed precision is explicit, as in `_cast_compute`: z and images are cast to
 optimizer moments, BN moments and losses stay f32. No autocast, so the f32
 CPU path and the bf16 GPU path are one code path.
 
+Data parallelism (`make_train_step(batch_size, replicas)`): each worker
+takes its rows of every sub-step's global batch of `batch_size`
+(`parallel.mesh_utils`), draws every sub-step's global z, sampled labels
+and penalty draws from the same named streams as one process does and
+keeps its rows, and runs the step inside `replica_context`, so batch norm
+and the losses reduce over the global batch and each loss is its share of
+the global one. The gradients are summed over the workers before each of
+the `disc_iters` D updates and before the G update; spectral norm's power
+iteration, the optimizers and the EMA then run alike on every worker, and
+the step's metrics are the global values. The step equals the one-process
+step at the same global batch, up to the order of the sums.
+
 `sample` and `discriminate` are the inference surface (the reference's hub
 "gen" and "disc" tags): G runs with its EMA shadows swapped in for its
 weights, in the type of its z, committing no state unless asked (the BN
@@ -52,6 +64,7 @@ from compare_gan_torch import utils
 from compare_gan_torch.gans import loss_lib, optimizers, penalty_lib
 from compare_gan_torch.gans.abstract_gan import AbstractGAN
 from compare_gan_torch.ops import rng
+from compare_gan_torch.parallel import mesh_utils
 
 Tensor = torch.Tensor
 
@@ -259,25 +272,35 @@ class ModularGAN(AbstractGAN):
             x = torch.from_numpy(np.array(x))  # A writable host copy.
         return x.to(self._device)
 
-    def _features(self, draws, seed, step, sub_step):
+    def _features(self, draws, seed, step, sub_step, replicas=None):
         """Sub-step features from draws (numpy arrays or tensors), with the
         sub-step's `penalty_draw(name, shape)`: uniform [0, 1) f32 draws
         from the named stream of (seed, step, sub_step), or `draws[name]`
-        where the caller handed one in."""
-        features = {"z": self._cast_compute(self._to_device(draws["z"]))}
+        where the caller handed one in. Every draw is of the global batch;
+        with `replicas`, the features hold this worker's rows of it, and
+        `penalty_draw` takes this worker's shape and returns its rows of
+        the global draw."""
+
+        def mine(x):
+            return x if replicas is None else replicas.rows(x, x.shape[0])
+
+        features = {"z": self._cast_compute(self._to_device(
+            mine(draws["z"])))}
         if self.conditional:
             features["sampled_labels"] = self._to_device(
-                draws["sampled_labels"])
+                mine(draws["sampled_labels"]))
 
         def penalty_draw(name, shape):
+            world = 1 if replicas is None else replicas.world
+            shape = (shape[0] * world,) + tuple(shape[1:])
             if name not in draws:
-                return rng.uniform(shape, rng.stream(
-                    seed, step, sub_step, name, self._device))
+                return mine(rng.uniform(shape, rng.stream(
+                    seed, step, sub_step, name, self._device)))
             value = self._to_device(draws[name]).float()
             if tuple(value.shape) != tuple(shape):
                 raise ValueError(f"Draw {name} has shape "
                                  f"{tuple(value.shape)}, not {tuple(shape)}.")
-            return value
+            return mine(value)
 
         features["penalty_draw"] = penalty_draw
         return features
@@ -393,7 +416,7 @@ class ModularGAN(AbstractGAN):
     # -- training ----------------------------------------------------------
 
     def _disc_sub_step(self, ts, images, labels, features, d_tx,
-                       precomputed_fake=None):
+                       precomputed_fake=None, replicas=None):
         """One D training sub-step (modular_gan.py:386-420)."""
         if precomputed_fake is None:
             sampled_y = (self._get_one_hot_labels(features["sampled_labels"])
@@ -411,10 +434,12 @@ class ModularGAN(AbstractGAN):
         # self_supervision "none") gets a zero gradient, as under jax.grad.
         grads = torch.autograd.grad(losses["d_loss"], list(d_params.values()),
                                     materialize_grads=True)
+        mesh_utils.sum_over_replicas(list(grads), replicas)
         d_tx.step(d_params, dict(zip(d_params, grads)), ts.d_opt)
         return losses
 
-    def _gen_sub_step(self, ts, images, labels, features, g_tx):
+    def _gen_sub_step(self, ts, images, labels, features, g_tx,
+                      replicas=None):
         """The G training sub-step + EMA (modular_gan.py:422-459)."""
         sampled_y = (self._get_one_hot_labels(features["sampled_labels"])
                      if self.conditional else None)
@@ -426,6 +451,7 @@ class ModularGAN(AbstractGAN):
             is_training=True, g_step=True)
         g_params = self.generator.jax_variables()[0]
         grads = torch.autograd.grad(losses["g_loss"], list(g_params.values()))
+        mesh_utils.sum_over_replicas(list(grads), replicas)
         g_tx.step(g_params, dict(zip(g_params, grads)), ts.g_opt)
         if self._g_use_ema:
             # decay = ema_decay * (step >= start), in f32 as in JAX.
@@ -440,63 +466,95 @@ class ModularGAN(AbstractGAN):
                     float(np.float32(1) - decay)))
         return losses
 
-    def make_train_step(self, batch_size):
-        """`train_step(ts, batch, draws=None) -> (ts, metrics)`. `batch`
-        holds images/labels of leading dim batch_size * num_sub_steps;
+    def make_train_step(self, batch_size, replicas=None):
+        """`train_step(ts, batch, draws=None) -> (ts, metrics)`.
+        `batch_size` is the global batch of a sub-step. `batch` holds
+        images/labels of this host's share of the global step batch
+        (batch_size * num_sub_steps rows over the hosts of `replicas`);
         `draws`, when given, is one {"z", "sampled_labels"} dict per
-        sub-step that replaces the port's own draws (used by parity
-        tests)."""
+        sub-step of the global batch, which replaces the port's own draws
+        (used by parity tests). With `replicas`, the step is this worker's
+        part of the data-parallel step."""
         g_tx, d_tx = self._make_optimizers()
         num_sub_steps = self.num_sub_steps
+        total = batch_size * num_sub_steps
+        if replicas is not None and batch_size % replicas.world:
+            raise ValueError(f"A sub-step batch of {batch_size} does not "
+                             f"split over {replicas.world} workers.")
+
+        def mine(x):
+            return x if replicas is None else replicas.rows(x, batch_size)
 
         def train_step(ts: TrainState, batch,
                        draws: Optional[List[Dict]] = None):
-            images = self._to_device(batch["images"])
-            labels = self._to_device(batch["labels"])
-            if images.shape[0] != batch_size * num_sub_steps:
-                raise ValueError(f"Global batch {images.shape[0]} != "
-                                 f"{batch_size}*{num_sub_steps}")
-            images_s = torch.split(images, batch_size)
-            labels_s = torch.split(labels, batch_size)
+            images, labels = batch["images"], batch["labels"]
+            hosts = 1 if replicas is None else replicas.num_hosts
+            if images.shape[0] * hosts != total:
+                raise ValueError(f"Global batch {images.shape[0] * hosts} "
+                                 f"!= {batch_size}*{num_sub_steps}")
+            labels = self._to_device(labels)
+            if hosts > 1:
+                labels = replicas.gather_hosts(labels)
+                images_s = list(torch.split(replicas.exchange_blocks(
+                    self._to_device(images), batch_size),
+                    batch_size // replicas.world))
+            else:
+                images_s = [self._to_device(mine(images[i * batch_size:
+                                                        (i + 1) * batch_size]))
+                            for i in range(num_sub_steps)]
+            global_labels = torch.split(labels, batch_size)
+            labels_s = [mine(x) for x in global_labels]
             if draws is None:
-                draws = [self.draw_sub_step_inputs(batch_size, labels_s[i],
-                                                   ts.seed, ts.step, i)
-                         for i in range(num_sub_steps)]
-            features = [self._features(d, ts.seed, ts.step, i)
+                draws = [self.draw_sub_step_inputs(
+                    batch_size, global_labels[i], ts.seed, ts.step, i)
+                    for i in range(num_sub_steps)]
+            features = [self._features(d, ts.seed, ts.step, i, replicas)
                         for i, d in enumerate(draws)]
-            metrics = {}
-
-            fakes = [None] * self._disc_iters
-            if self._experimental_joint_gen_for_disc:
-                z = torch.cat([f["z"] for f in features[:-1]], dim=0)
-                y = (self._get_one_hot_labels(torch.cat(
-                    [f["sampled_labels"] for f in features[:-1]], dim=0))
-                    if self.conditional else None)
-                with torch.no_grad():
-                    joint = self.generator(z, y=y, is_training=True)
-                fakes = list(torch.split(joint, batch_size))
-
-            for i in range(self._disc_iters):
-                losses = self._disc_sub_step(
-                    ts, images_s[i], labels_s[i], features[i], d_tx,
-                    precomputed_fake=fakes[i])
-                metrics[f"loss/d_{i}"] = losses["d_loss"].detach()
-                if i == 0:
-                    metrics["loss/penalty"] = losses["penalty_loss"].detach()
-
-            losses = self._gen_sub_step(ts, images_s[-1], labels_s[-1],
-                                        features[-1], g_tx)
-            metrics["loss/g"] = losses["g_loss"].detach()
-            # A subclass's extra losses and rates (SSGAN, S3GAN), as the JAX
-            # step passes them on (modular_gan.py:523-528).
-            for k, v in losses.items():
-                if k not in ("d_loss", "g_loss", "penalty_loss"):
-                    metrics[f"loss/{k}"] = v.detach()
+            with mesh_utils.replica_context(replicas):
+                metrics = self._step(ts, images_s, labels_s, features, g_tx,
+                                     d_tx, replicas)
+            if replicas is not None:  # Every worker's share, summed.
+                names = sorted(metrics)
+                stacked = torch.stack([metrics[k].float() for k in names])
+                mesh_utils.sum_over_replicas([stacked], replicas)
+                metrics = dict(zip(names, stacked))
             ts.step += 1
             ts.disc_step += self._disc_iters
             return ts, metrics
 
         return train_step
+
+    def _step(self, ts, images_s, labels_s, features, g_tx, d_tx, replicas):
+        """The sub-steps of one train step on this worker's rows; returns
+        its metrics (its shares of them in a data-parallel step)."""
+        metrics = {}
+        fakes = [None] * self._disc_iters
+        if self._experimental_joint_gen_for_disc:
+            z = torch.cat([f["z"] for f in features[:-1]], dim=0)
+            y = (self._get_one_hot_labels(torch.cat(
+                [f["sampled_labels"] for f in features[:-1]], dim=0))
+                if self.conditional else None)
+            with torch.no_grad():
+                joint = self.generator(z, y=y, is_training=True)
+            fakes = list(torch.split(joint, images_s[0].shape[0]))
+
+        for i in range(self._disc_iters):
+            losses = self._disc_sub_step(
+                ts, images_s[i], labels_s[i], features[i], d_tx,
+                precomputed_fake=fakes[i], replicas=replicas)
+            metrics[f"loss/d_{i}"] = losses["d_loss"].detach()
+            if i == 0:
+                metrics["loss/penalty"] = losses["penalty_loss"].detach()
+
+        losses = self._gen_sub_step(ts, images_s[-1], labels_s[-1],
+                                    features[-1], g_tx, replicas)
+        metrics["loss/g"] = losses["g_loss"].detach()
+        # A subclass's extra losses and rates (SSGAN, S3GAN), as the JAX
+        # step passes them on (modular_gan.py:523-528).
+        for k, v in losses.items():
+            if k not in ("d_loss", "g_loss", "penalty_loss"):
+                metrics[f"loss/{k}"] = v.detach()
+        return metrics
 
     # -- inference (the reference's TF-Hub module surface) -----------------
 
@@ -563,8 +621,19 @@ class ModularGAN(AbstractGAN):
     # -- input -------------------------------------------------------------
 
     def input_batches(self, batch_size, skip_batches=0):
-        """Host iterator of numpy {images, labels} batches of
-        batch_size * num_sub_steps."""
+        """Host iterator of numpy {images, labels}: this host's share,
+        1 / num_hosts, of every global step batch of batch_size *
+        num_sub_steps rows, from its own stream (seed + host_id), as the
+        JAX package's per-host input (modular_gan.py:605-625 there). The
+        hosts and this host's index are those of the process group
+        (`mesh_utils.process_topology`): one host outside data
+        parallelism."""
+        num_hosts, host_id = mesh_utils.process_topology()
+        total = batch_size * self.num_sub_steps
+        if total % num_hosts:
+            raise ValueError(
+                f"Global per-step batch {total} (= {batch_size} x "
+                f"{self.num_sub_steps} sub-steps) must divide over "
+                f"{num_hosts} hosts.")
         return self._dataset.train_input_fn(
-            batch_size * self.num_sub_steps, host_id=0,
-            skip_batches=skip_batches)
+            total // num_hosts, host_id=host_id, skip_batches=skip_batches)

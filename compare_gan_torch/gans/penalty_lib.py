@@ -8,6 +8,11 @@ draws come from `draw(name, shape)`, uniform in [0, 1) in f32: the trainer's
 named stream of the sub-step ("alpha", "dragan_noise"), or draws a test
 hands in.
 
+Means and DRAGAN's standard deviation are over the global batch
+(`tpu_ops`): in a data-parallel step each worker returns its share of the
+penalty, and of the L2 penalty, which every worker computes alike from the
+replicated weights, its 1 / world part.
+
 Gin-selected via `penalty.fn`.
 """
 
@@ -17,6 +22,7 @@ import torch
 
 from compare_gan_torch import config as gin
 from compare_gan_torch import utils
+from compare_gan_torch.parallel import tpu_ops
 
 
 def _slope_penalty(d_logits_fn, x_perturbed):
@@ -28,7 +34,7 @@ def _slope_penalty(d_logits_fn, x_perturbed):
                                      create_graph=True)
     slopes = torch.sqrt(1e-4 + gradients.float().square().sum(
         dim=tuple(range(1, gradients.dim()))))
-    return (slopes - 1.0).square().mean()
+    return tpu_ops.batch_mean((slopes - 1.0).square())
 
 
 @gin.configurable("no_penalty")
@@ -42,7 +48,7 @@ def dragan_penalty(d_logits_fn, x, draw):
     std(x) * U(-0.5, 0.5), clipped to [0, 1]. The perturbation is cast to
     x's type before the add, so a bf16 x keeps the penalty's D forward in
     bf16."""
-    std = torch.sqrt(x.float().var(unbiased=False))
+    std = torch.sqrt(tpu_ops.batch_variance(x.float()))
     noise = draw("dragan_noise", tuple(x.shape)) - 0.5
     x_noisy = torch.clamp(x + (std * noise).to(x.dtype), 0.0, 1.0)
     return _slope_penalty(d_logits_fn, x_noisy)
@@ -64,8 +70,8 @@ def l2_penalty(d_params):
     kernels = [v for name, v in d_params.items() if name.endswith("/kernel")]
     if not kernels:
         return torch.zeros((), dtype=torch.float32)
-    return torch.stack([0.5 * v.float().square().sum()
-                        for v in kernels]).mean()
+    return tpu_ops.replicated_share(torch.stack(
+        [0.5 * v.float().square().sum() for v in kernels]).mean())
 
 
 @gin.configurable("penalty")

@@ -8,6 +8,10 @@ for unlabeled examples (`discriminator_predictor`, soft or hard) and a
 projection <embed(y), h> with the imputed-or-real labels
 (`discriminator_projection`, glorot-normal init). An example counts as
 labeled when its label row sums to more than 0.5. S3GAN applies no penalty.
+
+As in SSGAN, the rotated examples are the last rows of the global batch,
+and in a data-parallel step the losses are each worker's share: the class
+loss divides its worker's sum by the labeled rows of the global batch.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from compare_gan_torch import core
 from compare_gan_torch import utils
 from compare_gan_torch.gans import loss_lib, modular_gan, ssgan
 from compare_gan_torch.ops import arch_ops as ops
+from compare_gan_torch.parallel import tpu_ops
 
 NUM_ROTATIONS = ssgan.NUM_ROTATIONS
 
@@ -121,16 +126,19 @@ class S3GAN(modular_gan.ModularGAN):
 
     def merge_with_rotation_data(self, real, fake, real_labels, fake_labels,
                                  num_rot_examples):
-        """The [real, real-rot, fake, fake-rot] batch (s3gan.py:115-133)."""
-        n = num_rot_examples
-        real_rotated = utils.rotate_images(real[-n:], rot90_scalars=(1, 2, 3))
-        fake_rotated = utils.rotate_images(fake[-n:], rot90_scalars=(1, 2, 3))
+        """The [real, real-rot, fake, fake-rot] batch (s3gan.py:115-133),
+        rotating the last `num_rot_examples` rows (perhaps none)."""
+        start = real.shape[0] - num_rot_examples
+        real_rotated = utils.rotate_images(real[start:],
+                                           rot90_scalars=(1, 2, 3))
+        fake_rotated = utils.rotate_images(fake[start:],
+                                           rot90_scalars=(1, 2, 3))
         all_features = torch.cat([real, real_rotated, fake, fake_rotated], 0)
         all_labels = None
         if self.conditional:
             all_labels = torch.cat(
-                [real_labels, real_labels[-n:].repeat(3, 1),
-                 fake_labels, fake_labels[-n:].repeat(3, 1)], 0)
+                [real_labels, real_labels[start:].repeat(3, 1),
+                 fake_labels, fake_labels[start:].repeat(3, 1)], 0)
         return all_features, all_labels
 
     # -- loss --------------------------------------------------------------
@@ -154,21 +162,23 @@ class S3GAN(modular_gan.ModularGAN):
                 features["sampled_labels"])
 
         bs = real_images.shape[0]
+        global_bs = ssgan.global_rows(bs)
         rotation = self._self_supervision == "rotation"
         if rotation:
-            if bs % self._rotated_batch_fraction:
+            if global_bs % self._rotated_batch_fraction:
                 raise ValueError(
                     f"Rotated batch fraction is invalid: "
-                    f"{self._rotated_batch_fraction} doesn't divide {bs}")
-            rotated_bs = bs // self._rotated_batch_fraction
+                    f"{self._rotated_batch_fraction} doesn't divide "
+                    f"{global_bs}")
+            rotated_bs = global_bs // self._rotated_batch_fraction
             num_rot_examples = rotated_bs // NUM_ROTATIONS
             if num_rot_examples <= 0:
-                raise ValueError(f"A batch of {bs} leaves no rotated example "
-                                 f"at rotated_batch_fraction "
+                raise ValueError(f"A batch of {global_bs} leaves no rotated "
+                                 f"example at rotated_batch_fraction "
                                  f"{self._rotated_batch_fraction}.")
+            _, n_rot = ssgan.local_rotated_rows(num_rot_examples, bs)
             all_features, all_labels = self.merge_with_rotation_data(
-                real_images, fake_images, real_labels, fake_labels,
-                num_rot_examples)
+                real_images, fake_images, real_labels, fake_labels, n_rot)
         else:
             all_features = torch.cat([real_images, fake_images], 0)
             all_labels = (torch.cat([real_labels, fake_labels], 0)
@@ -180,7 +190,7 @@ class S3GAN(modular_gan.ModularGAN):
 
         expected_batch_size = 2 * bs
         if rotation:
-            expected_batch_size += 2 * (NUM_ROTATIONS - 1) * num_rot_examples
+            expected_batch_size += 2 * (NUM_ROTATIONS - 1) * n_rot
         if d_logits.shape[0] != expected_batch_size:
             raise ValueError(f"Batch size unexpected: got {d_logits.shape[0]}"
                              f" expected {expected_batch_size}")
@@ -196,18 +206,21 @@ class S3GAN(modular_gan.ModularGAN):
                                                device=real_images.device)}
         if rotation:
             rot_real_logits, rot_fake_logits = torch.chunk(rot_logits, 2)
-            rot_real_logits = rot_real_logits[-rotated_bs:]
-            rot_fake_logits = rot_fake_logits[-rotated_bs:]
-            labels_rotated = ssgan.rotation_labels(num_rot_examples,
-                                                   real_images.device)
-            real_loss = ssgan.rotation_loss(rot_real_logits, labels_rotated)
-            fake_loss = ssgan.rotation_loss(rot_fake_logits, labels_rotated)
+            first = rot_real_logits.shape[0] - NUM_ROTATIONS * n_rot
+            rot_real_logits = rot_real_logits[first:]
+            rot_fake_logits = rot_fake_logits[first:]
+            labels_rotated = ssgan.rotation_labels(n_rot, real_images.device)
+            real_loss = ssgan.rotation_loss(rot_real_logits, labels_rotated,
+                                            rotated_bs)
+            fake_loss = ssgan.rotation_loss(rot_fake_logits, labels_rotated,
+                                            rotated_bs)
             d_loss = d_loss + real_loss * self._weight_rotation_loss_d
             g_loss = g_loss + fake_loss * self._weight_rotation_loss_g
             metrics["rotation_real_loss"] = real_loss
             metrics["rotation_fake_loss"] = fake_loss
-            metrics["rotation_accuracy_real"] = (
-                rot_real_logits.argmax(1) == labels_rotated).float().mean()
+            metrics["rotation_accuracy_real"] = tpu_ops.batch_mean(
+                (rot_real_logits.argmax(1) == labels_rotated).float(),
+                rotated_bs)
 
         if self._use_predictor:
             real_aux_logits = torch.chunk(aux_logits, 2)[0][:bs]
@@ -215,10 +228,10 @@ class S3GAN(modular_gan.ModularGAN):
             # Softmax CE over the labeled rows only: sum(w * ce) / sum(w).
             log_p = F.log_softmax(real_aux_logits.float(), dim=1)
             ce = -(real_labels * log_p).sum(dim=1)
-            class_loss_real = (avail * ce).sum() / torch.clamp(avail.sum(),
-                                                               min=1e-8)
+            class_loss_real = (avail * ce).sum() / torch.clamp(
+                tpu_ops.batch_sum(avail), min=1e-8)
             d_loss = d_loss + self._weight_class_loss * class_loss_real
             metrics["class_loss_real"] = class_loss_real
-            metrics["label_frac"] = avail.mean()
+            metrics["label_frac"] = tpu_ops.batch_mean(avail)
 
         return {"d_loss": d_loss, "g_loss": g_loss, **metrics}

@@ -6,6 +6,12 @@ A 4-way rotation classifier on D's penultimate features
 and rotation cross-entropies: weight 1.0 into D on real images, 0.2 into G
 on fakes. `rotated_batch_size` counts the whole batch, as in the JAX
 package.
+
+The rotated examples are the last rows of the global batch (ssgan.py:69-90
+there). In a data-parallel step they lie on the last worker or workers:
+each worker rotates those of its rows that are among them (perhaps none),
+so the workers' D batches differ in length, and the rotation losses are
+each worker's share of the mean over the global rotated rows.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from compare_gan_torch import core
 from compare_gan_torch import utils
 from compare_gan_torch.gans import loss_lib, modular_gan
 from compare_gan_torch.ops import arch_ops as ops
+from compare_gan_torch.parallel import mesh_utils, tpu_ops
 
 NUM_ROTATIONS = 4
 
@@ -28,12 +35,29 @@ def rotation_labels(num_rot, device):
         num_rot)
 
 
-def rotation_loss(logits, labels):
+def rotation_loss(logits, labels, count=None):
     """-mean(sum(onehot * log(softmax(logits) + 1e-10))) in f32, the JAX
-    package's form (not log_softmax)."""
+    package's form (not log_softmax); the mean over `count` rows of the
+    global batch (`tpu_ops.batch_mean`)."""
     probs = torch.softmax(logits.float(), dim=-1)
     log_p = torch.log(probs + 1e-10)
-    return -log_p.gather(1, labels[:, None]).mean()
+    return -tpu_ops.batch_mean(log_p.gather(1, labels[:, None]), count)
+
+
+def local_rotated_rows(num_rot, bs):
+    """(start, n): of the last `num_rot` rows of the global batch, this
+    worker holds rows [start, bs) of its `bs`, n = bs - start of them."""
+    replicas = mesh_utils.active()
+    rank, world = (0, 1) if replicas is None else (replicas.rank,
+                                                   replicas.world)
+    start = min(max(bs * world - num_rot - rank * bs, 0), bs)
+    return start, bs - start
+
+
+def global_rows(bs):
+    """The rows of the global batch of which this worker holds `bs`."""
+    replicas = mesh_utils.active()
+    return bs if replicas is None else bs * replicas.world
 
 
 def rotation_head(feature_dim, use_sn, device):
@@ -99,22 +123,23 @@ class SSGAN(modular_gan.ModularGAN):
         rotation = "rotation" in self._self_supervision
 
         if rotation:
-            if num_rot > bs:
+            if num_rot > global_rows(bs):
                 raise ValueError(f"{num_rot} rotated examples per rotation "
-                                 f"but a batch of {bs}.")
-            images_rotated = utils.rotate_images(images[-num_rot:],
+                                 f"but a batch of {global_rows(bs)}.")
+            start, n_rot = local_rotated_rows(num_rot, bs)
+            images_rotated = utils.rotate_images(images[start:],
                                                  rot90_scalars=(1, 2, 3))
-            generated_rotated = utils.rotate_images(generated[-num_rot:],
+            generated_rotated = utils.rotate_images(generated[start:],
                                                     rot90_scalars=(1, 2, 3))
-            rotate_labels = rotation_labels(num_rot, images.device)
+            rotate_labels = rotation_labels(n_rot, images.device)
             all_images = torch.cat(
                 [images, images_rotated, generated, generated_rotated], 0)
             if self.conditional:
-                y_rotated = y[-num_rot:].repeat(3, 1)
+                y_rotated = y[start:].repeat(3, 1)
                 # The fakes' rotated labels are tiled from the REAL y, not
                 # from sampled_y: a quirk of the reference (ssgan.py:88)
                 # that the JAX package keeps, and so does the port.
-                sampled_y_rotated = y[-num_rot:].repeat(3, 1)
+                sampled_y_rotated = y[start:].repeat(3, 1)
                 all_y = torch.cat([y, y_rotated, sampled_y,
                                    sampled_y_rotated], 0)
         else:
@@ -139,12 +164,17 @@ class SSGAN(modular_gan.ModularGAN):
         d_loss = d_loss + self._lambda * penalty_loss
 
         if rotation:
-            c_real_logits = c_real_logits[-rotated_bs:]
-            c_fake_logits = c_fake_logits[-rotated_bs:]
-            accuracy = (c_real_logits.argmax(-1) == rotate_labels).float() \
-                .mean()
-            c_real_loss = rotation_loss(c_real_logits, rotate_labels)
-            c_fake_loss = rotation_loss(c_fake_logits, rotate_labels)
+            # The last 4 * n_rot rows: the un-rotated originals of the
+            # rotated examples and their three rotations.
+            c_real_logits = c_real_logits[c_real_logits.shape[0] - 4 * n_rot:]
+            c_fake_logits = c_fake_logits[c_fake_logits.shape[0] - 4 * n_rot:]
+            accuracy = tpu_ops.batch_mean(
+                (c_real_logits.argmax(-1) == rotate_labels).float(),
+                rotated_bs)
+            c_real_loss = rotation_loss(c_real_logits, rotate_labels,
+                                        rotated_bs)
+            c_fake_loss = rotation_loss(c_fake_logits, rotate_labels,
+                                        rotated_bs)
             if self._self_supervision == "rotation_only":
                 d_loss = d_loss * 0.0
                 g_loss = g_loss * 0.0

@@ -1,7 +1,6 @@
 """Layers of the ported architectures, as nn.Modules with the JAX names.
 
-Counterpart of compare_gan_tpu/ops/arch_ops.py (evonorm and the
-weight-norm layers are not ported). Public
+Counterpart of compare_gan_tpu/ops/arch_ops.py. Public
 layouts follow the JAX package: activations NHWC, linear kernels [in, out],
 conv kernels HWIO and transposed-conv kernels HWOI in checkpoints. The port
 stores conv kernels OIHW and transposed-conv kernels IOHW (both the JAX
@@ -18,6 +17,12 @@ Spectral norm is applied as an output scale `out / sigma`
 (arch_ops.py:189-192): the kernel is never re-materialized. Its power
 iteration computes the new `u` on every forward; `core.set_state` commits it
 unless the caller suppressed commits.
+
+Batch norm takes its moments over the global batch: inside a data-parallel
+step (`parallel.mesh_utils.active()`) from one all-reduce across the
+workers, which carries the gradient, so every worker normalizes and updates
+its moving moments alike. EvoNorm-S0 and the weight-norm layers read no
+batch statistics in training, and start no collective.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from compare_gan_torch import config as gin
 from compare_gan_torch import core
 from compare_gan_torch.gans import consts
 from compare_gan_torch.ops import fused_attention as attention_lib
+from compare_gan_torch.parallel import mesh_utils, tpu_ops
 
 # HWIO (JAX) -> OIHW (torch) for conv kernels.
 HWIO_TO_OIHW = (3, 2, 0, 1)
@@ -239,6 +245,19 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
+def _conv2d_same(x, w, strides):
+    """TF "SAME" conv of NHWC `x` with an OIHW kernel, NHWC out."""
+    k_h, k_w = w.shape[2:]
+    (t, b), (l, r) = (_same_pads(x.shape[1], k_h, strides[0]),
+                      _same_pads(x.shape[2], k_w, strides[1]))
+    xc = _nchw(x)
+    if (t, l) == (b, r):
+        out = F.conv2d(xc, w, stride=strides, padding=(t, l))
+    else:
+        out = F.conv2d(F.pad(xc, (l, r, t, b)), w, stride=strides)
+    return _nhwc(out)
+
+
 class Conv2d(_SNLayer):
     """SAME conv (arch_ops.py:200-216). x: NHWC."""
 
@@ -256,17 +275,8 @@ class Conv2d(_SNLayer):
 
     def forward(self, x):
         sigma = self._sigma(x.dtype)
-        k_h, k_w = self.kernel.shape[2:]
-        (t, b), (l, r) = (_same_pads(x.shape[1], k_h, self.strides[0]),
-                          _same_pads(x.shape[2], k_w, self.strides[1]))
-        xc = _nchw(x)
-        if (t, l) == (b, r):
-            out = F.conv2d(xc, self.kernel.to(x.dtype), stride=self.strides,
-                           padding=(t, l))
-        else:
-            out = F.conv2d(F.pad(xc, (l, r, t, b)), self.kernel.to(x.dtype),
-                           stride=self.strides)
-        return self._finish(_nhwc(out), sigma)
+        return self._finish(
+            _conv2d_same(x, self.kernel.to(x.dtype), self.strides), sigma)
 
 
 def conv1x1(in_channels, output_dim, use_sn=False, use_bias=True,
@@ -316,25 +326,30 @@ class Deconv2d(_SNLayer):
     def forward(self, x, output_size):
         """x: NHWC; output_size: (H, W) of the result."""
         sigma = self._sigma(x.dtype)
-        lo, extra = [], []
-        for in_size, out_size, k, s in zip(x.shape[1:3], output_size,
-                                           self.kernel.shape[2:],
-                                           self.strides):
-            if -(-out_size // s) != in_size:
-                raise ValueError(
-                    f"deconv2d: requested output size {out_size} is not a "
-                    f"stride-{s} SAME preimage of input size {in_size}.")
-            full = (in_size - 1) * s + k  # The uncropped transposed conv.
-            lo.append(max(full - out_size, 0) // 2)  # The SAME conv's pad.
-            extra.append(out_size - (full - 2 * lo[-1]))
-        # conv_transpose2d crops `padding` from both ends and adds
-        # `output_padding` (< stride) back at the end; where the SAME pad
-        # is larger at the end (lo < hi), the slice crops one more.
-        out = F.conv_transpose2d(
-            _nchw(x), self.kernel.to(x.dtype), stride=self.strides,
-            padding=tuple(lo), output_padding=tuple(max(e, 0) for e in extra))
-        out = out[:, :, :output_size[0], :output_size[1]]
-        return self._finish(_nhwc(out), sigma)
+        return self._finish(_deconv2d_same(
+            x, self.kernel.to(x.dtype), self.strides, output_size), sigma)
+
+
+def _deconv2d_same(x, w, strides, output_size):
+    """tf.nn.conv2d_transpose(padding="SAME") of NHWC `x` with an IOHW
+    kernel to an NHWC result of `output_size` (H, W)."""
+    lo, extra = [], []
+    for in_size, out_size, k, s in zip(x.shape[1:3], output_size,
+                                       w.shape[2:], strides):
+        if -(-out_size // s) != in_size:
+            raise ValueError(
+                f"deconv2d: requested output size {out_size} is not a "
+                f"stride-{s} SAME preimage of input size {in_size}.")
+        full = (in_size - 1) * s + k  # The uncropped transposed conv.
+        lo.append(max(full - out_size, 0) // 2)  # The SAME conv's pad.
+        extra.append(out_size - (full - 2 * lo[-1]))
+    # conv_transpose2d crops `padding` from both ends and adds
+    # `output_padding` (< stride) back at the end; where the SAME pad is
+    # larger at the end (lo < hi), the slice crops one more.
+    out = F.conv_transpose2d(
+        _nchw(x), w, stride=strides, padding=tuple(lo),
+        output_padding=tuple(max(e, 0) for e in extra))
+    return _nhwc(out[:, :, :output_size[0], :output_size[1]])
 
 
 def lrelu(x, leak=0.2):
@@ -379,8 +394,16 @@ class StandardizeBatch(core.Module):
     mode keeps `accu/accu_mean`, `accu/accu_variance`, `accu/accu_counter`
     and `accu/update_accus`, and writes nothing while training. The state
     lives on this module, so it takes the name of the layer that normalizes
-    (`.../bn1/accu/accu_mean`), as in the JAX scope tree. Moments are over
-    the whole batch on this process's device."""
+    (`.../bn1/accu/accu_mean`), as in the JAX scope tree.
+
+    Moments are over the global batch: in a data-parallel step, over every
+    worker's rows (`use_cross_replica_mean` is accepted and ignored, as in
+    JAX). With `num_batch_groups` G > 1 (arch_ops.py:415-425 there) each
+    contiguous G-th of the global batch is normalized by its own moments
+    in training, and the moving moments and accumulators take the mean of
+    the G groups' moments. Over W workers a group lies inside one worker
+    when W divides G, and spans W / G workers (a sub-group reduction) when
+    G divides W."""
 
     def __init__(self, num_channels, decay=0.999, epsilon=1e-3,
                  data_format="NHWC", use_moving_averages=True,
@@ -390,9 +413,10 @@ class StandardizeBatch(core.Module):
         del use_cross_replica_mean
         if data_format != "NHWC":
             raise ValueError("The port is NHWC only, like the JAX package.")
-        if num_batch_groups != 1:
-            raise NotImplementedError(
-                "standardize_batch.num_batch_groups > 1 is not ported yet.")
+        if num_batch_groups < 1:
+            raise ValueError(f"num_batch_groups must be >= 1, got "
+                             f"{num_batch_groups}.")
+        self.num_batch_groups = num_batch_groups
         self.decay = decay
         self.epsilon = epsilon
         self.use_moving_averages = use_moving_averages
@@ -415,8 +439,17 @@ class StandardizeBatch(core.Module):
             core.tag(self, "batch_coupled")
         x32 = x.float()
         dims = tuple(range(x.dim() - 1))
-        mean = x32.mean(dim=dims)
-        variance = (x32 * x32).mean(dim=dims) - mean * mean
+        replicas = mesh_utils.active()
+        group_moments = None
+        if self.num_batch_groups > 1:
+            mean, variance, group_moments = self._group_moments(x32,
+                                                                replicas)
+        elif replicas is None:
+            mean = x32.mean(dim=dims)
+            variance = (x32 * x32).mean(dim=dims) - mean * mean
+        else:
+            mean, variance = tpu_ops.cross_replica_moments(x32, replicas,
+                                                           axes=dims)
         s = self._buffers
         if self.use_moving_averages:
             if is_training:
@@ -437,8 +470,43 @@ class StandardizeBatch(core.Module):
             core.set_state(s["accu/accu_variance"], new_variance)
             core.set_state(s["accu/accu_counter"], new_counter)
             mean, variance = new_mean / new_counter, new_variance / new_counter
+        if group_moments is not None and is_training:
+            mean, variance = group_moments
         out = (x32 - mean) * torch.rsqrt(variance + self.epsilon)
         return out.to(x.dtype)
+
+    def _group_moments(self, x32, replicas):
+        """(mean, variance) over the groups, and the per-row (mean,
+        variance) of each row's group, shaped to broadcast against x."""
+        groups = self.num_batch_groups
+        world = 1 if replicas is None else replicas.world
+        b, c = x32.shape[0], x32.shape[-1]
+        if groups % world == 0:  # Whole groups on every worker.
+            local = groups // world
+            if b % local:
+                raise ValueError(f"A batch of {b} rows does not split into "
+                                 f"{local} groups.")
+            xg = x32.reshape((local, b // local) + tuple(x32.shape[1:]))
+            axes = tuple(range(1, xg.dim() - 1))
+            mean_g = xg.mean(dim=axes)
+            var_g = (xg * xg).mean(dim=axes) - mean_g * mean_g
+            shape = (b,) + (1,) * (x32.dim() - 2) + (c,)
+            per_row = (mean_g.repeat_interleave(b // local, 0).reshape(shape),
+                       var_g.repeat_interleave(b // local, 0).reshape(shape))
+            summed = torch.stack([mean_g.sum(0), var_g.sum(0)])
+        elif world % groups == 0:  # Each group spans world / groups workers.
+            per_row = tpu_ops.cross_replica_moments(
+                x32, replicas, axes=tuple(range(x32.dim() - 1)),
+                group_size=world // groups)
+            # Each group's moments sit on world / groups workers.
+            summed = torch.stack(per_row) * (groups / world)
+        else:
+            raise ValueError(f"num_batch_groups {groups} and {world} "
+                             f"workers: one must divide the other.")
+        if replicas is not None:
+            summed = tpu_ops.all_reduce_sum(summed, replicas)
+        mean, variance = summed / groups
+        return mean, variance, per_row
 
     def forward(self, x, is_training):
         return self.standardize(x, is_training)
@@ -584,6 +652,139 @@ class LayerNorm(core.Module):
         var = (x32 - mean).square().mean(dim=dims, keepdim=True)
         out = (x32 - mean) * torch.rsqrt(var + 1e-12)
         return (out * self.gamma + self.beta).to(x.dtype)
+
+
+@gin.configurable("evonorm_s0")
+class EvoNormS0(core.Module):
+    """EvoNorm-S0 (Liu et al. 2020; arch_ops.py:533-559 there): x *
+    sigmoid(v * x) / group_std(x) * gamma + beta, in f32, over groups of
+    channels: the largest divisor of C that is <= 32. Per example, so it
+    needs no moments of the batch and no collective. Selected by
+    `G.batch_norm_fn = @evonorm_s0`."""
+
+    def __init__(self, num_channels, device=None):
+        super().__init__()
+        c = num_channels
+        self.gamma = self.add_param("gamma", (c,), ones_init(), device)
+        self.beta = self.add_param("beta", (c,), zeros_init(), device)
+        self.v = self.add_param("v", (c,), ones_init(), device)
+        self.groups = max(g for g in range(1, min(32, c) + 1) if c % g == 0)
+
+    def forward(self, x, **unused):
+        x32 = x.float()
+        b, h, w, c = x32.shape
+        xg = x32.reshape(b, h, w, self.groups, c // self.groups)
+        std = torch.sqrt(xg.var(dim=(1, 2, 4), unbiased=False, keepdim=True)
+                         + 1e-5)
+        std = std.expand_as(xg).reshape(x32.shape)
+        num = x32 * torch.sigmoid(self.v * x32)
+        return ((num / std) * self.gamma + self.beta).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Weight normalization (arch_ops.py:562-658 there)
+# ---------------------------------------------------------------------------
+
+
+class _WeightNorm(core.Module):
+    """Direction `V`, scale `g` and bias `b` per output channel (Salimans
+    & Kingma 2016). `layer(x, init=True)` is the data-dependent init: g and
+    b are set so that this batch's outputs have mean 0 and standard
+    deviation `init_scale` per channel, then the output is computed with
+    them, as the JAX layer does when `init=True` while its variables are
+    built (the port has no separate init trace). In a data-parallel step
+    the init moments are those of the global batch, so every worker sets
+    the same g and b."""
+
+    def _add_variables(self, v_shape, channels, stddev, init_scale, eps,
+                       device, permute=None):
+        self.V = self.add_param("V", v_shape, truncated_normal_init(stddev),
+                                device, permute=permute)
+        self.g = self.add_param("g", (channels,), ones_init(), device)
+        self.b = self.add_param("b", (channels,), zeros_init(), device)
+        self.init_scale = init_scale
+        self._eps = eps
+
+    @torch.no_grad()
+    def _data_init(self, x_init):
+        """g, b from the moments of the unscaled output x_init (NHWC or
+        [B, C]) over every axis but the channels."""
+        x32 = x_init.float()
+        axes = tuple(range(x32.dim() - 1))
+        replicas = mesh_utils.active()
+        if replicas is None:
+            mean, var = x32.mean(dim=axes), x32.var(dim=axes, unbiased=False)
+        else:
+            mean, var = tpu_ops.cross_replica_moments(x32, replicas, axes)
+        scale = self.init_scale / torch.sqrt(var + self._eps)
+        self.g.copy_(scale)
+        self.b.copy_(-mean * scale)
+
+
+class WeightNormLinear(_WeightNorm):
+    """Weight-normalized dense (`weight_norm_linear`); V [in, out]; eps
+    1e-10 in the init, as in the reference. The output is f32."""
+
+    def __init__(self, in_features, output_size, init_scale=1.0,
+                 stddev=0.02, device=None):
+        super().__init__()
+        self._add_variables((in_features, output_size), output_size, stddev,
+                            init_scale, 1e-10, device)
+
+    def forward(self, x, init=False):
+        v_norm = torch.rsqrt(self.V.square().sum(0))
+        xv = (x @ self.V.to(x.dtype)).float()
+        if init:
+            self._data_init(xv * v_norm)
+        return (self.g * v_norm)[None, :] * xv + self.b[None, :]
+
+
+class WeightNormConv2d(_WeightNorm):
+    """Weight-normalized SAME conv (`weight_norm_conv2d`); V HWIO in the
+    JAX layout (stored OIHW); eps 1e-8 in the init."""
+
+    def __init__(self, in_channels, output_dim, k_h, k_w, d_h, d_w,
+                 init_scale=1.0, stddev=0.02, device=None):
+        super().__init__()
+        self._add_variables((k_h, k_w, in_channels, output_dim), output_dim,
+                            stddev, init_scale, 1e-8, device,
+                            permute=HWIO_TO_OIHW)
+        self.strides = (d_h, d_w)
+
+    def forward(self, x, init=False):
+        v_normed = self.V * torch.rsqrt(
+            self.V.square().sum(dim=(1, 2, 3), keepdim=True))
+        if init:
+            self._data_init(_conv2d_same(x, v_normed.to(x.dtype),
+                                         self.strides))
+        w = self.g[:, None, None, None] * v_normed
+        out = _conv2d_same(x, w.to(x.dtype), self.strides)
+        return out + self.b.to(out.dtype)
+
+
+class WeightNormDeconv2d(_WeightNorm):
+    """Weight-normalized transposed SAME conv (`weight_norm_deconv2d`) to
+    stride times the input's size, by `Deconv2d`'s rule; V HWOI in the JAX
+    layout (stored IOHW); eps 1e-8 in the init."""
+
+    def __init__(self, in_channels, output_dim, k_h, k_w, d_h, d_w,
+                 init_scale=1.0, stddev=0.02, device=None):
+        super().__init__()
+        self._add_variables((k_h, k_w, output_dim, in_channels), output_dim,
+                            stddev, init_scale, 1e-8, device,
+                            permute=HWIO_TO_OIHW)
+        self.strides = (d_h, d_w)
+
+    def forward(self, x, init=False):
+        v_normed = self.V * torch.rsqrt(
+            self.V.square().sum(dim=(0, 2, 3), keepdim=True))
+        size = (x.shape[1] * self.strides[0], x.shape[2] * self.strides[1])
+        if init:
+            self._data_init(_deconv2d_same(x, v_normed.to(x.dtype),
+                                           self.strides, size))
+        w = self.g[None, :, None, None] * v_normed
+        out = _deconv2d_same(x, w.to(x.dtype), self.strides, size)
+        return out + self.b.to(out.dtype)
 
 
 # ---------------------------------------------------------------------------

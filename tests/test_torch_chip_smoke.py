@@ -191,3 +191,51 @@ def test_ptxas_report_names_each_kernel_and_its_spills():
     assert chip_smoke.ptxas_report(log) == [
         ("attention_bwd_cols_kernel<bf16, 32, 128>", 128, 644, 732),
         ("attention_fwd_kernel<f32, 16, 48>", 113, 0, 0)]
+
+
+def test_data_parallel_phase_sorts_every_state_entry_into_a_kind():
+    """The two-worker check holds every checkpoint entry of a BigGAN
+    TrainState (tiny width here) to one of DP_TOL's state kinds. A state
+    against itself, or with every parameter moved by one f32 rounding,
+    passes; one Adam first moment halved (a gradient not summed over two
+    workers) or one parameter moved by 1e-4 (a step at G's rate) fails
+    its kind."""
+    from compare_gan_torch import checkpoint
+    from compare_gan_torch import config as tgin
+    from compare_gan_torch import datasets, gans, runner_lib
+    del gans
+    tgin.clear_config()
+    try:
+        tgin.parse_config_files_and_bindings(
+            [os.path.join(REPO, "example_configs", "biggan_imagenet128.gin")],
+            ["resnet_biggan.Generator.ch = 16",
+             "resnet_biggan.Discriminator.ch = 16",
+             "options.batch_size = 2"])
+        datasets.set_fake_dataset(True)
+        options = runner_lib.get_options_dict()
+        gan = options["gan_class"](dataset=datasets.get_dataset(),
+                                   parameters=options, model_dir="unused",
+                                   device="cpu")
+        ts = gan.init_state(seed=0)
+        init = {k: v.clone() for k, v in checkpoint.live_tensors(ts).items()
+                if chip_smoke._state_kind(k) in ("params", "ema")}
+        ts, _ = gan.make_train_step(2)(ts, next(gan.input_batches(2)))
+        keys = checkpoint.live_tensors(ts)
+    finally:
+        datasets.set_fake_dataset(False)
+        tgin.clear_config()
+    kinds = {chip_smoke._state_kind(k) for k in keys}
+    assert kinds == set(chip_smoke.DP_TOL)
+    assert all(g["ratio"] == 0 for g in
+               chip_smoke._state_gaps(keys, keys, init).values())
+    rounded = {k: (v * (1 + 2 ** -24) if chip_smoke._state_kind(k)
+                   == "params" else v) for k, v in keys.items()}
+    assert all(g["ratio"] <= 1 for g in
+               chip_smoke._state_gaps(rounded, keys, init).values())
+    mu = next(k for k in keys if chip_smoke._state_kind(k) == "adam_mu"
+              and "kernel" in k)
+    param = next(k for k in keys if chip_smoke._state_kind(k) == "params")
+    broken = dict(keys, **{mu: keys[mu] / 2, param: keys[param] + 1e-4})
+    gaps = chip_smoke._state_gaps(broken, keys, init)
+    assert [k for k, g in gaps.items() if g["ratio"] > 1] == [
+        "params", "adam_mu"]

@@ -1,8 +1,9 @@
-"""The port stands alone: no module of compare_gan_torch, and not
-chip_smoke.py, imports the JAX package or looks it up by name or path; and
-none imports scikit-learn or matplotlib when it is imported (the card's
-machine has neither: PRD's plot and GILBO's histogram import matplotlib
-inside the functions that draw)."""
+"""The port stands alone: no module of compare_gan_torch (its data-parallel
+`parallel/` modules included), and not chip_smoke.py, imports the JAX
+package or looks it up by name or path; a worker the CLI spawns loads
+neither; and none imports scikit-learn or matplotlib when it is imported
+(the card's machine has neither: PRD's plot and GILBO's histogram import
+matplotlib inside the functions that draw)."""
 
 import ast
 import glob
@@ -127,3 +128,38 @@ def test_the_optional_scan_finds_what_it_looks_for():
             "    import matplotlib.pyplot\n")
     found = sorted(_top_level_imports(ast.parse(code)))
     assert found == [(1, "numpy"), (3, "matplotlib"), (5, "sklearn")]
+
+
+def test_parallel_modules_are_scanned():
+    assert {"compare_gan_torch/parallel/__init__.py",
+            "compare_gan_torch/parallel/mesh_utils.py",
+            "compare_gan_torch/parallel/tpu_ops.py"} <= set(
+                p.replace(os.sep, "/") for p in PORT_FILES)
+
+
+def test_a_spawned_worker_loads_no_jax(tmp_path):
+    """`--num_devices=2` spawns two workers with torch.multiprocessing;
+    every process of the launch (the parent and both workers, each a
+    fresh interpreter) lists the modules it imports
+    (PYTHONPROFILEIMPORTTIME), and none is jax, optax or of the JAX
+    package."""
+    argv = [sys.executable, "-m", "compare_gan_torch.main",
+            f"--model_dir={tmp_path}", "--device=cpu", "--num_devices=2",
+            "--data_fake_dataset",
+            "--gin_bindings=dataset.name = 'cifar10'",
+            "--gin_bindings=options.architecture = 'dummy_arch'",
+            "--gin_bindings=options.batch_size = 2",
+            "--gin_bindings=options.gan_class = @ModularGAN",
+            "--gin_bindings=options.training_steps = 1"]
+    env = dict(os.environ, PYTHONPATH=REPO, PYTHONPROFILEIMPORTTIME="1",
+               OMP_NUM_THREADS="1")
+    out = subprocess.run(argv, cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-4000:]
+    for rank in (0, 1):
+        assert f"rank {rank} INFO Finished schedule train." in out.stderr
+    imported = {line.rsplit("|", 1)[-1].strip().split(".")[0]
+                for line in out.stderr.splitlines()
+                if line.startswith("import time:")}
+    assert "torch" in imported
+    assert not imported & {"jax", "jaxlib", "optax", JAX_PACKAGE}
