@@ -122,12 +122,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    and GILBO at its defaults (2,000 regressor steps at batch 64, its
    artifacts written and checked). Every metric finite; each task's
    seconds.
-12. Prints the eval shape's forward row, the S3GAN D shape's bf16 row and
+12. TF formats: the port reads and writes TensorFlow's files without
+   TensorFlow (it checks that tensorflow, PIL and google.protobuf were never
+   loaded). Every committed image fixture (tests/torch_fixtures: JPEG
+   4:2:0, 4:4:4, 4:2:2, progressive, grayscale, restart intervals; PNG 8-
+   and 16-bit, alpha, palette, interlaced) decodes bitwise to its
+   tf.io.decode_image golden; prints the JPEG decode rate of the 128x96
+   4:2:0 fixture in one thread and in the input pipeline's 8-thread pool,
+   and the ImageNet-128 train pipeline's images per second. Writes TFDS's
+   imagenet2012 layout from the RGB JPEG fixtures with the port's Example
+   encoder and TFRecord framing (64 train, 100 validation records), trains
+   BigGAN-128 on it through the CLI without --data_fake_dataset (the
+   BigGAN-128 phases' options and checks: parameter counts, finite losses,
+   5 forward and 4 backward launches a step, seconds per step), exports the
+   trained TrainState as a reference TF checkpoint
+   (export_reference_checkpoint, ~228 M values) and re-imports it through
+   `python -m compare_gan_torch.import_tf_checkpoint`'s main: every
+   variable of the re-imported checkpoint must equal the trained one
+   bitwise; prints both times. Then eval_after_train of the re-imported
+   model_dir at the eval phase's cut on 100 real validation images (the
+   registry's 50,000 cut to 100), with the eval phase's checks.
+13. Prints the eval shape's forward row, the S3GAN D shape's bf16 row and
    the BigGAN-deep rows as JSON lines of their own (`eval_shape_forward
    {...}`, `s3gan_shape {...}`, one `biggan_deep_shape {...}` per type and
    the eval forward: tolerances, SDPA backend, times, bound and share),
-   the BigGAN-deep eval, G/D-task and data-parallel summaries, each
-   phase's seconds, then
+   the BigGAN-deep eval, G/D-task, data-parallel and TF-format summaries,
+   each phase's seconds, then
    one JSON line describing each kernel ("ms",
    "plain_ms", "library_ms", "bound_ms": one call at each bf16 training
    shape of BigGAN-128, G and D at batch 32, summed; "launches": every
@@ -495,13 +515,14 @@ def deep_shape_row(name, b, dtype_name, backend, rows, issued):
             "fwd_issued_mma_ms": issued}
 
 
-def _cli_argv(model_dir, config, bindings, schedule="train"):
-    """A CLI run on the card with fake data: `config` from example_configs
-    with `bindings` on top, 3 steps, one host sync per step, one
-    checkpoint at the end."""
+def _cli_argv(model_dir, config, bindings, schedule="train",
+              fake_data=True):
+    """A CLI run on the card, on fake data unless `fake_data` is False:
+    `config` from example_configs with `bindings` on top, 3 steps, one host
+    sync per step, one checkpoint at the end."""
     return [
         f"--model_dir={model_dir}", f"--schedule={schedule}",
-        "--device=cuda", "--data_fake_dataset",
+        "--device=cuda"] + (["--data_fake_dataset"] if fake_data else []) + [
         f"--gin_config={os.path.join(ROOT, 'example_configs', config)}",
         f"--gin_bindings=options.training_steps = {STEPS}",
         "--gin_bindings=run_config.iterations_per_loop = 1",
@@ -509,15 +530,18 @@ def _cli_argv(model_dir, config, bindings, schedule="train"):
     ] + [f"--gin_bindings={b}" for b in bindings]
 
 
-def _argv(model_dir, schedule, extra=()):
-    """The CLI arguments of both BigGAN-128 phases: the benchmark
+BIGGAN_BINDINGS = ("options.batch_size = 16",
+                   "ModularGAN.compute_dtype = 'bfloat16'",
+                   "ModularGAN.experimental_joint_gen_for_disc = True",
+                   "ModularGAN.experimental_fake_only_g_loss = True")
+
+
+def _argv(model_dir, schedule, extra=(), fake_data=True):
+    """The CLI arguments of the BigGAN-128 phases: the benchmark
     options, and `extra` bindings."""
-    return _cli_argv(model_dir, "biggan_imagenet128.gin", [
-        "options.batch_size = 16",
-        "ModularGAN.compute_dtype = 'bfloat16'",
-        "ModularGAN.experimental_joint_gen_for_disc = True",
-        "ModularGAN.experimental_fake_only_g_loss = True",
-    ] + list(extra), schedule)
+    return _cli_argv(model_dir, "biggan_imagenet128.gin",
+                     list(BIGGAN_BINDINGS) + list(extra), schedule,
+                     fake_data)
 
 
 def _deep_argv(model_dir, schedule):
@@ -1265,6 +1289,210 @@ def run_gan_tasks(torch, model_dir):
     return launches, summary
 
 
+# The "tf formats" phase: TFRecord data, JPEG/PNG decode and reference
+# checkpoints without TensorFlow. Its dataset is TFDS's imagenet2012 layout
+# written here from the committed fixtures (the card has no encoder): the
+# RGB JPEGs (4:2:0, 4:4:4, 4:2:2, progressive, restart intervals; 26x37 to
+# 128x96 px) cycled into 64 train and EVAL_SAMPLES validation records.
+FIXTURES = os.path.join(ROOT, "tests", "torch_fixtures")
+TF_TRAIN_RECORDS = 64
+DECODE_RATE_IMAGE = "jpeg_420_q85_128x96.jpg"  # 4:2:0 baseline, quality 85
+DECODE_RATE_COUNT = 2000
+POOL_THREADS = 8  # the input pipeline's pool (num_parallel_calls)
+BLOCKED_MODULES = ("tensorflow", "PIL", "google.protobuf")
+
+
+def _fixture_images():
+    """{name: (encoded bytes, tf.io.decode_image's golden)} of every
+    committed fixture."""
+    import numpy as np
+    out = {}
+    for name in sorted(os.listdir(FIXTURES)):
+        if name.endswith((".jpg", ".png")):
+            with open(os.path.join(FIXTURES, name), "rb") as f:
+                out[name] = (f.read(), np.load(os.path.join(
+                    FIXTURES, os.path.splitext(name)[0] + ".npy")))
+    return out
+
+
+def check_decode(fixtures):
+    """Every fixture decodes bitwise to its golden; the JPEG decode rate of
+    the 4:2:0 image in this thread and in a pool of POOL_THREADS threads
+    (the input pipeline's). Returns the rates."""
+    import concurrent.futures
+    import numpy as np
+    from compare_gan_torch.tf_io import image_codec
+    for name, (data, golden) in fixtures.items():
+        got = image_codec.decode_image(data)
+        ok = got.shape == golden.shape and got.dtype == golden.dtype and \
+            bool((got == golden).all())
+        print(f"  decode {name} {golden.shape} "
+              f"{'bitwise' if ok else 'DIFFERS'}")
+        if not ok:
+            raise AssertionError(f"{name} does not decode to its golden")
+    data, golden = fixtures[DECODE_RATE_IMAGE]
+    image_codec.decode_image(data)
+    t0 = time.perf_counter()
+    for _ in range(DECODE_RATE_COUNT):
+        image_codec.decode_image(data)
+    one = DECODE_RATE_COUNT / (time.perf_counter() - t0)
+    with concurrent.futures.ThreadPoolExecutor(POOL_THREADS) as pool:
+        list(pool.map(image_codec.decode_image, [data] * POOL_THREADS))
+        t0 = time.perf_counter()
+        list(pool.map(image_codec.decode_image, [data] * DECODE_RATE_COUNT))
+        pooled = DECODE_RATE_COUNT / (time.perf_counter() - t0)
+    pixels = golden.shape[0] * golden.shape[1]
+    print(f"jpeg_decode_images_per_second {DECODE_RATE_IMAGE} "
+          f"{golden.shape[1]}x{golden.shape[0]} one_worker {one:.1f} "
+          f"pool_{POOL_THREADS}_threads {pooled:.1f} (megapixels/s "
+          f"{one * pixels / 1e6:.2f} / {pooled * pixels / 1e6:.2f}; "
+          f"os.cpu_count {os.cpu_count()})")
+    return {"image": DECODE_RATE_IMAGE, "one_worker": one,
+            "pool": pooled, "pool_threads": POOL_THREADS,
+            "pixels": pixels}
+
+
+def write_imagenet_records(data_dir, fixtures):
+    """TFDS's imagenet2012 layout under `data_dir`, written with the port's
+    Example encoder and TFRecord framing: `image`, `label` (seeded),
+    `file_name`; train in two shards, validation in one."""
+    import numpy as np
+    from compare_gan_torch.tf_io import protobuf, tfrecord
+    jpegs = [(n, d) for n, (d, g) in fixtures.items()
+             if n.endswith(".jpg") and g.shape[2] == 3]
+    rng = np.random.RandomState(0)
+    out = os.path.join(data_dir, "imagenet2012")
+    os.makedirs(out, exist_ok=True)
+
+    def records(split, n):
+        for i in range(n):
+            name, data = jpegs[i % len(jpegs)]
+            yield protobuf.encode_example({
+                "image": data, "label": int(rng.randint(1000)),
+                "file_name": f"{split}_{i:05d}_{name}".encode()})
+
+    half = TF_TRAIN_RECORDS // 2
+    for shard, payloads in enumerate((records("train", half),
+                                      records("train", half))):
+        tfrecord.write_tfrecords(os.path.join(
+            out, f"imagenet2012-train.tfrecord-{shard:05d}-of-00002"),
+            payloads)
+    tfrecord.write_tfrecords(os.path.join(
+        out, "imagenet2012-validation.tfrecord-00000-of-00001"),
+        records("validation", EVAL_SAMPLES))
+    print(f"wrote {TF_TRAIN_RECORDS} train and {EVAL_SAMPLES} validation "
+          f"records of {len(jpegs)} JPEG fixtures to {out}")
+
+
+def pipeline_rate(batch_size=32, batches=20):
+    """Images per second of the ImageNet-128 train pipeline alone (record
+    read, JPEG decode, distorted crop, resize; host only)."""
+    from compare_gan_torch import datasets
+    it = datasets.get_dataset("imagenet_128").train_input_fn(batch_size)
+    try:
+        next(it)
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            next(it)
+        return batch_size * batches / (time.perf_counter() - t0)
+    finally:
+        it.close()
+
+
+def _checkpoint_arrays(path):
+    import numpy as np
+    with np.load(path) as data:
+        return {k: data[k] for k in data.files
+                if k.startswith((".params", ".state", ".ema_params"))}
+
+
+def run_tf_formats(torch, model_dir):
+    """BigGAN-128 at full width on TFRecord JPEG data through the CLI (no
+    --data_fake_dataset), its reference-checkpoint export and re-import
+    (bitwise), and the eval of the re-imported model_dir."""
+    _phase("tf formats")
+    import numpy as np
+    from compare_gan_torch import datasets, export, import_tf_checkpoint
+    from compare_gan_torch import config as gin
+    fixtures = _fixture_images()
+    summary = {"decode": check_decode(fixtures)}
+    data_dir = os.path.join(model_dir, "data")
+    write_imagenet_records(data_dir, fixtures)
+    saved = datasets.DATA_DIR, datasets.DATASETS["imagenet_128"]
+    datasets.DATA_DIR = data_dir
+    # The eval's cut: EVAL_SAMPLES real validation images (the registry's
+    # 50,000 cut to the eval phase's 100).
+    datasets.DATASETS["imagenet_128"] = datasets._imagenet(
+        128, eval_samples=EVAL_SAMPLES)
+    launches = {"fwd": 0, "bwd": 0}
+    try:
+        summary["pipeline_images_per_second"] = pipeline_rate()
+        print(f"pipeline_images_per_second (ImageNet-128 train transform, "
+              f"{POOL_THREADS} threads) "
+              f"{summary['pipeline_images_per_second']:.1f}")
+        trained = os.path.join(model_dir, "trained")
+        report, runs = _train_and_check(
+            torch, trained, _argv(trained, "train", fake_data=False),
+            (G_PARAMS, D_PARAMS), {"fwd": 5 * STEPS, "bwd": 4 * STEPS})
+        launches = {k: launches[k] + runs[k] for k in launches}
+        summary["seconds_per_step"] = report.seconds_per_step
+        ts = report.state
+
+        values = sum(v.numel() for tree in (ts.params(), ts.state(),
+                                            ts.ema_params)
+                     for v in tree.values())
+        export_dir = os.path.join(model_dir, "tf_export")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefix = export.export_reference_checkpoint(
+            None, ts, os.path.join(export_dir, f"model.ckpt-{STEPS}"))
+        summary["export_seconds"] = time.perf_counter() - t0
+        del report, ts
+        size = sum(os.path.getsize(os.path.join(export_dir, f))
+                   for f in os.listdir(export_dir))
+        reimported = os.path.join(model_dir, "reimported")
+        gin.clear_config()
+        t0 = time.perf_counter()
+        config = os.path.join(ROOT, "example_configs",
+                              "biggan_imagenet128.gin")
+        import_tf_checkpoint.main(
+            [f"--checkpoint={export_dir}", f"--model_dir={reimported}",
+             "--device=cuda", f"--gin_config={config}"]
+            + [f"--gin_bindings={b}" for b in BIGGAN_BINDINGS])
+        torch.cuda.synchronize()
+        summary["import_seconds"] = time.perf_counter() - t0
+        summary["values"] = values
+        print(f"export {prefix}: {values:,} values, {size / 2 ** 20:.1f} "
+              f"MiB, {summary['export_seconds']:.2f} s; import through "
+              f"the CLI {summary['import_seconds']:.2f} s")
+        before = _checkpoint_arrays(os.path.join(trained,
+                                                 f"model.ckpt-{STEPS}.npz"))
+        after = _checkpoint_arrays(os.path.join(reimported,
+                                                f"model.ckpt-{STEPS}.npz"))
+        same = set(before) == set(after) and all(
+            before[k].dtype == after[k].dtype
+            and np.array_equal(before[k], after[k]) for k in before)
+        print(f"export then import: {len(after)} variables "
+              f"{'bitwise equal' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError("export -> import is not bitwise")
+
+        eval_launches, summary["eval"] = run_eval(
+            torch, reimported,
+            _argv(reimported, "eval_after_train", fake_data=False),
+            SESSION_TASKS[:2], (128, 128, 3), attention=1,
+            accumulators=True, phase="tf formats eval")
+        launches = {k: launches[k] + eval_launches[k] for k in launches}
+    finally:
+        datasets.DATA_DIR, datasets.DATASETS["imagenet_128"] = saved
+        shutil.rmtree(model_dir, ignore_errors=True)
+    loaded = sorted(m for m in sys.modules if m.startswith(BLOCKED_MODULES))
+    print(f"modules of tensorflow, PIL, google.protobuf loaded: {loaded}")
+    if loaded:
+        raise AssertionError(f"the port loaded {loaded}")
+    return launches, summary
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "compare_gan_torch")):
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -1315,6 +1543,9 @@ def main():
             phase="BigGAN-deep eval")
         runs["gan_tasks"], gan_tasks = timed("gan_tasks", run_gan_tasks,
                                              torch, dcgan)
+        runs["tf_formats"], tf_formats = timed(
+            "tf_formats", run_tf_formats, torch,
+            os.path.join(model_dir, "tf_formats"))
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
     launches = {k: sum(r[k] for r in runs.values()) for k in ("fwd", "bwd")}
@@ -1339,6 +1570,7 @@ def main():
     print("gan_tasks " + json.dumps(gan_tasks))
     print("study_zoo " + json.dumps(study_zoo))
     print("data_parallel " + json.dumps(data_parallel))
+    print("tf_formats " + json.dumps(tf_formats))
     seconds["total"] = time.perf_counter() - t_start
     print("phase_seconds " + json.dumps(seconds))
     print(json.dumps({"kernels": [

@@ -1,19 +1,76 @@
 // Native data-IO runtime of the port's input pipeline: a copy of
-// compare_gan_tpu/native/dataio.cc, so the port builds its own.
+// compare_gan_tpu/native/dataio.cc, so the port builds its own, plus PNG
+// unfiltering and the CRC32C of TensorFlow's file formats.
 //
-// TFRecord scanning, indexing and reading, and the image crop/resize
-// transforms of compare_gan_torch/datasets.py, compiled -O3 so the input
+// TFRecord scanning, indexing and reading, the image crop/resize
+// transforms of compare_gan_torch/datasets.py, PNG scanline unfiltering and
+// CRC32C (TFRecord framing, checkpoint bundles), compiled -O3 so the input
 // pipeline needs no TensorFlow runtime. Plain C ABI, loaded with ctypes by
 // compare_gan_torch/native.py, which builds it with g++ at first use into
 // compare_gan_torch/_build/.
 
 #include <cstdint>
 #include <cstdio>
+#include <cstdlib>
 #include <cstring>
 #include <algorithm>
 #include <vector>
+#if defined(__SSE4_2__)
+#include <nmmintrin.h>
+#endif
 
 extern "C" {
+
+// --------------------------------------------------------------------------
+// CRC32C (Castagnoli, reflected polynomial 0x82F63B78), the checksum of
+// TFRecord framing and of checkpoint bundles. `crc` is the running value
+// (0 to start); the SSE4.2 instruction when the build targets it, else
+// slicing-by-8 tables.
+// --------------------------------------------------------------------------
+
+static uint32_t kCrcTable[8][256];
+
+static bool init_crc_table() {
+  for (uint32_t i = 0; i < 256; ++i) {
+    uint32_t c = i;
+    for (int k = 0; k < 8; ++k) c = (c >> 1) ^ (0x82F63B78u & (0u - (c & 1)));
+    kCrcTable[0][i] = c;
+  }
+  for (uint32_t i = 0; i < 256; ++i)
+    for (int t = 1; t < 8; ++t)
+      kCrcTable[t][i] = (kCrcTable[t - 1][i] >> 8) ^
+                        kCrcTable[0][kCrcTable[t - 1][i] & 0xFF];
+  return true;
+}
+
+static const bool kCrcTableReady = init_crc_table();
+
+uint32_t crc32c_extend(uint32_t crc, const uint8_t* data, int64_t n) {
+  uint32_t c = ~crc;
+#if defined(__SSE4_2__)
+  uint64_t c64 = c;
+  for (; n >= 8; n -= 8, data += 8) {
+    uint64_t word;
+    std::memcpy(&word, data, 8);
+    c64 = _mm_crc32_u64(c64, word);
+  }
+  c = static_cast<uint32_t>(c64);
+  for (; n > 0; --n, ++data) c = _mm_crc32_u8(c, *data);
+#else
+  for (; n >= 8; n -= 8, data += 8) {
+    uint32_t lo, hi;
+    std::memcpy(&lo, data, 4);
+    std::memcpy(&hi, data + 4, 4);
+    lo ^= c;
+    c = kCrcTable[7][lo & 0xFF] ^ kCrcTable[6][(lo >> 8) & 0xFF] ^
+        kCrcTable[5][(lo >> 16) & 0xFF] ^ kCrcTable[4][lo >> 24] ^
+        kCrcTable[3][hi & 0xFF] ^ kCrcTable[2][(hi >> 8) & 0xFF] ^
+        kCrcTable[1][(hi >> 16) & 0xFF] ^ kCrcTable[0][hi >> 24];
+  }
+  for (; n > 0; --n, ++data) c = (c >> 8) ^ kCrcTable[0][(c ^ *data) & 0xFF];
+#endif
+  return ~c;
+}
 
 // --------------------------------------------------------------------------
 // TFRecord format: [len:u64le][crc(len):u32][payload][crc(payload):u32]
@@ -227,6 +284,44 @@ void crop_resize_bilinear_f32(const float* src, int64_t sh, int64_t sw,
       }
     }
   }
+}
+
+// PNG scanline unfiltering: `raw` holds `rows` lines of 1 + `stride`
+// bytes (filter type, then the filtered bytes), `bpp` bytes per complete
+// pixel; writes rows * stride bytes to `out`. Returns 0, or -1 for a bad
+// filter type. The Python loop of compare_gan_torch/tf_io/image_codec.py
+// is the fallback (and the reference the tests hold this to).
+int64_t png_unfilter(const uint8_t* raw, int64_t rows, int64_t stride,
+                     int64_t bpp, uint8_t* out) {
+  for (int64_t r = 0; r < rows; ++r) {
+    const uint8_t* in = raw + r * (stride + 1);
+    const int kind = in[0];
+    ++in;
+    uint8_t* cur = out + r * stride;
+    const uint8_t* prev = r ? out + (r - 1) * stride : nullptr;
+    for (int64_t i = 0; i < stride; ++i) {
+      const int a = i >= bpp ? cur[i - bpp] : 0;
+      const int b = prev ? prev[i] : 0;
+      const int c = prev && i >= bpp ? prev[i - bpp] : 0;
+      int pred;
+      switch (kind) {
+        case 0: pred = 0; break;
+        case 1: pred = a; break;
+        case 2: pred = b; break;
+        case 3: pred = (a + b) >> 1; break;
+        case 4: {
+          const int p = a + b - c;
+          const int pa = std::abs(p - a), pb = std::abs(p - b),
+                    pc = std::abs(p - c);
+          pred = pa <= pb && pa <= pc ? a : (pb <= pc ? b : c);
+          break;
+        }
+        default: return -1;
+      }
+      cur[i] = static_cast<uint8_t>(in[i] + pred);
+    }
+  }
+  return 0;
 }
 
 // uint8 HWC -> float32 [0,1] (decode post-processing fast path).

@@ -19,8 +19,11 @@ package's (tests/test_torch_datasets.py).
   datasets.py:174-223,587-617).
 * z and sampled labels are not drawn here: the trainer draws them on the
   device from the per-step RNG stream (ops/rng.py).
+* Records are parsed and their PNG/JPEG images decoded without TensorFlow
+  (`tf_io`), pixel for pixel as `tf.io.decode_image`.
 * Record IO and the crop/resize transforms use the port's native library
-  (native.py, csrc/dataio.cc) when g++ can build it, numpy/PIL otherwise.
+  (native.py, csrc/dataio.cc) when g++ can build it, numpy otherwise; JPEG
+  decoding needs that library (csrc/image_decode.cc).
 
 Registry names match the reference's DATASETS (datasets.py:620-640), plus
 `celeb_a_hq_128` (referenced by sndcgan_celebahq128.gin but missing from
@@ -42,6 +45,7 @@ import numpy as np
 from compare_gan_torch import config as gin
 from compare_gan_torch import native
 from compare_gan_torch.parallel import mesh_utils
+from compare_gan_torch.tf_io import image_codec, protobuf
 
 # Process-level options (reference: absl flags, datasets.py:46-63).
 # No shuffle-buffer knob: shuffling is a full per-epoch permutation
@@ -131,10 +135,10 @@ class NpzSource:
 
 def _py_iter_tfrecords(path, start=0, read_payloads=True):
     """(offset, payload) pairs of one TFRecord file from byte `start`, in
-    order — the SINGLE pure-Python implementation of the 12-byte TFRecord
+    order — the SINGLE pure-Python reader of the 12-byte TFRecord
     framing (u64 length, 4B length-crc, payload, 4B payload-crc). Every
-    Python-fallback reader below goes through here; the only other
-    implementation of the format is the native C++ one (dataio.cc).
+    Python-fallback reader below goes through here; the only other reader
+    is the native C++ one (dataio.cc), and tf_io.tfrecord writes it.
     read_payloads=False yields (offset, None) and SEEKS past each payload
     — index construction over multi-GB shards must not read (and
     allocate) every image byte just to learn the offsets."""
@@ -180,10 +184,12 @@ def _replace_labels_pattern(file_pattern=None):
 class TFRecordSource:
     """TFDS-layout TFRecord shards: `<data_dir>/<name>/<split>*.tfrecord*`.
 
-    Parsing uses TensorFlow (host-only, never in the compute path) to decode
-    tf.train.Example records with `image` (encoded) and `label` features —
-    the layout `tfds build` produces, so data prepared for the reference
-    framework loads unchanged.
+    Each record is a serialized `tf.train.Example` with an encoded `image`
+    (or `image/encoded`), a `label` (or `image/class/label`) and, in TFDS
+    data, a `file_name` — the layout `tfds build` produces, so data prepared
+    for the reference loads unchanged. The port parses the records with its
+    own protobuf reader and decodes PNG and JPEG as `tf.io.decode_image`
+    does (`tf_io`), without TensorFlow.
     """
 
     def __init__(self, directory):
@@ -221,37 +227,36 @@ class TFRecordSource:
         return len(self._index[split])
 
     def get(self, split, index, seed):
-        import tensorflow as tf
         self._ensure_index(split)
         path, pos = self._index[split][index]
         if native.available():
             payload = native.read_record(path, pos)
         else:
             payload = next(_py_iter_tfrecords(path, start=pos))[1]
-        ex = tf.train.Example.FromString(payload)
-        feats = ex.features.feature
-        if "image" in feats and feats["image"].bytes_list.value:
-            encoded = feats["image"].bytes_list.value[0]
-            image = tf.io.decode_image(encoded).numpy()
+        feats = protobuf.parse_example(payload)
+        if "image" in feats and feats["image"].bytes_list:
+            encoded = feats["image"].bytes_list[0]
         elif "image/encoded" in feats:
-            encoded = feats["image/encoded"].bytes_list.value[0]
-            image = tf.io.decode_image(encoded).numpy()
+            encoded = feats["image/encoded"].bytes_list[0]
         else:
             raise ValueError(f"Record in {path} lacks an image feature.")
+        try:
+            image = image_codec.decode_image(encoded)
+        except ValueError as e:
+            raise ValueError(f"Cannot decode the image of record {index} of "
+                             f"split '{split}' ({path} at byte {pos}): "
+                             f"{e}") from e
         label = 0
         for key in ("label", "image/class/label"):
-            if key in feats and feats[key].int64_list.value:
-                label = int(feats[key].int64_list.value[0])
+            if key in feats and feats[key].int64_list:
+                label = int(feats[key].int64_list[0])
                 break
         file_name = None
-        if "file_name" in feats and feats["file_name"].bytes_list.value:
-            file_name = feats["file_name"].bytes_list.value[0].decode()
-        if image.ndim == 2:
-            image = image[:, :, None]
-        if image.dtype == np.uint16:
-            # 16-bit PNGs: scale, never wrap modulo 256.
-            image = (image // 257).astype(np.uint8)
-        return _u8_to_f32(image.astype(np.uint8)), label, file_name
+        if "file_name" in feats and feats["file_name"].bytes_list:
+            file_name = feats["file_name"].bytes_list[0].decode()
+        # decode_image returns uint8 as TensorFlow does: 16-bit PNGs keep
+        # their high byte, never a value wrapped modulo 256.
+        return _u8_to_f32(image), label, file_name
 
 
 # ---------------------------------------------------------------------------
@@ -259,23 +264,32 @@ class TFRecordSource:
 # ---------------------------------------------------------------------------
 
 
+def _box_weights(src: int, dst: int) -> np.ndarray:
+    """[dst, src] float64 weights of a box filter: output cell i covers
+    [i, i + 1) * src / dst of the input, each input cell weighted by its
+    overlap, each row normalized (the native kernel's box_resize)."""
+    scale = src / dst
+    lo = np.arange(dst) * scale
+    hi = (np.arange(dst) + 1) * scale
+    cells = np.arange(src)
+    overlap = np.clip(np.minimum(cells[None, :] + 1, hi[:, None])
+                      - np.maximum(cells[None, :], lo[:, None]), 0, None)
+    return overlap / overlap.sum(axis=1, keepdims=True)
+
+
 def _resize_area(image: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
-    """Area resize on host (matches tf.image.resize area semantics closely
-    enough for data prep; exactness is not part of the training contract).
-    Uses the native C++ kernel when built (native.py), PIL otherwise."""
+    """Area (box) resize of an f32 HWC image on the host: each output pixel
+    is the overlap-weighted mean of the input pixels it covers (matches
+    tf.image.resize area semantics closely enough for data prep; exactness
+    is not part of the training contract). The native C++ kernel when it is
+    built (native.py), else the same weights as two numpy products."""
     if native.available():
         return native.resize_area(np.asarray(image, np.float32), size)
-    from PIL import Image
-    h, w = size
-    arr = np.clip(image * 255.0, 0, 255).astype(np.uint8)
-    if arr.shape[-1] == 1:
-        pil = Image.fromarray(arr[:, :, 0], mode="L")
-    else:
-        pil = Image.fromarray(arr)
-    out = np.asarray(pil.resize((w, h), Image.BOX), dtype=np.float32) / 255.0
-    if out.ndim == 2:
-        out = out[:, :, None]
-    return out
+    img = np.asarray(image, np.float64)
+    wy = _box_weights(img.shape[0], size[0])
+    wx = _box_weights(img.shape[1], size[1])
+    out = np.einsum("yh,hwc,xw->yxc", wy, img, wx, optimize=True)
+    return out.astype(np.float32)
 
 
 def _resize_bilinear_np(image: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
@@ -602,7 +616,6 @@ class ImageDatasetV2:
             cache = self._sidecar_cache = {}
         if split in cache:
             return cache[split]
-        import tensorflow as tf
         files = sorted(glob.glob(pattern.format(split=split)))
         if not files:
             raise FileNotFoundError(
@@ -611,17 +624,14 @@ class ImageDatasetV2:
         names, labels = [], []
         for path in files:
             for payload in _read_tfrecord_payloads(path):
-                ex = tf.train.Example.FromString(payload)
-                feats = ex.features.feature
-                names.append(
-                    feats["file_name"].bytes_list.value[0].decode())
-                if feats["label"].float_list.value:
-                    logits = np.asarray(feats["label"].float_list.value,
-                                        np.float32)
+                feats = protobuf.parse_example(payload)
+                names.append(feats["file_name"].bytes_list[0].decode())
+                if len(feats["label"].float_list):
+                    logits = feats["label"].float_list
                     e = np.exp(logits - logits.max())
                     labels.append(e / e.sum())  # Soft label.
                 else:
-                    labels.append(int(feats["label"].int64_list.value[0]))
+                    labels.append(int(feats["label"].int64_list[0]))
         n = self._get_source().num_examples(self._source_split(split))
         if len(names) != n:
             raise ValueError(
@@ -643,7 +653,8 @@ class ImageDatasetV2:
         keep later examples byte-identical either way).
 
         Decode + transform run on an ordered thread pool (the reference's
-        tf.data num_parallel_calls; PIL/TF decode release the GIL), with a
+        tf.data num_parallel_calls; the native JPEG decode and resize
+        release the GIL), with a
         bounded in-flight window so infinite streams don't accumulate."""
         src = self._get_source()
         # The split whose FILES back this stream — subsplit datasets

@@ -6,12 +6,17 @@ logits). It is, in order:
 
 1. a function installed with `set_inception_fn` (tests);
 2. the port's Inception (`metrics/inception_net.py`) with the weights of
-   `$COMPARE_GAN_INCEPTION_NPZ`, the `.npz` that the JAX package's
-   `inception_net.convert_frozen_graph` writes from the frozen graph, run
-   on the eval's device.
+   `$COMPARE_GAN_INCEPTION_NPZ`, the `.npz` that
+   `inception_net.convert_frozen_graph` writes from the frozen graph (the
+   JAX package's converter writes the same file);
+3. the port's Inception with the weights read straight from the frozen
+   graph `$COMPARE_GAN_INCEPTION_PB` (the 2015-12-05 graph of every
+   published compare_gan FID), without TensorFlow. The JAX package runs
+   that graph in a TensorFlow session, fed at `Mul:0` after a bilinear
+   resize to 299 and (x - 128) / 128; the port's network starts at the
+   same place after the same preprocessing.
 
-The JAX package's third backend, the frozen graph in a TensorFlow session
-(`$COMPARE_GAN_INCEPTION_PB`), is not ported.
+Both run on the eval's device.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import numpy as np
 NanFoundError = type("NanFoundError", (ValueError,), {})
 
 INCEPTION_NPZ_ENV = "COMPARE_GAN_INCEPTION_NPZ"
+INCEPTION_PB_ENV = "COMPARE_GAN_INCEPTION_PB"
 
 # Test hook: fn(images_uint8_0_255 [N,H,W,3]) -> (pool [N,D], logits [N,K]).
 _inception_fn: Optional[Callable] = None
@@ -69,20 +75,25 @@ _resolved_fns: dict = {}  # (path, device) -> fn: the weights load once.
 def get_inception_fn(device="cuda") -> Callable:
     """The feature extractor: the test hook if one is installed, else the
     port's Inception on `device` with the weights of
-    $COMPARE_GAN_INCEPTION_NPZ (memoized per file and device)."""
+    $COMPARE_GAN_INCEPTION_NPZ, else of the frozen graph
+    $COMPARE_GAN_INCEPTION_PB (memoized per file and device)."""
     if _inception_fn is not None:
         return _inception_fn
-    npz = os.environ.get(INCEPTION_NPZ_ENV)
-    if npz and os.path.exists(npz):
-        key = (npz, str(device))
-        if key not in _resolved_fns:
-            from compare_gan_torch.metrics import inception_net
-            _resolved_fns[key] = inception_net.make_feature_fn(npz, device)
-        return _resolved_fns[key]
+    from compare_gan_torch.metrics import inception_net
+    for env, make in ((INCEPTION_NPZ_ENV, inception_net.make_feature_fn),
+                      (INCEPTION_PB_ENV,
+                       inception_net.make_graph_feature_fn)):
+        path = os.environ.get(env)
+        if path and os.path.exists(path):
+            key = (path, str(device))
+            if key not in _resolved_fns:
+                _resolved_fns[key] = make(path, device)
+            return _resolved_fns[key]
     raise RuntimeError(
         "No Inception feature extractor available. Set "
-        f"${INCEPTION_NPZ_ENV} (the .npz that the JAX package's "
-        "inception_net.convert_frozen_graph writes), or inject one with "
+        f"${INCEPTION_NPZ_ENV} (the .npz that "
+        "inception_net.convert_frozen_graph writes) or "
+        f"${INCEPTION_PB_ENV} (the frozen graph), or inject one with "
         "eval_utils.set_inception_fn (tests).")
 
 

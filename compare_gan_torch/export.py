@@ -13,8 +13,16 @@ training config:
 * `export_config.gin`: the gin snapshot the networks are rebuilt under.
 
 The layout is the JAX package's, so an export of either package loads in
-the other. The TF checkpoint import and export and the jax2tf SavedModel of
-the JAX package are not ported.
+the other.
+
+`import_reference_checkpoint` loads a google/compare_gan TF Saver
+checkpoint or TF-Hub module into a TrainState, and
+`export_reference_checkpoint` writes one back with the reference's variable
+names, as the JAX package's functions of the same names do; both read and
+write TensorFlow's V2 checkpoint format themselves (`tf_io`), without
+TensorFlow. The export writes no `.meta` graph (see
+`tf_io.checkpoint_bundle`). The JAX package's jax2tf SavedModel export has
+no counterpart here.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 from typing import Callable, Dict, Tuple
 
 import numpy as np
@@ -33,6 +42,7 @@ from compare_gan_torch import core
 from compare_gan_torch import interop
 from compare_gan_torch import utils
 from compare_gan_torch.ops import rng as rng_ops
+from compare_gan_torch.tf_io import checkpoint_bundle
 
 
 def _export_config_scope(spec):
@@ -200,3 +210,147 @@ def load_discriminator(export_dir: str, device="cuda"
             return discriminator(images, y=y, is_training=False)
 
     return discriminate, spec
+
+
+# ---------------------------------------------------------------------------
+# Reference TF checkpoints: import into a TrainState, export from one
+# ---------------------------------------------------------------------------
+
+# Optimizer slot variables the reference's TF Saver checkpoints carry but a
+# TrainState import skips (fresh optimizer state is created instead):
+# "<var>/Adam", "<var>/Adam_1", Momentum/RMSProp slots, and the Adam power
+# counters ("beta1_power", sometimes suffixed).
+_TF_OPT_SLOT = re.compile(
+    r".*/(Adam|Momentum|RMSProp)(_\d+)?$|^beta[12]_power(_\d+)?$")
+
+# Variable-name suffixes that live in the state, not the params (reference
+# arch_ops.py: u_var :488-497, moving_* :88-95, accu/* :141-168).
+_TF_STATE_SUFFIXES = ("/u_var", "/moving_mean", "/moving_variance",
+                      "/accu_mean", "/accu_variance", "/accu_counter",
+                      "/update_accus")
+
+_TF_EMA_SUFFIX = "/ExponentialMovingAverage"
+
+
+def classify_tf_variable(name: str):
+    """('param'|'state'|'ema'|'step'|'disc_step'|'skip', target name) of a
+    reference TF variable. Both packages name variables by the reference's
+    variable_scope paths, so the map is near identity: what remains is
+    sorting each variable into its TrainState tree."""
+    if name.startswith("module/"):  # Hub-module instantiation scope.
+        name = name[len("module/"):]
+    if name in ("global_step", "global_step/ExponentialMovingAverage"):
+        return ("step" if name == "global_step" else "skip"), name
+    if name == "global_step_disc":
+        return "disc_step", name
+    if _TF_OPT_SLOT.match(name):
+        return "skip", name
+    if name.endswith(_TF_EMA_SUFFIX):
+        return "ema", name[: -len(_TF_EMA_SUFFIX)]
+    if name.endswith(_TF_STATE_SUFFIXES):
+        return "state", name
+    if name.startswith(("generator/", "discriminator/")):
+        return "param", name
+    return "skip", name
+
+
+def _jax_shape(tensor: torch.Tensor) -> Tuple[int, ...]:
+    """The JAX-layout shape of a port tensor (OIHW -> HWIO)."""
+    shape = tuple(tensor.shape)
+    return (shape[2], shape[3], shape[1], shape[0]) if len(shape) == 4 \
+        else shape
+
+
+def import_reference_checkpoint(gan, checkpoint_path: str,
+                                batch_size: int = 8, seed: int = 42):
+    """Load a reference (google/compare_gan) TF Saver checkpoint or TF-Hub
+    module into a TrainState for this port's `gan` (the counterpart of the
+    JAX package's function of the same name).
+
+    `checkpoint_path` is a Saver prefix, a model_dir with a `checkpoint`
+    pointer or a TF-Hub module dir. Variables go into the params, state and
+    EMA trees by name (layouts agree with the JAX package's: conv kernels
+    HWIO, deconv kernels HWOI, linear [in, out], SN u_var, BN moving_* and
+    accu_*), permuted into the port's OIHW / IOHW; both step counters are
+    restored; optimizer state is fresh (the checkpoint's Adam slots are
+    skipped). `batch_size` is accepted for the JAX signature: the variables
+    do not depend on it.
+
+    Raises ValueError listing missing and extra variables if the checkpoint
+    does not exactly cover the gan's parameter and state trees: a silent
+    partial import would give a subtly wrong model.
+    """
+    del batch_size
+    reader = checkpoint_bundle.CheckpointReader(
+        checkpoint_bundle.resolve_checkpoint(checkpoint_path))
+    names = sorted(reader.variable_to_shape_map())
+
+    template = gan.init_state(seed)
+    trees: Dict[str, Dict] = {"param": {}, "state": {}, "ema": {}}
+    step = disc_step = None
+    for name in names:
+        kind, key = classify_tf_variable(name)
+        if kind == "skip":
+            continue
+        value = reader.get_tensor(name)
+        if kind == "step":
+            step = int(value)
+        elif kind == "disc_step":
+            disc_step = int(value)
+        else:
+            trees[kind][key] = value
+
+    def _check(got: dict, want: dict, tree_name: str, group: str):
+        missing = sorted(set(want) - set(got))
+        extra = sorted(set(got) - set(want))
+        if missing or extra:
+            raise ValueError(
+                f"TF checkpoint does not match the gan's {tree_name} tree."
+                f" Missing: {missing[:5]}{'...' if len(missing) > 5 else ''}"
+                f" Extra: {extra[:5]}{'...' if len(extra) > 5 else ''}")
+        out = {}
+        for k, v in want.items():
+            arr = np.asarray(got[k])
+            if arr.shape != _jax_shape(v):
+                raise ValueError(
+                    f"Shape mismatch for {k}: checkpoint {arr.shape} vs "
+                    f"model {_jax_shape(v)}.")
+            out[interop.key(group, k)] = interop.to_port(arr)
+        return out
+
+    values = {**_check(trees["param"], template.params(), "params",
+                       "params"),
+              **_check(trees["state"], template.state(), "state", "state")}
+    if template.ema_params:
+        values.update(_check(trees["ema"], template.ema_params, "ema_params",
+                             "ema_params"))
+    elif trees["ema"]:
+        raise ValueError(
+            "Checkpoint carries EMA shadows but the gan was built with "
+            "g_use_ema=False; construct it with g_use_ema=True so the "
+            "reference's EMA-at-export semantics apply.")
+    interop.load_state_dict(template, values)
+    template.step = step if step is not None else 0
+    template.disc_step = disc_step if disc_step is not None else 0
+    return template
+
+
+def export_reference_checkpoint(gan, ts, prefix: str) -> str:
+    """Inverse of import_reference_checkpoint: write this TrainState as a TF
+    V2 checkpoint `prefix` with the reference's variable names (params,
+    state, EMA shadows under "<name>/ExponentialMovingAverage",
+    `global_step` int64 and `global_step_disc` int32), so models trained
+    here load into google/compare_gan (its eval stack, TF-Hub export flow,
+    or as a warm start). Optimizer slots are not written: the reference
+    recreates Adam slots on first use. No `.meta` graph is written; the
+    reference's Saver, built from its own graph, restores without one.
+    Returns `prefix`."""
+    del gan  # The JAX signature; the TrainState holds everything.
+    tensors = {name: interop.to_jax(v)
+               for tree in (ts.params(), ts.state())
+               for name, v in tree.items()}
+    for name, v in ts.ema_params.items():
+        tensors[name + _TF_EMA_SUFFIX] = interop.to_jax(v)
+    tensors["global_step"] = np.asarray(int(ts.step), np.int64)
+    tensors["global_step_disc"] = np.asarray(int(ts.disc_step), np.int32)
+    return checkpoint_bundle.write_checkpoint(prefix, tensors)

@@ -7,8 +7,9 @@ Same flags as the JAX binary's --model_dir, --schedule, --gin_config,
 --coordinator_address, --num_processes, --process_id and --use_tpu
 (accepted and ignored), plus --device (default cuda; there is no fallback
 to the CPU). The eval schedules need Inception weights:
-$COMPARE_GAN_INCEPTION_NPZ, the .npz the JAX package's
-`inception_net.convert_frozen_graph` writes.
+$COMPARE_GAN_INCEPTION_NPZ (the .npz that
+`metrics.inception_net.convert_frozen_graph` writes) or
+$COMPARE_GAN_INCEPTION_PB (the frozen graph itself).
 
 Data parallelism runs one worker process per device, joined by
 torch.distributed (NCCL for CUDA, gloo for the CPU):

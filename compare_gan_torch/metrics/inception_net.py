@@ -3,10 +3,13 @@ compare_gan_tpu/metrics/inception_net.py).
 
 The architecture is the 2015-12-05 Inception-v3 graph
 (`inceptionv1_for_inception_score.pb`: 2048-d `pool_3` features, 1008-way
-`logits`). Its weights come from the `.npz` that the JAX package's
-`convert_frozen_graph` writes: one entry per weight, keyed by the graph's
-op name, conv kernels HWIO. Both packages read that file; this module
-transposes conv kernels to OIHW when it loads them.
+`logits`). Its weights come from that frozen graph (`read_frozen_graph`:
+the port's own GraphDef reader, no TensorFlow) or from the `.npz` that
+`convert_frozen_graph` writes from it (the JAX package's converter writes
+the same file): one entry per weight, keyed by the graph's op name, conv
+kernels HWIO. This module transposes conv kernels to OIHW when it loads
+them. The network takes over from the graph's `Mul:0`, after its own
+preprocessing, as the JAX package's TF session is fed.
 
 Activations are NCHW inside. Every pad is symmetric: the stride-2 convs
 and the pools that reduce are VALID, and the SAME convs are stride 1 with
@@ -24,6 +27,8 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from compare_gan_torch.tf_io import protobuf
 
 Params = Dict[str, torch.Tensor]
 
@@ -199,12 +204,8 @@ def params_from_npz(arrays, device) -> Params:
     return out
 
 
-def make_feature_fn(npz_path: str, device="cuda") -> Callable:
-    """(images in [0, 255], [N, H, W, 3]) -> (pool [N, 2048], logits
-    [N, 1008]) as numpy arrays, computed on `device` in full f32, with the
-    weights of `npz_path` (the layout `convert_frozen_graph` writes)."""
-    with np.load(npz_path) as data:
-        params = params_from_npz({k: data[k] for k in data.files}, device)
+def _feature_fn(arrays, device) -> Callable:
+    params = params_from_npz(arrays, device)
 
     def fn(images):
         with torch.no_grad(), full_f32():
@@ -213,6 +214,47 @@ def make_feature_fn(npz_path: str, device="cuda") -> Callable:
         return pool.cpu().numpy(), logits.cpu().numpy()
 
     return fn
+
+
+def make_feature_fn(npz_path: str, device="cuda") -> Callable:
+    """(images in [0, 255], [N, H, W, 3]) -> (pool [N, 2048], logits
+    [N, 1008]) as numpy arrays, computed on `device` in full f32, with the
+    weights of `npz_path` (the layout `convert_frozen_graph` writes)."""
+    with np.load(npz_path) as data:
+        return _feature_fn({k: data[k] for k in data.files}, device)
+
+
+def make_graph_feature_fn(pb_path: str, device="cuda") -> Callable:
+    """make_feature_fn with the weights read straight from the frozen
+    graph `pb_path`."""
+    return _feature_fn(read_frozen_graph(pb_path), device)
+
+
+# GraphDef float types; the graph's int32 Consts (reduction indices,
+# reshape shapes) are plumbing, not weights.
+_FLOAT_DTYPES = (protobuf.DT_FLOAT, protobuf.DT_DOUBLE, protobuf.DT_HALF)
+
+
+def read_frozen_graph(pb_path: str) -> Dict[str, np.ndarray]:
+    """{node name: value} of every floating Const of rank >= 1 in a frozen
+    GraphDef, in graph order: what the JAX package's convert_frozen_graph
+    keeps, read without TensorFlow."""
+    with open(pb_path, "rb") as f:
+        data = f.read()
+    out = {}
+    for node in protobuf.iter_graph_nodes(data):
+        if node.op != "Const" or "value" not in node.attr:
+            continue
+        tensor = protobuf.attr_tensor(node.attr["value"], _FLOAT_DTYPES)
+        if tensor is not None and tensor.ndim >= 1:
+            out[node.name] = tensor
+    return out
+
+
+def convert_frozen_graph(pb_path: str, npz_out: str) -> None:
+    """Write the frozen graph's weights (read_frozen_graph) as the `.npz`
+    that make_feature_fn and $COMPARE_GAN_INCEPTION_NPZ read."""
+    np.savez(npz_out, **read_frozen_graph(pb_path))
 
 
 _A_CH = {"mixed": (192, 32), "mixed_1": (256, 64), "mixed_2": (288, 64)}

@@ -1,11 +1,15 @@
-"""ctypes bindings for the port's native data-IO runtime (csrc/dataio.cc).
+"""ctypes bindings for the port's native data-IO runtime (csrc/dataio.cc and
+the JPEG decoder csrc/image_decode.cc, one library).
 
 g++ builds the library at first use (never at import) into the git-ignored
 `compare_gan_torch/_build/`, under a file name that carries a hash of the
-source and flags, so an edited source is never served by a stale build.
-Every entry point degrades gracefully: callers check `available()` and fall
-back to the pure-Python paths in datasets.py, so the input pipeline works
-without a toolchain.
+sources and flags, so an edited source is never served by a stale build.
+The record, resize and CRC32C entry points degrade gracefully: callers check
+`available()` and fall back to the pure-Python paths, so those work without
+a toolchain. The JPEG decoder has no fallback: `jpeg_decode` raises,
+saying why, when the library cannot be built. ctypes releases the GIL
+during each call, and no entry point keeps global state, so threads decode
+at once.
 """
 
 from __future__ import annotations
@@ -21,18 +25,21 @@ import numpy as np
 
 from compare_gan_torch.ops import _build
 
-_SRC = os.path.join(_build.SRC_DIR, "dataio.cc")
+_SRCS = tuple(os.path.join(_build.SRC_DIR, name)
+              for name in ("dataio.cc", "image_decode.cc"))
 _FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+_build_error = ""  # why the library is unavailable, for the JPEG error
 
 
 def _library_path() -> str:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    with open(_SRC, "rb") as f:
-        h.update(f.read())
+    for src in _SRCS:
+        with open(src, "rb") as f:
+            h.update(f.read())
     return os.path.join(_build.BUILD_DIR,
                         f"libdataio-{h.hexdigest()[:16]}.so")
 
@@ -41,22 +48,31 @@ def _build_library() -> Optional[str]:
     """The up-to-date library's path, compiling it if needed; None when
     there is no working g++. Concurrent builders each write a private
     temporary file and rename it into place."""
+    global _build_error
     path = _library_path()
     if os.path.exists(path):
         return path
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     tmp = f"{path}.tmp{os.getpid()}"
     try:
-        subprocess.run(["g++", *_FLAGS, _SRC, "-o", tmp], check=True,
-                       capture_output=True, timeout=120)
-    except (subprocess.SubprocessError, FileNotFoundError):
+        subprocess.run(["g++", *_FLAGS, *_SRCS, "-o", tmp], check=True,
+                       capture_output=True, timeout=300)
+    except FileNotFoundError:
+        _build_error = "g++ was not found"
+        return None
+    except subprocess.CalledProcessError as e:
+        _build_error = "g++ failed: " + e.stderr.decode(
+            errors="replace")[-2000:]
+        return None
+    except subprocess.SubprocessError as e:
+        _build_error = f"g++ failed: {e}"
         return None
     os.replace(tmp, path)
     return path
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    global _lib, _tried
+    global _lib, _tried, _build_error
     with _lock:
         if _lib is not None or _tried:
             return _lib
@@ -66,7 +82,8 @@ def _load() -> Optional[ctypes.CDLL]:
             return None
         try:
             lib = ctypes.CDLL(path)
-        except OSError:
+        except OSError as e:
+            _build_error = f"loading {path} failed: {e}"
             return None
         c_char_p, i64 = ctypes.c_char_p, ctypes.c_int64
         u8p = ctypes.POINTER(ctypes.c_uint8)
@@ -92,6 +109,16 @@ def _load() -> Optional[ctypes.CDLL]:
                                                  i64]
         lib.u8_to_f32_scaled.restype = None
         lib.u8_to_f32_scaled.argtypes = [u8p, i64, f32p]
+        lib.png_unfilter.restype = i64
+        lib.png_unfilter.argtypes = [u8p, i64, i64, i64, u8p]
+        lib.crc32c_extend.restype = ctypes.c_uint32
+        lib.crc32c_extend.argtypes = [ctypes.c_uint32, ctypes.c_char_p, i64]
+        lib.jpeg_header.restype = ctypes.c_int
+        lib.jpeg_header.argtypes = [ctypes.c_char_p, i64, i64p,
+                                    ctypes.c_char_p, i64]
+        lib.jpeg_decode.restype = ctypes.c_int
+        lib.jpeg_decode.argtypes = [ctypes.c_char_p, i64, u8p, i64,
+                                    ctypes.c_char_p, i64]
         _lib = lib
         return _lib
 
@@ -188,4 +215,52 @@ def u8_to_f32(raw: np.ndarray) -> np.ndarray:
     lib.u8_to_f32_scaled(
         raw.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), raw.size,
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+    return out
+
+
+def png_unfilter(raw: np.ndarray, rows: int, stride: int,
+                 bpp: int) -> np.ndarray:
+    """[rows, stride] bytes of PNG scanlines from their filtered form
+    (`raw`: uint8, rows * (stride + 1) bytes)."""
+    lib = _load()
+    assert lib is not None
+    raw = np.ascontiguousarray(raw, np.uint8)
+    if raw.size < rows * (stride + 1):
+        raise ValueError("truncated PNG image data")
+    out = np.empty((rows, stride), np.uint8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    if lib.png_unfilter(raw.ctypes.data_as(u8p), rows, stride, bpp,
+                        out.ctypes.data_as(u8p)) != 0:
+        raise ValueError("bad PNG filter type")
+    return out
+
+
+def crc32c(data, crc: int = 0) -> int:
+    """CRC32C of `data` (bytes-like), continuing from `crc`."""
+    lib = _load()
+    assert lib is not None
+    data = bytes(data) if not isinstance(data, bytes) else data
+    return int(lib.crc32c_extend(crc, data, len(data)))
+
+
+def jpeg_decode(data: bytes) -> np.ndarray:
+    """A JPEG as uint8 [H, W, C] (C = 1 or 3), as tf.io.decode_image
+    returns it. Raises ValueError for a file the decoder refuses or cannot
+    read, RuntimeError when the library cannot be built."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(
+            "JPEG decoding needs the port's native library, which could not "
+            f"be built ({_build_error or 'unknown reason'}); it has no "
+            "Python fallback.")
+    data = bytes(data) if not isinstance(data, bytes) else data
+    err = ctypes.create_string_buffer(512)
+    dims = np.zeros(3, np.int64)
+    if lib.jpeg_header(data, len(data), dims.ctypes.data_as(
+            ctypes.POINTER(ctypes.c_int64)), err, len(err)) != 0:
+        raise ValueError(err.value.decode(errors="replace"))
+    out = np.empty(tuple(int(d) for d in dims), np.uint8)
+    if lib.jpeg_decode(data, len(data), out.ctypes.data_as(
+            ctypes.POINTER(ctypes.c_uint8)), out.size, err, len(err)) != 0:
+        raise ValueError(err.value.decode(errors="replace"))
     return out
