@@ -53,7 +53,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    samples, and the attention launches (16 + 3 * 2 forwards). Prints the
    scores, the seconds and the peak device memory of each phase, and
    images per second.
-6. Data parallel: (a) the BigGAN-128 phases' CLI run with --num_devices=1
+6. Serving: the eval's accumulator-filled step-3 state of the main
+   path's BigGAN-128 (EMA shadows) exported as a serving program
+   (export.export_serving_program: one torch.export program with a dynamic
+   batch, signatures gen_bs8, 16, 32 and 64) and as a module export.
+   A fresh process (`serving_worker`) loads the program through
+   serving.load_serving_program on the card and must import no module of
+   compare_gan_torch.architectures, .gans or .config; it runs every
+   signature once (images finite, in [0, 1], one forward launch) and 10
+   times more (images/s), and gen_bs8 on the CPU (the plain operator, no
+   launch). The card's images are held to eager export.load_generator on
+   the module export (10 more calls each for its images/s) and gen_bs8 to
+   the CPU's, f32 within 1e-4 of the largest entry. The artifact must be
+   within 1.25x of G's weights and state. Then compare_gan_torch.demo on
+   the module export: both PNGs decode to their grid shapes, D's
+   predictions are finite, 3 forward launches. Prints export and load
+   seconds, artifact bytes and images/s of program and eager.
+7. Data parallel: (a) the BigGAN-128 phases' CLI run with --num_devices=1
    (3 steps at full width, batch 16, bf16) goes through the data-parallel
    path on a one-rank NCCL group: the same checks as phase 4 (parameter
    counts, finite losses, model.ckpt-3.npz, TRAIN_DONE, 5 forward and 4
@@ -73,7 +89,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    forward and 4 backward attention launches at 8 rows. Its seconds are
    gloo through the host on one card, no figure for NCCL on several
    cards.
-7. S3GAN main path: 3 steps of S3GAN on BigGAN-128 at full width through
+8. S3GAN main path: 3 steps of S3GAN on BigGAN-128 at full width through
    the CLI with example_configs/s3gan32_polygons_partial.gin on fake
    ImageNet-128: batch 16, rotation (rotated_batch_fraction 4), projection
    and soft predictor heads, bf16, joint G forward, fake-only G loss off.
@@ -84,14 +100,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    included), the three head scopes in model.ckpt-3.npz, TRAIN_DONE and
    the attention launches (5 forward and 4 backward per step). Prints
    seconds per step after the first and peak device memory.
-8. SSGAN main path: 3 steps of SSGAN on ResNet-CIFAR-32 at its published
+9. SSGAN main path: 3 steps of SSGAN on ResNet-CIFAR-32 at its published
    widths through the CLI with example_configs/ssgan32_polygons_oriented.gin
    on fake CIFAR-10 (batch 64, 64 rotated examples: D sees 224 rows, f32).
    Checks the parameter counts (G 5,849,603; D with its head 1,483,653),
    finite losses (the rotation losses included), the checkpoint and that
    no attention kernel ran (the architecture has no attention). Prints
    seconds per step and peak device memory.
-9. Study zoo: 3 steps each of resnet_lsun-bedroom128.gin (ResNet5,
+10. Study zoo: 3 steps each of resnet_lsun-bedroom128.gin (ResNet5,
    Wasserstein loss with the WGAN-GP penalty, lambda 10, 5 D sub-steps,
    each with a double backward), sndcgan_celebahq128.gin and
    dcgan_celeba64.gin through the CLI, as published (batch 64, 128, 128
@@ -104,7 +120,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    them by; and that a gradient penalty through the attention kernel
    raises (its gradient is first order only). Prints seconds per step,
    peak device memory and the gradient gaps, and a `study_zoo {...}` line.
-10. BigGAN-deep main path: 3 steps of BigGAN-deep-128 as published (ch
+11. BigGAN-deep main path: 3 steps of BigGAN-deep-128 as published (ch
    128, z_dim 128; arXiv:1809.11096, Tables 7-9) through the CLI with the
    BigGAN-128 phases' config and options (batch 16, bf16, joint G forward,
    fake-only G loss, fake ImageNet-128) and options.architecture =
@@ -116,13 +132,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    with IS, FID, KID, PRD, MS-SSIM and the fractal dimension: every metric
    finite in the row, 16 + 3 * 2 forward launches, each phase's and each
    task's seconds and peak memory.
-11. G/D-access tasks: eval_after_train of the study zoo's DCGAN-64
+12. G/D-access tasks: eval_after_train of the study zoo's DCGAN-64
    checkpoint (dcgan_celeba64.gin as published: unconditional, uniform z)
    with all ten tasks, adding the Jacobian's conditioning, D's accuracy
    and GILBO at its defaults (2,000 regressor steps at batch 64, its
    artifacts written and checked). Every metric finite; each task's
    seconds.
-12. TF formats: the port reads and writes TensorFlow's files without
+13. TF formats: the port reads and writes TensorFlow's files without
    TensorFlow (it checks that tensorflow, PIL and google.protobuf were never
    loaded). Every committed image fixture (tests/torch_fixtures: JPEG
    4:2:0, 4:4:4, 4:2:2, progressive, grayscale, restart intervals; PNG 8-
@@ -142,11 +158,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    bitwise; prints both times. Then eval_after_train of the re-imported
    model_dir at the eval phase's cut on 100 real validation images (the
    registry's 50,000 cut to 100), with the eval phase's checks.
-13. Prints the eval shape's forward row, the S3GAN D shape's bf16 row and
+14. Prints the eval shape's forward row, the S3GAN D shape's bf16 row and
    the BigGAN-deep rows as JSON lines of their own (`eval_shape_forward
    {...}`, `s3gan_shape {...}`, one `biggan_deep_shape {...}` per type and
    the eval forward: tolerances, SDPA backend, times, bound and share),
-   the BigGAN-deep eval, G/D-task, data-parallel and TF-format summaries,
+   the BigGAN-deep eval, G/D-task, data-parallel, TF-format and serving
+   summaries,
    each phase's seconds, then
    one JSON line describing each kernel ("ms",
    "plain_ms", "library_ms", "bound_ms": one call at each bf16 training
@@ -1289,6 +1306,241 @@ def run_gan_tasks(torch, model_dir):
     return launches, summary
 
 
+# The serving phase: the main path's BigGAN-128 G as a serving program at
+# the reference's TF-Hub batch signatures, served by a fresh process that
+# loads no model code. The program runs f32 (z's type: `compute_dtype` does
+# not apply to inference), so its attention repeats the eval shape's forward
+# at B 64 (and runs at B 8, 16, 32). Each signature is called once (checked)
+# and SERVING_CALLS more times (timed), the eager loader likewise.
+SERVING_CALLS = 10
+SERVING_MODEL_MODULES = ("compare_gan_torch.architectures",
+                         "compare_gan_torch.gans", "compare_gan_torch.config")
+# The program stores G's weights once: its file within 1.25x of G's
+# inference params and state.
+SERVING_BYTES_RATIO = 1.25
+
+
+def _checked_images(np, images, batch, what):
+    if images.shape != (batch, 128, 128, 3) or not np.isfinite(images).all() \
+            or images.min() < 0 or images.max() > 1:
+        raise AssertionError(f"{what}: bad images, shape {images.shape}, "
+                             f"range [{images.min()}, {images.max()}]")
+
+
+def serving_worker(export_dir):
+    """The serving phase's fresh process: load the program of `export_dir`
+    through `serving.load_serving_program` on the card (TF32 off, as in the
+    parent) and on the CPU; run every signature on the inputs the parent
+    wrote, once checked (one forward launch) and SERVING_CALLS times timed;
+    gen_bs8 on the CPU (no launch). Writes outputs.npz and prints a JSON
+    report as its last line; raises if a model module was imported."""
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from compare_gan_torch import serving
+    from compare_gan_torch.ops import fused_attention as fa
+
+    with np.load(os.path.join(export_dir, "inputs.npz")) as f:
+        z, labels = f["z"], f["labels"]
+    t0 = time.perf_counter()
+    torch.cuda.init()  # The process's CUDA context, timed apart.
+    torch.zeros(1, device="cuda")
+    cuda_init_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spec, signatures = serving.load_serving_program(export_dir, "cuda")
+    torch.cuda.synchronize()
+    load_seconds = time.perf_counter() - t0
+    outputs, rates, launches = {}, {}, 0
+    for name, batch in spec["signatures"].items():
+        fa.launches_fwd = 0
+        images = signatures[name](z[:batch], labels[:batch])
+        outputs[name] = images.cpu().numpy()
+        _checked_images(np, outputs[name], batch, name)
+        if fa.launches_fwd != 1:
+            raise AssertionError(f"{name}: {fa.launches_fwd} forward "
+                                 f"launches, not 1")
+        z_card = torch.as_tensor(z[:batch], device="cuda")
+        labels_card = torch.as_tensor(labels[:batch], device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SERVING_CALLS):
+            signatures[name](z_card, labels_card)
+        torch.cuda.synchronize()
+        rates[name] = batch * SERVING_CALLS / (time.perf_counter() - t0)
+        if fa.launches_fwd != 1 + SERVING_CALLS:
+            raise AssertionError(f"{name}: {fa.launches_fwd} forward "
+                                 f"launches in {1 + SERVING_CALLS} calls")
+        launches += fa.launches_fwd
+    _, cpu_signatures = serving.load_serving_program(export_dir, "cpu")
+    fa.launches_fwd = 0
+    outputs["cpu_gen_bs8"] = cpu_signatures["gen_bs8"](z[:8],
+                                                       labels[:8]).numpy()
+    if fa.launches_fwd:
+        raise AssertionError("the program on the CPU launched a kernel")
+    np.savez(os.path.join(export_dir, "outputs.npz"), **outputs)
+    model_modules = sorted(m for m in sys.modules
+                           if m.startswith(SERVING_MODEL_MODULES))
+    if model_modules:
+        raise AssertionError(f"the serving process imported model code: "
+                             f"{model_modules}")
+    print(json.dumps({"load_seconds": load_seconds,
+                      "cuda_init_seconds": cuda_init_seconds,
+                      "images_per_second": rates, "launches": launches,
+                      "model_modules": model_modules}))
+
+
+def _held(np, got, want, what):
+    """Max abs error of `got` against `want`, within TOL["float32"] of
+    want's largest entry."""
+    err = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    ok = err <= TOL["float32"] * scale
+    print(f"  {what}: max_abs {err:.3e} (max |want| {scale:.3f}) tol "
+          f"{TOL['float32']:g} of it {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: beyond {TOL['float32']:g}")
+    return err
+
+
+def run_serving(torch, model_dir):
+    """Export the main path's BigGAN-128 G (the eval's accumulator-filled
+    step-3 state, EMA shadows) as a serving program with the four
+    signatures and a module export of the same state; serve the program
+    from a fresh process (`serving_worker`); hold its images to eager
+    `export.load_generator` on the module export and to its own CPU run;
+    run `compare_gan_torch.demo` on the module export. The module export
+    of tfhub/<step> is written before the eval fills the accumulators, so
+    it is not this state: with unfilled accumulators BN divides by
+    sqrt(epsilon). Returns (launches, summary)."""
+    _phase("serving")
+    import numpy as np
+    from compare_gan_torch import config as gin
+    from compare_gan_torch import datasets, demo, eval_gan_lib, export
+    from compare_gan_torch import gans, runner_lib, serving
+    from compare_gan_torch.ops import fused_attention as fa
+    from compare_gan_torch.tf_io import image_codec
+    del gans  # Registers the configurables of the config.
+
+    gin.clear_config()
+    gin.parse_config_files_and_bindings(
+        [os.path.join(ROOT, "example_configs", "biggan_imagenet128.gin")],
+        list(BIGGAN_BINDINGS))
+    datasets.set_fake_dataset(True)
+    options = runner_lib.get_options_dict()
+    gan = options["gan_class"](dataset=datasets.get_dataset(),
+                               parameters=options, model_dir=model_dir,
+                               device="cuda")
+    ts = eval_gan_lib.restored_state(
+        gan, os.path.join(model_dir, "tfhub", str(STEPS),
+                          f"model.ckpt-{STEPS}.npz"),
+        eval_gan_lib.EvalCache())
+    program_dir = os.path.join(model_dir, "serving", "program")
+    module_dir = os.path.join(model_dir, "serving", "module")
+    t0 = time.perf_counter()
+    export.export_serving_program(gan, ts, program_dir)
+    export_seconds = time.perf_counter() - t0
+    artifact = os.path.getsize(os.path.join(program_dir,
+                                            serving.SERVING_PROGRAM))
+    weights = sum(v.numel() * v.element_size() for k, v in {
+        **gan._inference_params(ts), **ts.state()}.items()
+        if k.startswith("generator/"))
+    print(f"export_seconds {export_seconds:.2f} artifact_bytes {artifact} "
+          f"weight_bytes {weights} ratio {artifact / weights:.4f}")
+    if artifact > SERVING_BYTES_RATIO * weights:
+        raise AssertionError(f"the program holds {artifact} bytes for "
+                             f"{weights} bytes of weights")
+    export.export_module(gan, ts, module_dir)
+    with open(os.path.join(program_dir, serving.SERVING_SPEC)) as f:
+        spec = json.load(f)
+    print(f"serving spec {spec}")
+    if list(spec["signatures"]) != ["gen_bs8", "gen_bs16", "gen_bs32",
+                                    "gen_bs64"] or spec["dtype"] != "float32":
+        raise AssertionError(f"serving spec {spec}")
+
+    # z as the config draws it (normal), labels with an unlabeled -1.
+    rng = np.random.RandomState(0)
+    z = rng.randn(64, gan.z_dim).astype(np.float32)
+    labels = rng.randint(0, 1000, 64).astype(np.int32)
+    labels[0] = -1
+    np.savez(os.path.join(program_dir, "inputs.npz"), z=z, labels=labels)
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         f"import chip_smoke; chip_smoke.serving_worker({program_dir!r})"],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"the serving process failed (rc "
+                             f"{proc.returncode}):\n{proc.stderr[-4000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"serving process: load_seconds {report['load_seconds']:.2f} "
+          f"(after {report['cuda_init_seconds']:.2f} s of CUDA init), "
+          f"model modules {report['model_modules']}, forward launches "
+          f"{report['launches']}")
+    with np.load(os.path.join(program_dir, "outputs.npz")) as f:
+        outputs = dict(f)
+
+    generate, _ = export.load_generator(module_dir, "cuda")
+    eager_rates, errors, eager_launches = {}, {}, 0
+    for name, batch in spec["signatures"].items():
+        fa.launches_fwd = 0
+        want = generate(z[:batch], labels[:batch]).float().cpu().numpy()
+        _checked_images(np, want, batch, f"eager {name}")
+        errors[name] = _held(np, outputs[name], want,
+                             f"{name} program vs eager load_generator")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SERVING_CALLS):
+            generate(z[:batch], labels[:batch])
+        torch.cuda.synchronize()
+        eager_rates[name] = batch * SERVING_CALLS / (time.perf_counter()
+                                                     - t0)
+        if fa.launches_fwd != 1 + SERVING_CALLS:
+            raise AssertionError(f"eager {name}: {fa.launches_fwd} forward "
+                                 f"launches in {1 + SERVING_CALLS} calls")
+        eager_launches += fa.launches_fwd
+    errors["card_vs_cpu_gen_bs8"] = _held(
+        np, outputs["gen_bs8"], outputs["cpu_gen_bs8"],
+        "gen_bs8 on the card vs the CPU")
+    rates = {name: {"program": report["images_per_second"][name],
+                    "eager": eager_rates[name]}
+             for name in spec["signatures"]}
+    print("serving_images_per_second " + " ".join(
+        f"{k} program {v['program']:.1f} eager {v['eager']:.1f}"
+        for k, v in rates.items()))
+
+    out_dir = os.path.join(model_dir, "serving", "demo")
+    fa.launches_fwd = 0
+    t0 = time.perf_counter()
+    result = demo.main([f"--export_dir={module_dir}",
+                        f"--out_dir={out_dir}", "--device=cuda"])
+    demo_seconds = time.perf_counter() - t0
+    # G for the grid and the interpolation, D (attention at B1) once.
+    demo_launches = fa.launches_fwd
+    shapes = {}
+    for name in ("samples.png", "interpolation.png"):
+        with open(os.path.join(out_dir, name), "rb") as f:
+            shapes[name] = image_codec.decode_png(f.read()).shape
+    print(f"demo {demo_seconds:.2f} s, pngs {shapes}, D predictions "
+          f"{result['predictions'].tolist()}, forward launches "
+          f"{demo_launches}")
+    if shapes != {"samples.png": (3 * 128, 4 * 128, 3),
+                  "interpolation.png": (128, 8 * 128, 3)} or \
+            not np.isfinite(result["predictions"]).all() or \
+            demo_launches != 3:
+        raise AssertionError("the demo's outputs or launches are wrong")
+    launches = report["launches"] + eager_launches + demo_launches
+    return {"fwd": launches, "bwd": 0}, {
+        "images_per_second": rates, "max_abs_err": errors,
+        "export_seconds": export_seconds,
+        "load_seconds": report["load_seconds"],
+        "cuda_init_seconds": report["cuda_init_seconds"],
+        "artifact_bytes": artifact,
+        "weight_bytes": weights, "demo_seconds": demo_seconds,
+        "launches": {"program": report["launches"], "eager": eager_launches,
+                     "demo": demo_launches}}
+
+
 # The "tf formats" phase: TFRecord data, JPEG/PNG decode and reference
 # checkpoints without TensorFlow. Its dataset is TFDS's imagenet2012 layout
 # written here from the committed fixtures (the card has no encoder): the
@@ -1524,6 +1776,8 @@ def main():
             "eval", run_eval, torch, biggan,
             _argv(biggan, "eval_after_train"), SESSION_TASKS[:2],
             (128, 128, 3), attention=1, accumulators=True)
+        runs["serving"], serving = timed("serving", run_serving, torch,
+                                         biggan)
         runs["data_parallel"], data_parallel = timed(
             "data_parallel", run_data_parallel, torch,
             os.path.join(model_dir, "data_parallel"))
@@ -1571,6 +1825,7 @@ def main():
     print("study_zoo " + json.dumps(study_zoo))
     print("data_parallel " + json.dumps(data_parallel))
     print("tf_formats " + json.dumps(tf_formats))
+    print("serving " + json.dumps(serving))
     seconds["total"] = time.perf_counter() - t_start
     print("phase_seconds " + json.dumps(seconds))
     print(json.dumps({"kernels": [

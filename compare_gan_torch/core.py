@@ -140,11 +140,13 @@ def no_state_updates():
         _local.frozen = prev
 
 
-@torch.no_grad()
 def set_state(buffer: torch.Tensor, value: torch.Tensor) -> None:
-    """Commit `value` into a state buffer, unless commits are suppressed."""
+    """Commit `value` into a state buffer, unless commits are suppressed.
+    A suppressed commit enters no no_grad region: a traced program
+    (`export.export_serving_program`) would hold one per state variable."""
     if not getattr(_local, "frozen", False):
-        buffer.copy_(value)
+        with torch.no_grad():
+            buffer.copy_(value)
 
 
 # ---------------------------------------------------------------------------

@@ -21,8 +21,13 @@ checkpoint or TF-Hub module into a TrainState, and
 names, as the JAX package's functions of the same names do; both read and
 write TensorFlow's V2 checkpoint format themselves (`tf_io`), without
 TensorFlow. The export writes no `.meta` graph (see
-`tf_io.checkpoint_bundle`). The JAX package's jax2tf SavedModel export has
-no counterpart here.
+`tf_io.checkpoint_bundle`).
+
+`export_serving_program` is the counterpart of the JAX package's jax2tf
+SavedModel export: G traced by `torch.export` into one program with a
+dynamic batch, served at the reference's TF-Hub batch signatures
+(`gen_bs8` ... `gen_bs64`) by `serving.load_serving_program` without any
+model code. It writes no TF SavedModel.
 """
 
 from __future__ import annotations
@@ -35,11 +40,11 @@ from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from compare_gan_torch import config as gin
 from compare_gan_torch import core
 from compare_gan_torch import interop
+from compare_gan_torch import serving
 from compare_gan_torch import utils
 from compare_gan_torch.ops import rng as rng_ops
 from compare_gan_torch.tf_io import checkpoint_bundle
@@ -176,7 +181,10 @@ def _one_hot(spec, labels, n, device):
     labels = torch.as_tensor(np.array(labels), device=device)
     if len(labels) != n:
         raise ValueError(f"{len(labels)} labels for a batch of {n}.")
-    return F.one_hot(labels.long(), spec["num_classes"]).float()
+    # As jax.nn.one_hot: a label outside [0, num_classes) is an all-zero
+    # row (F.one_hot raises on it).
+    classes = torch.arange(spec["num_classes"], device=device)
+    return (labels.long()[:, None] == classes).float()
 
 
 def load_generator(export_dir: str, device="cuda"
@@ -210,6 +218,79 @@ def load_discriminator(export_dir: str, device="cuda"
             return discriminator(images, y=y, is_training=False)
 
     return discriminate, spec
+
+
+# ---------------------------------------------------------------------------
+# The serving program (counterpart of the jax2tf SavedModel export)
+# ---------------------------------------------------------------------------
+
+class _ServingGenerator(torch.nn.Module):
+    """(z [B, z_dim] f32, labels [B] int32) -> images [B, H, W, C]: G in
+    eval mode on the one-hot of the labels; an unconditional G takes the
+    labels and ignores them, as the JAX signature does."""
+
+    def __init__(self, gan):
+        super().__init__()
+        self.generator = gan.generator
+        self._gan = gan
+
+    def forward(self, z, labels):
+        y = (self._gan._get_one_hot_labels(labels) if self._gan.conditional
+             else None)
+        return self.generator(z, y=y, is_training=False)
+
+
+def export_serving_program(gan, ts, export_dir: str,
+                           batch_sizes=(8, 16, 32, 64)) -> str:
+    """Write G as a self-contained serving program: <export_dir>/
+    {generator.pt2, serving_spec.json}. The counterpart of the JAX
+    package's `export_saved_model`, at its signatures `gen_bs<N>`
+    (the reference's TF-Hub batch tags, modular_gan.py:289-306); it
+    writes no TF SavedModel.
+
+    The program computes `gan.generator(z, y=one_hot(labels),
+    is_training=False)` on `gan._inference_params(ts)` (G's EMA shadows)
+    and the state of `ts`, committing no state, under the live gin config.
+    `torch.export` traces it once with a dynamic batch dimension, so the
+    weights are stored once (as the JAX export keeps them in shared
+    variables, not once per signature); `serving.load_serving_program`
+    checks each signature's batch size. The non-local blocks are nodes of
+    the registered operator `compare_gan::attention_fwd`, whose device is
+    chosen when the program runs. Weights are saved on the CPU; the loader
+    moves them. The spec holds the signature names, z_dim, conditional,
+    num_classes, image_shape, the type the program computes in and the
+    step. Returns `export_dir`."""
+    from torch.export.passes import move_to_device_pass
+
+    os.makedirs(export_dir, exist_ok=True)
+    batch_sizes = sorted(int(bs) for bs in batch_sizes)
+    batch = torch.export.Dim("batch", min=1, max=batch_sizes[-1])
+    example = (torch.zeros(batch_sizes[-1], gan.z_dim, device=gan.device),
+               torch.zeros(batch_sizes[-1], dtype=torch.int32,
+                           device=gan.device))
+    with torch.no_grad(), core.no_state_updates(), \
+            gan._inference_weights(ts):
+        program = torch.export.export(
+            _ServingGenerator(gan), example,
+            dynamic_shapes={"z": {0: batch}, "labels": {0: batch}})
+        # Inside the swap: the copy to the CPU takes the EMA shadows.
+        program = move_to_device_pass(program, "cpu")
+    out = [n for n in program.graph.nodes if n.op == "output"][0]
+    images = out.args[0][0].meta["val"]
+    torch.export.save(program,
+                      os.path.join(export_dir, serving.SERVING_PROGRAM))
+    spec = {
+        "signatures": {f"gen_bs{bs}": bs for bs in batch_sizes},
+        "z_dim": gan.z_dim,
+        "conditional": gan.conditional,
+        "num_classes": gan.dataset.num_classes,
+        "image_shape": list(gan.dataset.image_shape),
+        "dtype": str(images.dtype).replace("torch.", ""),
+        "step": int(ts.step),
+    }
+    with open(os.path.join(export_dir, serving.SERVING_SPEC), "w") as f:
+        json.dump(spec, f, indent=2)
+    return export_dir
 
 
 # ---------------------------------------------------------------------------

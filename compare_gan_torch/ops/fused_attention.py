@@ -14,6 +14,14 @@ first order only, as the Pallas kernel's is on the TPU (its
 `custom_partitioning` has no differentiation rule): asking for it with
 `create_graph`, as a gradient penalty through a non-local block does, raises.
 
+The forward is also the registered operator `compare_gan::attention_fwd`
+(`attention_fwd_op`): its CUDA implementation launches the kernel, its CPU
+implementation runs the plain version, and its fake implementation gives
+only shapes and types. A program traced by `torch.export`
+(`export.export_serving_program`) holds one node of it per non-local block,
+so the device is picked, and the operands checked, when the program runs.
+Importing this module registers the operator; it imports no layer code.
+
 theta: [B, N, C]; phi: [B, M, C]; g: [B, M, Cg] -> out [B, N, Cg].
 Scores, softmax and sums are f32 whatever the input type; `out` and
 `dtheta` come back in the input type, `mx`/`den` ([B, N, 1]) and the raw
@@ -21,6 +29,8 @@ Scores, softmax and sums are f32 whatever the input type; `out` and
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -135,6 +145,28 @@ def attention_fwd(theta, phi, g):
     return out, mx, den
 
 
+@torch.library.custom_op("compare_gan::attention_fwd", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def attention_fwd_op(theta: torch.Tensor, phi: torch.Tensor,
+                     g: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`attention_fwd` as a registered operator: (out, mx, den), through
+    the kernel on CUDA tensors and the plain version on CPU tensors. It has
+    no autograd formula: `FusedAttention` is the differentiable path."""
+    return attention_fwd(theta, phi, g)
+
+
+@attention_fwd_op.register_fake
+def _attention_fwd_shapes(theta, phi, g):
+    """out [B, N, Cg] in the input type, mx and den [B, N, 1] f32, for any
+    (symbolic) B. Builds and checks nothing: tracing may run without a
+    card."""
+    b, n = theta.shape[0], theta.shape[1]
+    return (theta.new_empty((b, n, g.shape[2])),
+            theta.new_empty((b, n, 1), dtype=torch.float32),
+            theta.new_empty((b, n, 1), dtype=torch.float32))
+
+
 def attention_bwd(theta, phi, g, dout, mx, den):
     """(dtheta, dphi f32, dg f32): the two CUDA backward kernels on CUDA
     tensors, the plain version on CPU tensors."""
@@ -201,7 +233,10 @@ def fused_attention(theta, phi, g):
     """softmax(theta @ phi^T) @ g: through the kernels (`FusedAttention`)
     on CUDA tensors, through the differentiable `reference_attention` on
     CPU tensors, as the JAX package picks its einsum reference off the
-    TPU."""
+    TPU. Under `torch.export` tracing, through the registered operator, so
+    that the traced program picks its device when it runs."""
+    if torch.compiler.is_exporting():
+        return attention_fwd_op(theta, phi, g)[0]
     if _on_cpu(theta, phi, g):
         _check_operands(theta, phi, g)  # What the kernels would take.
         return reference_attention(theta, phi, g)

@@ -239,3 +239,55 @@ def test_data_parallel_phase_sorts_every_state_entry_into_a_kind():
     gaps = chip_smoke._state_gaps(broken, keys, init)
     assert [k for k, g in gaps.items() if g["ratio"] > 1] == [
         "params", "adam_mu"]
+
+
+def _main_function():
+    import ast
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    return next(node for node in tree.body
+                if isinstance(node, ast.FunctionDef) and node.name == "main")
+
+
+def test_serving_phase_runs_after_the_eval_inside_the_model_dir():
+    """main() times the serving phase on the BigGAN-128 model_dir right
+    after its eval (which writes the accumulator-filled checkpoint the
+    phase serves) and before the model_dir is removed; its launches join
+    the kernels line."""
+    import ast
+    main = _main_function()
+    block = next(node for node in main.body if isinstance(node, ast.Try))
+    phases = [call.args[0].value for call in ast.walk(ast.Module(
+        body=block.body, type_ignores=[])) if isinstance(call, ast.Call)
+        and getattr(call.func, "id", None) == "timed"]
+    assert phases[:3] == ["train", "eval", "serving"]
+    serving = next(call for call in ast.walk(ast.Module(
+        body=block.body, type_ignores=[])) if isinstance(call, ast.Call)
+        and getattr(call.func, "id", None) == "timed"
+        and call.args[0].value == "serving")
+    assert [ast.unparse(a) for a in serving.args[1:]] == [
+        "run_serving", "torch", "biggan"]
+    assert "shutil.rmtree(model_dir" in ast.unparse(block.finalbody[0])
+    assert chip_smoke.SERVING_MODEL_MODULES == (
+        "compare_gan_torch.architectures", "compare_gan_torch.gans",
+        "compare_gan_torch.config")
+    assert chip_smoke.SERVING_BYTES_RATIO == 1.25
+
+
+def test_the_last_two_lines_are_the_kernels_and_the_device():
+    """main() ends by printing the kernels line (its two entries, every
+    key of the contract) and then {"ok": true, "device": {...}}."""
+    import ast
+    main = _main_function()
+    prints = [node.value for node in main.body
+              if isinstance(node, ast.Expr) and isinstance(node.value,
+                                                           ast.Call)
+              and getattr(node.value.func, "id", None) == "print"]
+    kernels, ok = (ast.unparse(p) for p in prints[-2:])
+    assert kernels.startswith("print(json.dumps({'kernels': [")
+    for key in ("name", "route", "source", "replaces", "launches"):
+        assert f"'{key}'" in kernels
+    assert "for k in ('fwd', 'bwd')" in kernels
+    assert ok == ("print(json.dumps({'ok': True, 'device': {'platform': "
+                  "'gpu', 'kind': torch.cuda.get_device_name(0), 'count': "
+                  "torch.cuda.device_count()}}))")

@@ -42,6 +42,24 @@ def load_jax(module, prefix, params, state=None):
             t.copy_(interop.to_port(have[k]))
 
 
+def filled_accumulators(state, seed):
+    """A JAX state tree with its BN accumulators as a fill leaves them
+    (sums over 2 batches, switch off), so that eval-mode BN normalizes by
+    statistics of the scale of the activations, not by the init's zeros."""
+    import jax.numpy as jnp
+    rng = np.random.RandomState(seed)
+    out = {}
+    for k, v in state.items():
+        if k.endswith("accu_counter"):
+            v = jnp.float32(2.0)
+        elif k.endswith("accu_mean"):
+            v = jnp.asarray(0.2 * rng.randn(*v.shape), jnp.float32)
+        elif k.endswith("accu_variance"):
+            v = jnp.asarray(2.0 + rng.rand(*v.shape), jnp.float32)
+        out[k] = v
+    return out
+
+
 # Biases followed directly by a batch norm in a 3-block G (BigGAN-32 and
 # ResNet-CIFAR name them alike: bn2 of each block reads up_conv1; the last
 # block's output goes to final_norm): their exact gradient is zero.
