@@ -16,7 +16,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    shape (G after B4 at batch 64, f32: eval samples z in f32 and
    `compute_dtype` does not apply); S3GAN's D shape (batch 38) and
    BigGAN-deep's (G after B8 and D after B2: C = 32, Cg = 128) in both
-   types, and BigGAN-deep's eval forward (batch 64, f32). Prints each
+   types, and BigGAN-deep's eval forward (batch 64, f32); and the
+   convergence configurations' f32 shapes (BigGAN-128's G after B4 at its
+   sub-step batch of 16; S3GAN-32's D after B1 on 152 rows of 16x16).
+   Prints each
    tensor's max abs and
    relative error with its tolerance; the time per call of the kernel, of
    the plain version and of the library call that computes the same
@@ -158,12 +161,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    bitwise; prints both times. Then eval_after_train of the re-imported
    model_dir at the eval phase's cut on 100 real validation images (the
    registry's 50,000 cut to 100), with the eval phase's checks.
-14. Prints the eval shape's forward row, the S3GAN D shape's bf16 row and
+14. Convergence tools: the port's convergence-proof tools
+   (compare_gan_torch/tools) on short runs of the two convergence
+   configurations as published (f32), on small polygon sets written by
+   compare_gan_torch.polygons: BigGAN-128 at full width
+   (biggan128_polygons_multiclass.gin, batch 16; 256 train and 128 test
+   images at 128 px) for 24 steps with checkpoints at 12 and 24 and the
+   EMA from step 4, then eval_ema_vs_raw at a fill of 256 samples (both
+   rows' FIDs finite and EMA != raw, 24 forward launches), fid_anchors
+   (real-vs-real below real-vs-noise) and tb_scalars (the event files and
+   the JSONL rows give the same series, tag by tag); S3GAN-32
+   (s3gan32_polygons_partial_oriented.gin, batch 64) for 24 steps, then
+   s3gan_predictor_eval (a row per checkpoint, accuracy in [0, 1], 12
+   forward launches) and rotation_probe (oriented test accuracy above the
+   invariant one). Each run's launches are exact: 6 forward and 4
+   backward a BigGAN-128 step, 3 and 3 an S3GAN-32 step.
+15. Prints the eval shape's forward row, the S3GAN D shape's bf16 row and
    the BigGAN-deep rows as JSON lines of their own (`eval_shape_forward
    {...}`, `s3gan_shape {...}`, one `biggan_deep_shape {...}` per type and
    the eval forward: tolerances, SDPA backend, times, bound and share),
    the BigGAN-deep eval, G/D-task, data-parallel, TF-format and serving
-   summaries,
+   summaries, the convergence shapes (`convergence_shape {...}`) and the
+   convergence tools' summary (`convergence_tools {...}`),
    each phase's seconds, then
    one JSON line describing each kernel ("ms",
    "plain_ms", "library_ms", "bound_ms": one call at each bf16 training
@@ -199,6 +218,13 @@ S3GAN_SHAPE = ("D_B1_s3gan", (S3GAN_D_ROWS, 4096, 1024, 12, 48))
 DEEP_SHAPE = ("deep_B8_B2", (32, 4096, 1024, 32, 128))
 DEEP_EVAL_SHAPE = ("deep_G_B8_eval", (64, 4096, 1024, 32, 128))
 DEEP_PARAMS = (50244484, 34590210)
+# The convergence configurations as published, in f32: BigGAN-128
+# (biggan128_polygons_multiclass.gin) runs G after B4 at its sub-step
+# batch of 16 (D after B1 on 32 rows is SHAPES' f32 row); S3GAN-32
+# (s3gan32_polygons_partial_oriented.gin, batch 64) has attention in D
+# only, after B1 at 16x16 (N 256, M 64) on 2 * 64 + 2 * 3 * 4 = 152 rows.
+CONVERGENCE_SHAPES = (("G_B4_b16", (16, 4096, 1024, 24, 96)),
+                      ("D_B1_s3gan32", (152, 256, 64, 24, 96)))
 DEEP_BINDINGS = ("options.architecture = 'resnet_biggan_deep_arch'",
                  "options.z_dim = 128")
 # The eval tasks of the two eval phases that add tasks (class names of
@@ -391,14 +417,17 @@ def _cases():
     for dtype_name in ("float32", "bfloat16"):
         yield DEEP_SHAPE + (dtype_name, True, False)
     yield DEEP_EVAL_SHAPE + ("float32", False, False)
+    for shape in CONVERGENCE_SHAPES:
+        yield shape + ("float32", True, False)
 
 
 def compare_kernels(torch):
     """Kernel vs plain version per shape and type. Returns per kernel its
     max abs error over every case, and times and bounds summed over the
     bf16 training shapes; the eval shape's forward row; the S3GAN D
-    shape's bf16 row (forward and backward); and the BigGAN-deep rows
-    (each type's forward and backward at batch 32, the eval forward)."""
+    shape's bf16 row (forward and backward); the BigGAN-deep rows (each
+    type's forward and backward at batch 32, the eval forward); and the
+    convergence configurations' f32 rows."""
     _phase("kernels")
     from compare_gan_torch.ops import fused_attention as fa
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -407,7 +436,7 @@ def compare_kernels(torch):
                   "library_ms": 0.0, "bound_ms": 0.0, "bound_by": ""}
               for k in ("fwd", "bwd")}
     eval_row = s3gan_row = None
-    deep_rows = []
+    deep_rows, convergence_rows = [], []
     for name, (b, n, m, c, cg), dtype_name, with_bwd, summed in _cases():
         dtype = getattr(torch, dtype_name)
         tol = TOL[dtype_name]
@@ -514,9 +543,12 @@ def compare_kernels(torch):
         if (name, shape) in (DEEP_SHAPE, DEEP_EVAL_SHAPE):
             deep_rows.append(deep_shape_row(name, b, dtype_name, backend,
                                             rows, issued))
+        if (name, shape) in CONVERGENCE_SHAPES:
+            convergence_rows.append(deep_shape_row(name, b, dtype_name,
+                                                   backend, rows, issued))
         del q, k, v, theta, phi, g, dout, out, mx, den, p_mx, p_den
         torch.cuda.empty_cache()
-    return result, eval_row, s3gan_row, deep_rows
+    return result, eval_row, s3gan_row, deep_rows, convergence_rows
 
 
 def deep_shape_row(name, b, dtype_name, backend, rows, issued):
@@ -1745,6 +1777,207 @@ def run_tf_formats(torch, model_dir):
     return launches, summary
 
 
+# The "convergence tools" phase: the port's convergence-proof tools
+# (compare_gan_torch/tools) on short runs of the two convergence
+# configurations as published, on small polygon sets written here.
+CONV_STEPS, CONV_SAVE = 24, 12
+CONV_ACCU = 256  # The ema-vs-raw fill, cut from the config's 16,384.
+CONV_EMA_START = 4  # EMA from step 4 (the config's 1,000): EMA != raw.
+CONV_BIGGAN_SIZES = (256, 128, 128)  # train, test, holdout at 128 px
+CONV_S3GAN_SIZES = (1024, 256, 256)  # at 32 px, both probe sets
+CONV_PREDICTOR_EXAMPLES = 256
+CONV_PROBE = ("--n_train=1024", "--n_test=256", "--steps=200")
+# Attention launches a step of each configuration (f32, no joint G
+# forward): BigGAN-128 runs G after B4 in both D sub-steps and the G
+# sub-step, D after B1 in each (6 forward, 4 backward); S3GAN-32 runs D
+# after B1 in each sub-step (3 forward, 3 backward).
+CONV_BIGGAN_LAUNCHES = {"fwd": 6, "bwd": 4}
+CONV_S3GAN_LAUNCHES = {"fwd": 3, "bwd": 3}
+
+
+def _conv_train(torch, model_dir, config, extra, per_step):
+    """CONV_STEPS steps of `config` through the CLI, checkpoints every
+    CONV_SAVE; checks finite losses, the checkpoints and the launches."""
+    import numpy as np
+    from compare_gan_torch import checkpoint as ckpt_lib
+    from compare_gan_torch import config as gin
+    from compare_gan_torch import main
+    from compare_gan_torch.ops import fused_attention as fa
+    gin.clear_config()
+    fa.launches_fwd = fa.launches_bwd = 0
+    argv = [f"--model_dir={model_dir}", "--schedule=train", "--device=cuda",
+            f"--gin_config={os.path.join(ROOT, 'example_configs', config)}",
+            f"--gin_bindings=options.training_steps = {CONV_STEPS}",
+            "--gin_bindings=run_config.iterations_per_loop = 4",
+            f"--gin_bindings=run_config.save_checkpoints_steps = {CONV_SAVE}",
+            ] + [f"--gin_bindings={b}" for b in extra]
+    t0 = time.perf_counter()
+    report = main.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"fwd": fa.launches_fwd, "bwd": fa.launches_bwd}
+    expected = {k: v * CONV_STEPS for k, v in per_step.items()}
+    steps = [ckpt_lib.step_of(p) for p in ckpt_lib.all_checkpoints(model_dir)]
+    print(f"{config}: {CONV_STEPS} steps in {seconds:.2f} s, checkpoints "
+          f"{steps}, launches {launches} (expected {expected}), last "
+          f"losses {report.metrics[-1]}")
+    if not all(np.isfinite(v) for m in report.metrics for v in m.values()):
+        raise AssertionError(f"{config}: non-finite losses")
+    if steps != [0, CONV_SAVE, CONV_STEPS]:
+        raise AssertionError(f"{config}: checkpoints {steps}")
+    if launches != expected:
+        raise AssertionError(f"{config}: launches {launches} != {expected}")
+    if report.train_launches != launches:
+        raise AssertionError(f"{config}: the report's training launches "
+                             f"{report.train_launches} != {launches}")
+    return launches, {"seconds": seconds,
+                      "seconds_per_step": report.seconds_per_step}
+
+
+def _tool_launches(torch, fn, argv):
+    """A tool's main(argv) with the counters at 0: (result, launches)."""
+    from compare_gan_torch import config as gin
+    from compare_gan_torch.ops import fused_attention as fa
+    gin.clear_config()
+    fa.launches_fwd = fa.launches_bwd = 0
+    out = fn(argv + ["--device=cuda"])
+    torch.cuda.synchronize()
+    return out, {"fwd": fa.launches_fwd, "bwd": fa.launches_bwd}
+
+
+def run_convergence_tools(torch, model_dir):
+    """BigGAN-128 at full width (batch 16) and S3GAN-32 (batch 64) as
+    published, CONV_STEPS steps each, then every tool of
+    compare_gan_torch/tools that reads a run or a dataset on them."""
+    _phase("convergence tools")
+    import csv
+    import numpy as np
+    from compare_gan_torch import datasets, polygons
+    from compare_gan_torch.tools import (
+        eval_ema_vs_raw, fid_anchors, rotation_probe, s3gan_predictor_eval,
+        tb_scalars)
+    t0 = time.perf_counter()
+    data_dir = os.path.join(model_dir, "data")
+    polygons.write_multiclass128_npz_dataset(
+        data_dir, *CONV_BIGGAN_SIZES)
+    for write in (polygons.write_partial_oriented_npz_dataset,
+                  polygons.write_partial_npz_dataset):
+        write(data_dir, n_train=CONV_S3GAN_SIZES[0],
+              n_test=CONV_S3GAN_SIZES[1], n_holdout=CONV_S3GAN_SIZES[2])
+    summary = {"data_seconds": time.perf_counter() - t0}
+    saved = (datasets.DATA_DIR, dict(datasets.DATASETS),
+             os.environ.get("COMPARE_GAN_DATA_DIR"))
+    # The tools that read the .npz splits themselves take the environment's.
+    os.environ["COMPARE_GAN_DATA_DIR"] = datasets.DATA_DIR = data_dir
+    datasets.cut_eval_split("convex_polygons_multiclass_128",
+                            CONV_BIGGAN_SIZES[1])
+    datasets.cut_eval_split("convex_polygons_partial_oriented",
+                            CONV_S3GAN_SIZES[1])
+    runs = []
+    try:
+        biggan = os.path.join(model_dir, "biggan128")
+        config = "biggan128_polygons_multiclass.gin"
+        launches, summary["biggan128_train"] = _conv_train(
+            torch, biggan, config,
+            [f"ModularGAN.ema_start_step = {CONV_EMA_START}"],
+            CONV_BIGGAN_LAUNCHES)
+        runs.append(launches)
+
+        # EMA against raw G at a cut fill: 2 checkpoints x 2 views x
+        # (fill batches + sampled batches) forward launches, G's B4 only.
+        out = os.path.join(model_dir, "ema_vs_raw.csv")
+        t0 = time.perf_counter()
+        _, launches = _tool_launches(torch, eval_ema_vs_raw.main, [
+            f"--model_dir={biggan}", "--gin_config",
+            os.path.join(ROOT, "example_configs", config), "--gin_bindings",
+            f"evaluation.num_accu_examples = {CONV_ACCU}", f"--out={out}"])
+        runs.append(launches)
+        with open(out, newline="") as f:
+            rows = [{k: float(v) for k, v in r.items()}
+                    for r in csv.DictReader(f)]
+        per_view = CONV_ACCU // EVAL_BATCH + -(-CONV_BIGGAN_SIZES[1]
+                                               // EVAL_BATCH)
+        expected = {"fwd": 2 * 2 * per_view, "bwd": 0}
+        print(f"ema_vs_raw {rows} in {time.perf_counter() - t0:.2f} s, "
+              f"launches {launches} (expected {expected})")
+        if [r["step"] for r in rows] != [CONV_SAVE, CONV_STEPS] or not all(
+                np.isfinite(r["fid_ema"]) and np.isfinite(r["fid_raw"])
+                and r["fid_ema"] != r["fid_raw"] for r in rows):
+            raise AssertionError(f"ema_vs_raw rows {rows}")
+        if launches != expected:
+            raise AssertionError(f"ema_vs_raw launches {launches} != "
+                                 f"{expected}")
+        summary["ema_vs_raw"] = {"rows": rows, "launches": launches,
+                                 "seconds": time.perf_counter() - t0}
+
+        t0 = time.perf_counter()
+        anchors, _ = _tool_launches(torch, fid_anchors.main, [
+            "--dataset=convex_polygons_multiclass_128",
+            f"--max_per_split={CONV_BIGGAN_SIZES[1]}"])
+        print(f"fid_anchors {anchors} in {time.perf_counter() - t0:.2f} s")
+        if not 0 <= anchors["real_vs_real"] < anchors["real_vs_noise"]:
+            raise AssertionError(f"anchors {anchors}")
+        summary["anchors"] = anchors
+
+        same, tags = tb_scalars.forms_agree(biggan)
+        print(f"tb_scalars: event files and JSONL rows "
+              f"{'agree' if same else 'DIFFER'} on tags {tags}")
+        if not same or "loss/d_0" not in tags:
+            raise AssertionError("event and JSONL series differ")
+        csv_dir = os.path.join(model_dir, "loss_traces")
+        tb_scalars.main([f"--model_dir={biggan}", f"--out_dir={csv_dir}"])
+        summary["tb_scalars"] = {"tags": tags,
+                                 "csvs": sorted(os.listdir(csv_dir))}
+
+        s3gan = os.path.join(model_dir, "s3gan32")
+        config = "s3gan32_polygons_partial_oriented.gin"
+        launches, summary["s3gan32_train"] = _conv_train(
+            torch, s3gan, config, [], CONV_S3GAN_LAUNCHES)
+        runs.append(launches)
+        rows, launches = _tool_launches(torch, s3gan_predictor_eval.main, [
+            f"--model_dir={s3gan}", "--gin_config",
+            os.path.join(ROOT, "example_configs", config),
+            f"--num_examples={CONV_PREDICTOR_EXAMPLES}",
+            f"--out_csv={os.path.join(model_dir, 'predictor.csv')}"])
+        runs.append(launches)
+        # D (one attention block) on every whole batch of every checkpoint.
+        expected = {"fwd": 3 * (CONV_PREDICTOR_EXAMPLES // EVAL_BATCH),
+                    "bwd": 0}
+        accs = [float(r["predictor_accuracy"]) for r in rows]
+        print(f"s3gan_predictor_eval {rows}, launches {launches} "
+              f"(expected {expected})")
+        if [r["step"] for r in rows] != [0, CONV_SAVE, CONV_STEPS] or not \
+                all(0.0 <= a <= 1.0 for a in accs):
+            raise AssertionError(f"predictor rows {rows}")
+        if launches != expected:
+            raise AssertionError(f"predictor launches {launches} != "
+                                 f"{expected}")
+        summary["predictor_accuracy"] = accs
+
+        t0 = time.perf_counter()
+        probe, _ = _tool_launches(torch, rotation_probe.main, [
+            "--datasets", "convex_polygons_partial",
+            "convex_polygons_partial_oriented", *CONV_PROBE])
+        invariant, oriented = (r["test_accuracy"] for r in probe)
+        print(f"rotation_probe test accuracy: invariant {invariant:.4f}, "
+              f"oriented {oriented:.4f} ({time.perf_counter() - t0:.2f} s)")
+        if not oriented > invariant:
+            raise AssertionError(f"probe {probe}")
+        summary["probe"] = {"invariant": invariant, "oriented": oriented}
+    finally:
+        datasets.DATA_DIR = saved[0]
+        datasets.DATASETS.clear()
+        datasets.DATASETS.update(saved[1])
+        if saved[2] is None:
+            del os.environ["COMPARE_GAN_DATA_DIR"]
+        else:
+            os.environ["COMPARE_GAN_DATA_DIR"] = saved[2]
+        shutil.rmtree(model_dir, ignore_errors=True)
+    launches = {k: sum(r[k] for r in runs) for k in ("fwd", "bwd")}
+    summary["launches"] = launches
+    return launches, summary
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "compare_gan_torch")):
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -1755,7 +1988,8 @@ def main():
     t_start = time.perf_counter()
     check_device(torch)
     build_kernels()
-    kernels, eval_row, s3gan_row, deep_rows = compare_kernels(torch)
+    kernels, eval_row, s3gan_row, deep_rows, convergence_rows = \
+        compare_kernels(torch)
     model_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     runs, seconds = {}, {}
 
@@ -1800,6 +2034,9 @@ def main():
         runs["tf_formats"], tf_formats = timed(
             "tf_formats", run_tf_formats, torch,
             os.path.join(model_dir, "tf_formats"))
+        runs["convergence_tools"], convergence_tools = timed(
+            "convergence_tools", run_convergence_tools, torch,
+            os.path.join(model_dir, "convergence_tools"))
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
     launches = {k: sum(r[k] for r in runs.values()) for k in ("fwd", "bwd")}
@@ -1825,6 +2062,12 @@ def main():
     print("study_zoo " + json.dumps(study_zoo))
     print("data_parallel " + json.dumps(data_parallel))
     print("tf_formats " + json.dumps(tf_formats))
+    # The convergence configurations' f32 shapes, with the launches of the
+    # phase's runs and tools that ran them (the counters count calls).
+    for row in convergence_rows:
+        row["phase_launches"] = convergence_tools["launches"]
+        print("convergence_shape " + json.dumps(row))
+    print("convergence_tools " + json.dumps(convergence_tools))
     print("serving " + json.dumps(serving))
     seconds["total"] = time.perf_counter() - t_start
     print("phase_seconds " + json.dumps(seconds))

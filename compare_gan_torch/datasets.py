@@ -1162,6 +1162,19 @@ DATASETS: Dict[str, Callable] = {
 }
 
 
+def cut_eval_split(name, num):
+    """Register `name` again with `num` eval samples: a polygon set
+    written with a test split smaller than the published one."""
+    ctor = DATASETS[name]
+
+    def cut(seed):
+        ds = ctor(seed)
+        ds._eval_test_samples = num
+        return ds
+
+    DATASETS[name] = cut
+
+
 @gin.configurable("dataset")
 def get_dataset(name, seed=547) -> ImageDatasetV2:
     """Gin key `dataset.name` (reference get_dataset, datasets.py:643-648).

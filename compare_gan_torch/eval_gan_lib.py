@@ -171,13 +171,15 @@ def _make_sampler(gan, ts, draw: Callable):
 def evaluate_checkpoint(gan, checkpoint_path, eval_tasks, batch_size=64,
                         num_averaging_runs=1, num_accu_examples=204800,
                         draw=None, ts=None, cache: Optional[EvalCache] = None,
-                        log: Optional[PhaseLog] = None) -> Dict[str, float]:
+                        log: Optional[PhaseLog] = None,
+                        export_accu_checkpoint=True) -> Dict[str, float]:
     """Evaluate one checkpoint (reference evaluate_tfhub_module,
     eval_gan_lib.py:95-212). Returns {metric_{mean,std,list}: value}.
     `ts`, when given, is the checkpoint already restored (it is changed in
     place); `cache` carries the restore template and the real features
     from one checkpoint to the next; `log` gets each phase's seconds and
-    peak memory."""
+    peak memory. Without `export_accu_checkpoint` the filled state is not
+    saved to `<model_dir>/tfhub/<step>`."""
     cache = cache if cache is not None else EvalCache()
     if ts is None:
         ts = restored_state(gan, checkpoint_path, cache)
@@ -185,7 +187,8 @@ def evaluate_checkpoint(gan, checkpoint_path, eval_tasks, batch_size=64,
                      num_averaging_runs=num_averaging_runs,
                      num_accu_examples=num_accu_examples,
                      checkpoint_path=checkpoint_path, draw=draw,
-                     cache=cache, log=log)
+                     cache=cache, log=log,
+                     export_accu_checkpoint=export_accu_checkpoint)
 
 
 def evaluate_tfhub_module(export_dir, eval_tasks, dataset=None,
@@ -290,10 +293,11 @@ def _gan_tasks(gan, eval_tasks):
 def _evaluate(gan, ts, eval_tasks, batch_size, num_averaging_runs,
               num_accu_examples, checkpoint_path, draw=None,
               cache: Optional[EvalCache] = None,
-              log: Optional[PhaseLog] = None) -> Dict[str, float]:
+              log: Optional[PhaseLog] = None,
+              export_accu_checkpoint=True) -> Dict[str, float]:
     """Fill, then (with tasks) sample, featurize and score. With a
-    `checkpoint_path`, the filled TrainState is saved to
-    `<model_dir>/tfhub/<step>`."""
+    `checkpoint_path` and `export_accu_checkpoint`, the filled TrainState
+    is saved to `<model_dir>/tfhub/<step>`."""
     np.random.seed(42)
     dataset = gan.dataset
     device = gan.device
@@ -311,7 +315,7 @@ def _evaluate(gan, ts, eval_tasks, batch_size, num_averaging_runs,
     with log.phase("fill", device):
         had_accus = _update_bn_accumulators(gan, ts, batch_size,
                                             num_accu_examples, draw)
-    if had_accus and checkpoint_path is not None:
+    if had_accus and checkpoint_path is not None and export_accu_checkpoint:
         step = ckpt_lib.step_of(checkpoint_path)
         with log.phase("save_accu", device):
             ckpt_lib.save_checkpoint(

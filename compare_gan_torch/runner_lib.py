@@ -55,6 +55,7 @@ from compare_gan_torch import export
 from compare_gan_torch import hooks as hooks_lib
 from compare_gan_torch import summaries as summaries_lib
 from compare_gan_torch.metrics import fid_score, inception_score
+from compare_gan_torch.ops import fused_attention
 from compare_gan_torch.parallel import mesh_utils
 
 logger = logging.getLogger(__name__)
@@ -205,12 +206,18 @@ class TrainReport:
     model_dir was already trained, and after an eval schedule, which
     restores checkpoints into it); per host sync, the step reached, the
     wall seconds per step of that loop (device work included) and the mean
-    losses; per evaluated checkpoint, a record from
+    losses; of the training phase as a whole (set-up, checkpoints and
+    summaries included; 0 when nothing was trained), its wall seconds,
+    the device's peak allocated bytes and the attention kernels'
+    launches; per evaluated checkpoint, a record from
     `evaluate_and_record_checkpoint`."""
     state: object = None
     steps: List[int] = dataclasses.field(default_factory=list)
     seconds_per_step: List[float] = dataclasses.field(default_factory=list)
     metrics: List[Dict[str, float]] = dataclasses.field(default_factory=list)
+    train_seconds: float = 0.0
+    train_peak_bytes: int = 0
+    train_launches: Dict[str, int] = dataclasses.field(default_factory=dict)
     evals: List[Dict] = dataclasses.field(default_factory=list)
 
 
@@ -234,6 +241,13 @@ def train(gan, run_config: RunConfig, task_manager: TaskManager,
     latest = ckpt_lib.latest_checkpoint(model_dir)
     if latest and ckpt_lib.step_of(latest) >= max_steps:
         return report  # Nothing to do; the device is never touched.
+    cuda = gan.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(gan.device)
+        torch.cuda.reset_peak_memory_stats(gan.device)
+    t_start = time.perf_counter()
+    launches_start = (fused_attention.launches_fwd,
+                      fused_attention.launches_bwd)
 
     seed = (547 if run_config.tf_random_seed is None
             else run_config.tf_random_seed)
@@ -277,7 +291,7 @@ def train(gan, run_config: RunConfig, task_manager: TaskManager,
     image_summaries_failed = False
 
     step = start_step
-    if gan.device.type == "cuda":
+    if cuda:
         torch.cuda.synchronize(gan.device)  # Set-up is not a step's time.
     loops = 0
     try:
@@ -319,7 +333,7 @@ def train(gan, run_config: RunConfig, task_manager: TaskManager,
                         image_summaries_failed = True
                         logger.exception(
                             "Image summary at step %d failed; training goes "
-                            "on without image summaries.", step)
+                            "on, and later failures are not logged.", step)
                 writer.mark_written(step)
             writer.flush()
             progress.report(step)
@@ -329,6 +343,13 @@ def train(gan, run_config: RunConfig, task_manager: TaskManager,
     finally:
         if writer is not None:
             writer.close()
+    if cuda:
+        torch.cuda.synchronize(gan.device)
+        report.train_peak_bytes = torch.cuda.max_memory_allocated(gan.device)
+    report.train_seconds = time.perf_counter() - t_start
+    report.train_launches = {
+        "fwd": fused_attention.launches_fwd - launches_start[0],
+        "bwd": fused_attention.launches_bwd - launches_start[1]}
     # The chief's last checkpoint is on disk before any worker goes on.
     mesh_utils.barrier(replicas)
     return report
@@ -346,14 +367,20 @@ def _write_image_summaries(writer, gan, ts, batch_size, step):
     """8x8 grid of fixed-z samples (reference fake_images grids,
     modular_gan.py:308-343): z from the GAN's own prior (`z` gin scope)
     under a fixed seed, so the same latents evolve across steps; labels
-    0, 1, 2, ... per cell."""
+    0, 1, 2, ... per cell. The grid is written whatever its pixels; then
+    FloatingPointError if any is not finite."""
     n = min(64, batch_size * gan.num_sub_steps)
     gen = torch.Generator(device=gan.device).manual_seed(SUMMARY_SEED)
     z = gan.z_generator([n, gan.z_dim], gen)
     labels = (torch.arange(n, device=gan.device) % gan.dataset.num_classes
               if gan.conditional else None)
-    images = gan.sample(ts, z, labels=labels)
-    writer.image_grid("fake_images", images.float().cpu().numpy(), step)
+    images = gan.sample(ts, z, labels=labels).float().cpu().numpy()
+    writer.image_grid("fake_images", images, step)
+    bad = images.size - int(np.isfinite(images).sum())
+    if bad:
+        raise FloatingPointError(
+            f"fake_images at step {step}: {bad} of {images.size} pixels "
+            "are not finite (written as 0)")
 
 
 def _default_eval_tasks():

@@ -3,10 +3,18 @@ compare_gan_tpu/summaries.py).
 
 The JAX package writes TensorBoard event files when TensorFlow is
 importable and falls back to `<model_dir>/summaries.jsonl` otherwise. The
-port writes the JSONL form only, with the fallback's keys: one line
-`{"step", "tag", "value", "time"}` per scalar and `{"step", "tag",
-"image_shape"}` per image grid (the grid's pixels are not stored).
-`tools/tb_scalars.py` reads either form.
+port writes both, without TensorFlow:
+
+* `events.out.tfevents.*`, in the layout `tf.summary` writes
+  (`tf_io/events.py`): a first event with the file version, then one event
+  per scalar (a rank-0 float32 tensor, plugin "scalars") and per image
+  grid (the string tensor [width, height, PNG], plugin "images");
+* `summaries.jsonl`, with the JAX fallback's keys: one line `{"step",
+  "tag", "value", "time"}` per scalar and `{"step", "tag", "image_shape"}`
+  per image grid (the grid's pixels are not stored).
+
+Both are flushed at the same points. `tools/tb_scalars.py` of either
+package reads both forms.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ import time
 import numpy as np
 
 from compare_gan_torch import utils
+from compare_gan_torch.tf_io import events
 
 
 class SummaryWriter:
@@ -29,6 +38,7 @@ class SummaryWriter:
         self._next_due = save_summary_steps
         os.makedirs(model_dir, exist_ok=True)
         self._jsonl = open(os.path.join(model_dir, "summaries.jsonl"), "a")
+        self._events = events.EventFileWriter(model_dir)
 
     def should_write(self, step: int) -> bool:
         """Is an image summary due at `step`? A pure predicate: the loop
@@ -44,8 +54,9 @@ class SummaryWriter:
         self._jsonl.write(json.dumps(record) + "\n")
 
     def scalar(self, tag: str, value, step: int) -> None:
-        self._write({"step": step, "tag": tag,
-                     "value": float(np.asarray(value)), "time": time.time()})
+        value, now = float(np.asarray(value)), time.time()
+        self._write({"step": step, "tag": tag, "value": value, "time": now})
+        self._events.write(events.scalar_event(tag, value, step, now))
 
     def scalars(self, metrics: dict, step: int) -> None:
         for tag, value in metrics.items():
@@ -62,9 +73,12 @@ class SummaryWriter:
                                 grid_shape=None if n < cells else grid_shape)
         self._write({"step": step, "tag": tag,
                      "image_shape": list(grid.shape)})
+        self._events.write(events.image_event(tag, grid, step))
 
     def flush(self) -> None:
         self._jsonl.flush()
+        self._events.flush()
 
     def close(self) -> None:
         self._jsonl.close()
+        self._events.close()

@@ -12,7 +12,8 @@ Messages (field numbers of tensorflow/core/{example,framework,protobuf}):
 * `GraphDef` {1: repeated NodeDef {1: name, 2: op, 5: map<string,
   AttrValue>}}, `AttrValue` {8: TensorProto, ...};
 * `TensorProto` {1: dtype, 2: tensor_shape, 4: tensor_content, 5: float_val,
-  6: double_val, 7: int_val, 10: int64_val, 11: bool_val, 13: half_val};
+  6: double_val, 7: int_val, 8: string_val, 10: int64_val, 11: bool_val,
+  13: half_val};
 * `TensorShapeProto` {2: repeated Dim {1: size}, 3: unknown_rank};
 * `BundleHeaderProto` {1: num_shards, 2: endianness, 3: VersionDef} and
   `BundleEntryProto` {1: dtype, 2: shape, 3: shard_id, 4: offset, 5: size,
@@ -35,6 +36,7 @@ VARINT, FIXED64, BYTES, FIXED32 = 0, 1, 2, 5
 
 # tensorflow/core/framework/types.proto
 DT_FLOAT, DT_DOUBLE, DT_INT32, DT_UINT8, DT_INT16, DT_INT8 = 1, 2, 3, 4, 5, 6
+DT_STRING = 7
 DT_INT64, DT_BOOL, DT_BFLOAT16, DT_UINT16 = 9, 10, 14, 17
 DT_HALF, DT_UINT32, DT_UINT64 = 19, 22, 23
 
@@ -236,10 +238,12 @@ def parse_tensor(buf: Buffer) -> np.ndarray:
     """A `TensorProto` as numpy, as `tf.make_ndarray` makes it: from
     `tensor_content` when present, else from the typed value field, a short
     list padded with its last value and an empty one all zeros. bfloat16
-    comes back widened to float32 (exact)."""
+    comes back widened to float32 (exact); strings as an object array of
+    bytes."""
     dtype, shape, content = 0, (), None
     values = {5: _Repeated("<f"), 6: _Repeated("<d"), 7: _Repeated(),
               10: _Repeated(), 11: _Repeated(), 13: _Repeated()}
+    strings = []
     for field, wire, value in iter_fields(buf):
         if field == 1 and wire == VARINT:
             dtype = value
@@ -247,8 +251,14 @@ def parse_tensor(buf: Buffer) -> np.ndarray:
             shape = parse_tensor_shape(value) or ()
         elif field == 4 and wire == BYTES:
             content = value
+        elif field == 8 and wire == BYTES:
+            strings.append(bytes(value))
         elif field in values:
             values[field].add(wire, value)
+    if dtype == DT_STRING:
+        out = np.empty(len(strings), object)
+        out[:] = strings
+        return out.reshape(shape)
     if dtype not in NUMPY_DTYPES:
         raise DecodeError(f"unsupported tensor dtype {dtype}")
     np_dtype = NUMPY_DTYPES[dtype]
@@ -409,6 +419,10 @@ def field_bytes(field: int, value: Buffer) -> bytes:
 
 def field_fixed32(field: int, value: int) -> bytes:
     return _key(field, FIXED32) + int(value).to_bytes(4, "little")
+
+
+def field_double(field: int, value: float) -> bytes:
+    return _key(field, FIXED64) + struct.pack("<d", value)
 
 
 def encode_feature(value) -> bytes:

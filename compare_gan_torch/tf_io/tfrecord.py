@@ -4,8 +4,10 @@ A record is [length: u64 le][masked CRC32C of the length bytes: u32 le]
 [payload][masked CRC32C of the payload: u32 le]. TensorFlow masks a CRC as
 rotate-right-15 plus 0xa282ead8, and checks both on read.
 
-The port's readers are `datasets._py_iter_tfrecords` and the native library
-(`native.index_tfrecords` / `read_record`); this module writes. CRC32C runs
+The input pipeline reads records through `datasets._py_iter_tfrecords` and
+the native library (`native.index_tfrecords` / `read_record`); this module
+writes them, and `iter_records` reads a file with both checksums checked
+(event files, `tools/tb_scalars.py`). CRC32C runs
 in the native library when it is built; the pure-Python loop that stands in
 for it otherwise is meant for small inputs only (about 1 MB/s).
 """
@@ -13,7 +15,7 @@ for it otherwise is meant for small inputs only (about 1 MB/s).
 from __future__ import annotations
 
 import struct
-from typing import Iterable
+from typing import Iterable, Iterator
 
 from compare_gan_torch import native
 
@@ -76,3 +78,29 @@ def write_tfrecords(path: str, payloads: Iterable[bytes]) -> int:
             f.write(frame(payload))
             count += 1
     return count
+
+
+def iter_records(path: str, start: int = 0) -> Iterator[bytes]:
+    """The payloads of one TFRecord file from byte `start`, in order, with
+    both masked CRCs of every record checked, as TensorFlow's reader checks
+    them. Raises IOError on a checksum that does not match or a truncated
+    record."""
+    with open(path, "rb") as f:
+        f.seek(start)
+        while True:
+            header = f.read(12)
+            if not header:
+                return
+            if len(header) < 12:
+                raise IOError(f"{path}: truncated record header")
+            length, length_crc = struct.unpack("<QI", header)
+            if mask(crc32c(header[:8])) != length_crc:
+                raise IOError(f"{path}: corrupted record length")
+            body = f.read(length + 4)
+            if len(body) < length + 4:
+                raise IOError(f"{path}: truncated record")
+            payload = body[:length]
+            (payload_crc,) = struct.unpack("<I", body[length:])
+            if mask(crc32c(payload)) != payload_crc:
+                raise IOError(f"{path}: corrupted record payload")
+            yield payload

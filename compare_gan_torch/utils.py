@@ -68,9 +68,9 @@ def image_grid(images, grid_shape=None):
             .reshape(gh * h, gw * w, c))
 
 
-def write_png(path, image):
-    """Write a uint8 [H, W] or [H, W, C] (C in 1, 3, 4) array as an 8-bit
-    PNG, with zlib and no other dependency."""
+def encode_png(image) -> bytes:
+    """A uint8 [H, W] or [H, W, C] (C in 1-4) array as the bytes of an
+    8-bit PNG, with zlib and no other dependency."""
     import struct
     import zlib
 
@@ -78,7 +78,7 @@ def write_png(path, image):
     if arr.ndim == 2:
         arr = arr[:, :, None]
     h, w, c = arr.shape
-    color_type = {1: 0, 3: 2, 4: 6}[c]
+    color_type = {1: 0, 2: 4, 3: 2, 4: 6}[c]
     # Each scanline starts with filter type 0 (none).
     raw = np.concatenate([np.zeros((h, 1), np.uint8),
                           arr.reshape(h, w * c)], axis=1).tobytes()
@@ -88,12 +88,17 @@ def write_png(path, image):
         return (struct.pack(">I", len(data)) + body
                 + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
 
+    return b"".join((
+        b"\x89PNG\r\n\x1a\n",
+        chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)),
+        chunk(b"IDAT", zlib.compress(raw)),
+        chunk(b"IEND", b"")))
+
+
+def write_png(path, image):
+    """Write a uint8 [H, W] or [H, W, C] array as an 8-bit PNG."""
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type,
-                                           0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(raw)))
-        f.write(chunk(b"IEND", b""))
+        f.write(encode_png(image))
 
 
 def save_images(images, image_path):

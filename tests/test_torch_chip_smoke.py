@@ -291,3 +291,49 @@ def test_the_last_two_lines_are_the_kernels_and_the_device():
     assert ok == ("print(json.dumps({'ok': True, 'device': {'platform': "
                   "'gpu', 'kind': torch.cuda.get_device_name(0), 'count': "
                   "torch.cuda.device_count()}}))")
+
+
+@pytest.mark.parametrize("config,launches,shape", [
+    ("biggan128_polygons_multiclass.gin", "CONV_BIGGAN_LAUNCHES",
+     "G_B4_b16"),
+    ("s3gan32_polygons_partial_oriented.gin", "CONV_S3GAN_LAUNCHES",
+     "D_B1_s3gan32")])
+def test_convergence_phase_launches_are_those_of_the_configs(
+        tmp_path, monkeypatch, config, launches, shape):
+    """The "convergence tools" phase holds each run to an exact launch
+    count a step, and the kernels phase times the shapes those runs give
+    the kernels. Counted here on the CPU (the plain attention stands in
+    for the kernels) at ch 16 over two steps of each published config:
+    calls a step, calls that will be differentiated, and the batch of the
+    convergence shape among the calls' batches."""
+    from compare_gan_torch import config as tgin
+    from compare_gan_torch import datasets, main, polygons
+    from compare_gan_torch.ops import fused_attention
+    data_dir = str(tmp_path / "data")
+    polygons.write_multiclass128_npz_dataset(data_dir, n_train=16,
+                                             n_test=4, n_holdout=4)
+    polygons.write_partial_oriented_npz_dataset(data_dir, n_train=256,
+                                                n_test=4, n_holdout=4)
+    monkeypatch.setattr(datasets, "DATA_DIR", data_dir)
+    calls = []
+    plain = fused_attention.reference_attention
+
+    def counted(theta, phi, g):
+        out = plain(theta, phi, g)
+        calls.append((theta.shape[0], out.requires_grad))
+        return out
+
+    monkeypatch.setattr(fused_attention, "reference_attention", counted)
+    tgin.clear_config()
+    main.main([f"--model_dir={tmp_path / 'run'}", "--device=cpu",
+               f"--gin_config={os.path.join(REPO, 'example_configs', config)}",
+               "--gin_bindings=options.training_steps = 2",
+               "--gin_bindings=run_config.iterations_per_loop = 1",
+               "--gin_bindings=resnet_biggan.Generator.ch = 16",
+               "--gin_bindings=resnet_biggan.Discriminator.ch = 16"])
+    tgin.clear_config()
+    per_step = {"fwd": len(calls) // 2,
+                "bwd": sum(grad for _, grad in calls) // 2}
+    assert per_step == getattr(chip_smoke, launches)
+    batch = dict(chip_smoke.CONVERGENCE_SHAPES)[shape][0]
+    assert batch in {b for b, _ in calls}

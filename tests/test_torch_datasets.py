@@ -78,9 +78,8 @@ def test_polygon_set_equals_the_jax_package(tmp_path, monkeypatch):
 @pytest.mark.parametrize("generate", ["generate_multiclass_dataset",
                                       "generate_oriented_dataset"])
 def test_worker_pool_rasterizes_what_the_serial_path_does(generate):
-    """`n_workers=2` rasterizes in spawned processes (a fork of a process
-    with torch threads can deadlock): the images and labels are bitwise
-    those of the port's and the JAX package's serial paths."""
+    """`n_workers=2` rasterizes in worker threads: the images and labels
+    are bitwise those of the port's and the JAX package's serial paths."""
     kw = dict(n_instances=24, raster_dim=16, subpixel_res=4, seed=7)
     pooled = getattr(polygons, generate)(n_workers=2, **kw)
     serial = getattr(polygons, generate)(n_workers=0, **kw)

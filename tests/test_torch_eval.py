@@ -396,6 +396,47 @@ def test_train_writes_scalar_and_image_summaries(tmp_path):
         {"step": 2, "tag": "fake_images", "image_shape": [64, 96, 3]}]
 
 
+def test_train_report_carries_the_training_phase(tmp_path):
+    """The report's training phase: its wall seconds, no device peak on
+    the CPU, no attention launches (the CPU takes the plain version); a
+    second call on the trained model_dir trains nothing."""
+    tgin.parse_config("\n".join(BINDINGS))
+    run_config = runner_lib.RunConfig(
+        model_dir=str(tmp_path), iterations_per_loop=1,
+        save_checkpoints_steps=1, device="cpu")
+    args = ("train", run_config, runner_lib.TaskManager(str(tmp_path)),
+            runner_lib.get_options_dict())
+    report = runner_lib.run_with_schedule(*args)
+    assert report.train_seconds > 0
+    assert report.train_peak_bytes == 0
+    assert report.train_launches == {"fwd": 0, "bwd": 0}
+    again = runner_lib.run_with_schedule(*args)
+    assert (again.train_seconds, again.train_launches) == (0.0, {})
+
+
+def test_non_finite_image_grid_is_written_and_logged_once(
+        tmp_path, monkeypatch, caplog):
+    """A fixed-z grid with NaN pixels is still written (as 0), and the
+    first such grid is logged; training goes on."""
+    sample = modular_gan.ModularGAN.sample
+    monkeypatch.setattr(modular_gan.ModularGAN, "sample",
+                        lambda *a, **k: sample(*a, **k) * float("nan"))
+    tgin.parse_config("\n".join(BINDINGS))
+    run_config = runner_lib.RunConfig(
+        model_dir=str(tmp_path), iterations_per_loop=1,
+        save_checkpoints_steps=1, save_summary_steps=1, device="cpu")
+    with caplog.at_level("ERROR", logger=runner_lib.logger.name):
+        report = runner_lib.run_with_schedule(
+            "train", run_config, runner_lib.TaskManager(str(tmp_path)),
+            runner_lib.get_options_dict())
+    assert report.steps == [1, 2]
+    grids = [r for r in _rows(str(tmp_path)) if "image_shape" in r]
+    assert [r["step"] for r in grids] == [1, 2]
+    logged = [r for r in caplog.records if "Image summary" in r.message]
+    assert len(logged) == 1 and "step 1" in logged[0].message
+    assert "pixels are not finite" in logged[0].exc_text
+
+
 def test_cli_eval_after_train_writes_a_row_an_export_and_the_filled_state(
         tmp_path):
     """Train 2 steps, then eval every checkpoint past 0 with a fake

@@ -68,12 +68,12 @@ def _setup():
     tgin.clear_config()
 
 
-def _gans():
+def _gans(cfg=CFG):
     # The JAX side runs attention through its plain einsum reference here
     # (its CPU default); the Pallas kernel is held against the port in
     # test_torch_attention.py and test_torch_arch_ops.py.
-    jgin.parse_config(CFG + "attention.use_pallas = False\n")
-    tgin.parse_config(CFG)
+    jgin.parse_config(cfg + "attention.use_pallas = False\n")
+    tgin.parse_config(cfg)
     jgan = jmodular.ModularGAN(
         dataset=jdatasets.get_dataset("cifar10"), parameters=PARAMETERS,
         model_dir="unused")
@@ -90,8 +90,8 @@ def _batch(seed):
             "labels": rng.randint(0, 10, total).astype(np.int32)}
 
 
-def test_one_and_two_train_steps_match_jax():
-    jgan, tgan = _gans()
+def _one_and_two_train_steps_match_jax(cfg):
+    jgan, tgan = _gans(cfg)
     # Jitted on the JAX side: eager JAX compiles op by op, which is far
     # slower than compiling the one program.
     ts_j = jax.jit(lambda key: jgan.init_state(key, BATCH))(
@@ -117,6 +117,22 @@ def test_one_and_two_train_steps_match_jax():
         th.assert_train_states_close(ts_j, ts_t, metrics_j, metrics_t,
                                      lambda name: lr_steps(name, step),
                                      th.G_BN_FED_BIASES)
+
+
+def test_one_and_two_train_steps_match_jax():
+    _one_and_two_train_steps_match_jax(CFG)
+
+
+def test_one_and_two_train_steps_of_the_published_g_path_match_jax():
+    """As above on the path `biggan128_polygons_multiclass.gin` trains:
+    G sampled anew for each D sub-step, and G's loss from D on the real
+    batch as well as the fake one (both flags at their default)."""
+    cfg = (CFG.replace("experimental_joint_gen_for_disc = True",
+                       "experimental_joint_gen_for_disc = False")
+           .replace("experimental_fake_only_g_loss = True",
+                    "experimental_fake_only_g_loss = False"))
+    assert cfg.count("= False") == CFG.count("= False") + 2
+    _one_and_two_train_steps_match_jax(cfg)
 
 
 def test_adam_matches_optax_on_the_same_gradients():

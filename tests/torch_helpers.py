@@ -11,6 +11,15 @@ import torch
 torch.set_num_threads(1)
 
 
+def one_blas_thread():
+    """A context of one BLAS thread (threadpoolctl), for tests that take
+    FID's 2048x2048 matrix square roots: OpenBLAS's own threads spin while
+    the other xdist workers hold the cores, which made one such test 4x
+    slower on an 8-core host."""
+    from threadpoolctl import threadpool_limits
+    return threadpool_limits(limits=1, user_api="blas")
+
+
 def randn(shape, seed, scale=1.0):
     """float32 normal draws from numpy, for feeding both packages."""
     return (scale * np.random.RandomState(seed).randn(*shape)).astype(
