@@ -176,13 +176,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    forward launches) and rotation_probe (oriented test accuracy above the
    invariant one). Each run's launches are exact: 6 forward and 4
    backward a BigGAN-128 step, 3 and 3 an S3GAN-32 step.
-15. Prints the eval shape's forward row, the S3GAN D shape's bf16 row and
+15. Kernel trajectory: BigGAN-128 as published
+   (biggan128_polygons_multiclass.gin: full width, batch 16, f32) with
+   TF32 off, deterministic cuDNN, Adam's epsilon at 1e-3 and the
+   attention gates opened to TRAJ_GATE, trained TRAJ_STEPS steps four
+   times from one init on the same polygon batches and draws, the
+   attention each time another way: `reference_attention` on the CUDA
+   tensors, the same on operands rounded to the f32 kernels' own
+   precision (bf16 hi + lo parts), through the kernels, and through the
+   kernels fed bf16-rounded operands (a control). The first training
+   check through the kernels over more than one call: at every step the
+   kernel run's D and G loss gap to the plain run, and at the end its
+   weights' rms gap over the update, must be at most TRAJ_MARGIN times the
+   rounded plain run's (plus TRAJ_FLOOR for the losses); the control must
+   exceed that bound. Launches: 6 forward and 4 backward a step through
+   the kernels, none in the plain runs (a comparison: not counted as the
+   main path's).
+16. Prints the eval shape's forward row, the S3GAN D shape's bf16 row and
    the BigGAN-deep rows as JSON lines of their own (`eval_shape_forward
    {...}`, `s3gan_shape {...}`, one `biggan_deep_shape {...}` per type and
    the eval forward: tolerances, SDPA backend, times, bound and share),
    the BigGAN-deep eval, G/D-task, data-parallel, TF-format and serving
-   summaries, the convergence shapes (`convergence_shape {...}`) and the
-   convergence tools' summary (`convergence_tools {...}`),
+   summaries, the convergence shapes (`convergence_shape {...}`), the
+   convergence tools' summary (`convergence_tools {...}`), the trajectory
+   gaps and bound (`kernel_trajectory_gaps {...}`),
    each phase's seconds, then
    one JSON line describing each kernel ("ms",
    "plain_ms", "library_ms", "bound_ms": one call at each bf16 training
@@ -1978,6 +1995,199 @@ def run_convergence_tools(torch, model_dir):
     return launches, summary
 
 
+# Steps of the trajectory phase, and the attention gates (`sigma` of
+# each non-local block) it starts from. The recipe's gates start at 0, so
+# over the first steps the attention reaches the losses only through
+# sigma's own gradient: on an NVIDIA H100 80GB HBM3 at 700 W, bf16
+# operands moved the 5-step losses less (1.7e-4) than the plain attention
+# on hi + lo rounded operands did (8.8e-4), and over 10 and 30 steps every
+# perturbation reached the same gaps (at 30 steps all parted at steps
+# 13-15, as chaotic trajectories do). With the gates at TRAJ_GATE, as the
+# forward parity tests open them, the attention is in every loss from the
+# first step.
+TRAJ_STEPS = 5
+TRAJ_GATE = 0.5
+TRAJ_SIZES = (256, 48, 48)  # train, test, holdout at 128 px
+TRAJ_SEED = 547  # The CLI's default seed.
+# Adam's epsilon at 1e-3, as in the data-parallel phase: at the recipe's
+# 1e-8 with beta1 0, Adam's first update is lr * sign(gradient), so any
+# rounding flips the update of every entry whose gradient is rounding
+# noise (a bias feeding a batch norm) and a gap no longer grows with the
+# size of the perturbation.
+TRAJ_BINDINGS = ("tf.train.AdamOptimizer.epsilon = 1e-3",)
+# At every step the kernel run's loss gap to the plain run may be at most
+# TRAJ_MARGIN times that of the plain run on operands rounded to the f32
+# kernels' own precision (bf16 hi + lo parts), plus TRAJ_FLOOR (f32
+# rounding of an O(1) loss); so may its final weights' rms gap. The bound
+# is the spread that rounding at the kernels' precision grows to along
+# the same trajectory, measured in this run. The bf16 control must exceed
+# it at some step or in the weights.
+TRAJ_MARGIN = 8.0
+TRAJ_FLOOR = 1e-6
+
+
+def _round_hilo(torch, x):
+    """x rounded to what the f32 kernels multiply: a bf16 hi part plus a
+    bf16 lo part of the remainder."""
+    hi = x.to(torch.bfloat16).float()
+    return hi + (x - hi).to(torch.bfloat16).float()
+
+
+def _round_bf16(torch, x):
+    return x.to(torch.bfloat16).float()
+
+
+def _rounded_operands(torch, attend, rounding):
+    """`attend` on operands rounded by `rounding`, gradients passed
+    straight through the rounding."""
+    def fn(theta, phi, g):
+        r = [x + (rounding(torch, x) - x).detach() for x in (theta, phi, g)]
+        return attend(*r)
+    return fn
+
+
+def _step_loss_gaps(run, ref):
+    """Each step's loss gap: the largest over the D and G losses of
+    |a - b| / max(|b|, 1) (a hinge loss may reach 0)."""
+    return [max(abs(a - b) / max(abs(b), 1.0) for a, b in zip(ra, rb))
+            for ra, rb in zip(run["losses"], ref["losses"])]
+
+
+def _trajectory_gaps(torch, run, ref, init):
+    """The per-step loss gaps (`_step_loss_gaps`) and the final weights'
+    rms gap over the rms of the reference's update."""
+    diff = upd = 0.0
+    for k, p in ref["params"].items():
+        diff += float(((run["params"][k] - p).double() ** 2).sum())
+        upd += float(((p - init[k]).double() ** 2).sum())
+    return {"loss_gaps": _step_loss_gaps(run, ref),
+            "rms_gap": (diff / upd) ** 0.5}
+
+
+def _within(gaps, bound):
+    """Every step's loss gap and the rms gap within `bound`."""
+    return all(g <= b for g, b in zip(gaps["loss_gaps"], bound["loss_gaps"])
+               ) and gaps["rms_gap"] <= bound["rms_gap"]
+
+
+def run_kernel_trajectory(torch, model_dir, steps=TRAJ_STEPS,
+                          gate=TRAJ_GATE, check=True):
+    """BigGAN-128 as published (biggan128_polygons_multiclass.gin, full
+    width, batch 16, f32; Adam's epsilon as TRAJ_BINDINGS) with its
+    attention gates at `gate`, for `steps` train steps with TF32 off and
+    deterministic cuDNN, four times from one init, on the same polygon
+    batches and the port's own draws: the attention through
+    `reference_attention` on the CUDA tensors, the same on operands rounded
+    to the f32 kernels' hi + lo precision, through the kernels, and through
+    the kernels fed bf16-rounded operands (a control). With `check`, the
+    kernel run must stay within the bound of TRAJ_MARGIN at every step and
+    in the final weights, and the control must not. Other `steps` and
+    `gate` with `check=False` give the longer and gate-closed runs that
+    PERF.md reports."""
+    _phase("kernel trajectory")
+    from compare_gan_torch import config as gin
+    from compare_gan_torch import datasets, interop, polygons, runner_lib
+    from compare_gan_torch.gans import modular_gan  # noqa: F401
+    from compare_gan_torch.ops import fused_attention as fa
+    t0 = time.perf_counter()
+    data_dir = os.path.join(model_dir, "data")
+    polygons.write_multiclass128_npz_dataset(data_dir, *TRAJ_SIZES,
+                                             n_workers=8)
+    saved = (datasets.DATA_DIR, torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark, fa.fused_attention)
+    datasets.DATA_DIR = data_dir
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    kernel = fa.fused_attention
+    variants = {
+        "reference": fa.reference_attention,
+        "reference_hilo": _rounded_operands(torch, fa.reference_attention,
+                                            _round_hilo),
+        "kernel": kernel,
+        "kernel_bf16_operands": _rounded_operands(torch, kernel,
+                                                  _round_bf16)}
+    runs = {}
+    try:
+        gin.clear_config()
+        gin.parse_config_files_and_bindings([os.path.join(
+            ROOT, "example_configs", "biggan128_polygons_multiclass.gin")],
+            list(TRAJ_BINDINGS))
+        options = runner_lib.get_options_dict()
+        gan = options["gan_class"](
+            dataset=datasets.get_dataset(seed=TRAJ_SEED),
+            parameters=options, model_dir=model_dir, device="cuda")
+        batch_size = options["batch_size"]
+        init = {k: (torch.full_like(v, gate)
+                    if k.endswith("non_local_block/sigma']") else
+                    v.detach().cpu().clone()) for k, v in
+                interop.state_dict(gan.init_state(TRAJ_SEED)).items()}
+        batches = gan.input_batches(batch_size)
+        batches = [next(batches) for _ in range(steps)]
+        step = gan.make_train_step(batch_size)
+        for name, attend in variants.items():
+            ts = gan.init_state(TRAJ_SEED)  # Fresh optimizer states.
+            interop.load_state_dict(ts, init)
+            fa.fused_attention = attend
+            fa.launches_fwd = fa.launches_bwd = 0
+            t1 = time.perf_counter()
+            losses = []
+            for batch in batches:
+                ts, m = step(ts, batch)
+                losses.append([float(m[k]) for k in
+                               ("loss/d_0", "loss/d_1", "loss/g")])
+            torch.cuda.synchronize()
+            runs[name] = {
+                "losses": losses, "seconds": time.perf_counter() - t1,
+                "launches": {"fwd": fa.launches_fwd,
+                             "bwd": fa.launches_bwd},
+                "params": {k: v.detach().cpu().clone()
+                           for k, v in ts.params().items()}}
+            fa.fused_attention = kernel
+            print(f"{name}: {steps} steps in {runs[name]['seconds']:.2f}"
+                  f" s, launches {runs[name]['launches']}, losses at step "
+                  f"{steps} {losses[-1]}")
+    finally:
+        (datasets.DATA_DIR, torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark, fa.fused_attention) = saved
+        shutil.rmtree(data_dir, ignore_errors=True)
+    init = {k[len(".params['"):-2]: v for k, v in init.items()
+            if k.startswith(".params")}
+    ref = runs["reference"]
+    gaps = {name: _trajectory_gaps(torch, runs[name], ref, init)
+            for name in variants if name != "reference"}
+    hilo = gaps["reference_hilo"]
+    bound = {"loss_gaps": [TRAJ_MARGIN * g + TRAJ_FLOOR
+                           for g in hilo["loss_gaps"]],
+             "rms_gap": TRAJ_MARGIN * hilo["rms_gap"]}
+    summary = {
+        "steps": steps, "gate": gate, "margin": TRAJ_MARGIN,
+        "floor": TRAJ_FLOOR, "bound": bound, "gaps": gaps,
+        "within": {name: _within(g, bound) for name, g in gaps.items()},
+        "losses": {k: r["losses"] for k, r in runs.items()},
+        "launches": {k: r["launches"] for k, r in runs.items()},
+        "seconds": time.perf_counter() - t0,
+        "step_seconds": {k: r["seconds"] / steps for k, r in runs.items()}}
+    print("kernel_trajectory " + json.dumps(summary))
+    if not check:
+        return summary
+    expected = {k: v * steps for k, v in CONV_BIGGAN_LAUNCHES.items()}
+    for name in ("kernel", "kernel_bf16_operands"):
+        if runs[name]["launches"] != expected:
+            raise AssertionError(f"{name}: launches {runs[name]['launches']}"
+                                 f" != {expected}")
+    for name in ("reference", "reference_hilo"):
+        if runs[name]["launches"] != {"fwd": 0, "bwd": 0}:
+            raise AssertionError(f"{name} launched a kernel")
+    if not summary["within"]["kernel"]:
+        raise AssertionError(f"the kernels part from the reference over "
+                             f"{steps} steps beyond the bound {bound}: "
+                             f"{gaps['kernel']}")
+    if summary["within"]["kernel_bf16_operands"]:
+        raise AssertionError(f"the bound {bound} cannot tell bf16 operands "
+                             f"apart: {gaps['kernel_bf16_operands']}")
+    return summary
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "compare_gan_torch")):
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -2037,6 +2247,10 @@ def main():
         runs["convergence_tools"], convergence_tools = timed(
             "convergence_tools", run_convergence_tools, torch,
             os.path.join(model_dir, "convergence_tools"))
+        # A comparison of the kernels with the plain attention: its
+        # launches are not the main path's.
+        trajectory = timed("kernel_trajectory", run_kernel_trajectory,
+                           torch, os.path.join(model_dir, "trajectory"))
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
     launches = {k: sum(r[k] for r in runs.values()) for k in ("fwd", "bwd")}
@@ -2068,6 +2282,9 @@ def main():
         row["phase_launches"] = convergence_tools["launches"]
         print("convergence_shape " + json.dumps(row))
     print("convergence_tools " + json.dumps(convergence_tools))
+    print("kernel_trajectory_gaps " + json.dumps(
+        {k: trajectory[k] for k in ("steps", "gate", "margin", "floor",
+                                    "bound", "gaps", "within")}))
     print("serving " + json.dumps(serving))
     seconds["total"] = time.perf_counter() - t_start
     print("phase_seconds " + json.dumps(seconds))

@@ -4,6 +4,7 @@ and the convergence-proof tools on its model_dir.
 
     python3 tools/torch_convergence.py --run biggan128 --workdir DIR \
         --out_dir OUT [--training_steps N] [--inception_seed 0]
+    python3 tools/torch_convergence.py --run biggan32 ...
     python3 tools/torch_convergence.py --run s3gan_oriented ...
 
 Runs:
@@ -15,6 +16,11 @@ Runs:
   tags), `eval_ema_vs_raw` and the demo's per-class grids (on a module
   export of the first and last checkpoints with their filled BN
   accumulators).
+- `biggan32`: example_configs/biggan32_polygons_multiclass.gin as
+  published (conditional BigGAN-32, batch 64, f32, 8,000 steps, the
+  default 204,800-sample accumulator fill) on `convex_polygons_multiclass`
+  (60,000 / 10,000 / 10,000 images at 32 px, seed 0). Then the tools of
+  `biggan128`.
 - `s3gan_oriented`: example_configs/s3gan32_polygons_partial_oriented.gin
   as published (batch 64, 8,000 steps) on
   `convex_polygons_partial_oriented` (60,000 / 10,000 / 10,000, 20% of
@@ -63,6 +69,11 @@ RUNS = {
         "dataset": "convex_polygons_multiclass_128",
         "loss_tags": ["loss/d_0", "loss/d_1", "loss/g", "loss/penalty"],
     },
+    "biggan32": {
+        "config": "biggan32_polygons_multiclass.gin",
+        "dataset": "convex_polygons_multiclass",
+        "loss_tags": ["loss/d_0", "loss/d_1", "loss/g", "loss/penalty"],
+    },
     "s3gan_oriented": {
         "config": "s3gan32_polygons_partial_oriented.gin",
         "dataset": "convex_polygons_partial_oriented",
@@ -90,14 +101,16 @@ def write_datasets(run, data_dir, sizes, workers):
     kwargs = dict(n_workers=workers)
     if sizes:
         kwargs.update(zip(("n_train", "n_test", "n_holdout"), sizes))
-    writers = ({"convex_polygons_multiclass_128":
-                polygons.write_multiclass128_npz_dataset}
-               if run == "biggan128" else
-               # The probe's two sets; the run trains on the oriented one.
-               {"convex_polygons_partial_oriented":
-                polygons.write_partial_oriented_npz_dataset,
-                "convex_polygons_partial":
-                polygons.write_partial_npz_dataset})
+    writers = {
+        "biggan128": {"convex_polygons_multiclass_128":
+                      polygons.write_multiclass128_npz_dataset},
+        "biggan32": {"convex_polygons_multiclass":
+                     polygons.write_multiclass_npz_dataset},
+        # The probe's two sets; the run trains on the oriented one.
+        "s3gan_oriented": {"convex_polygons_partial_oriented":
+                           polygons.write_partial_oriented_npz_dataset,
+                           "convex_polygons_partial":
+                           polygons.write_partial_npz_dataset}}[run]
     for name, write in writers.items():
         if not all(os.path.exists(os.path.join(data_dir, name, f"{split}.npz"))
                    for split in ("train", "test", "holdout")):
@@ -266,7 +279,7 @@ def run_tools(torch, args, device, model_dir, out_dir, record):
                 shutil.copy(path, os.path.join(
                     out_dir, f"{name}_per_class_step{step:05d}.png"
                     if name == "samples" else f"{name}_step{step:05d}.png"))
-    if args.run == "biggan128":
+    if args.run in ("biggan128", "biggan32"):
         # The longest tool last: its CSV is rewritten after every
         # checkpoint, so a cut run keeps the rows done.
         tool("eval_ema_vs_raw", eval_ema_vs_raw.main, [
