@@ -120,10 +120,12 @@ def _rasterize_all(per_image_angles, scale, raster_dim, subpixel_res,
 def generate_dataset(n_instances: int, n_vertices: int = 3,
                      min_segment_angle: float = 20.0, scale: float = 0.75,
                      raster_dim: int = 28, subpixel_res: int = 8,
-                     shift_to_mean: bool = False, seed: int = 0):
+                     shift_to_mean: bool = False, seed: int = 0,
+                     n_workers: int = 0):
     """Returns (images [N, raster_dim, raster_dim, 1] float32 in [0, 1],
     labels [N] = n_vertices), shuffled — the notebook's GenerateDataset
-    surface."""
+    surface. `n_workers > 0` rasterizes across that many threads with
+    bit-identical output (rng drawing stays sequential)."""
     if n_vertices < 3:
         raise ValueError("Need more than 2 vertices.")
     if min_segment_angle > 360.0 / n_vertices:
@@ -133,10 +135,10 @@ def generate_dataset(n_instances: int, n_vertices: int = 3,
     if raster_dim <= 1:
         raise ValueError("Raster sidelength has to be greater than 1.")
     rng = np.random.RandomState(seed)
-    images = np.stack([
-        generate_convex_polygon(rng, n_vertices, min_segment_angle, scale,
-                                raster_dim, subpixel_res, shift_to_mean)
-        for _ in range(n_instances)])
+    angles = [_draw_vertex_angles(rng, n_vertices, min_segment_angle)
+              for _ in range(n_instances)]
+    images = _rasterize_all(angles, scale, raster_dim, subpixel_res,
+                            shift_to_mean, n_workers=n_workers)
     labels = np.full(n_instances, n_vertices, dtype=np.int8)
     ids = rng.permutation(n_instances)
     return images[ids, :, :, None], labels[ids]
@@ -337,3 +339,14 @@ def write_npz_dataset(data_dir: str, n_train: int = 60000,
     images, labels = generate_dataset(total, seed=seed, **kwargs)
     return _write_splits(os.path.join(data_dir, "convex_polygons"),
                          images, labels, n_train, n_test, n_holdout)
+
+
+# Each polygon set's writer, by its dataset name.
+WRITERS = {
+    "convex_polygons": write_npz_dataset,
+    "convex_polygons_multiclass": write_multiclass_npz_dataset,
+    "convex_polygons_multiclass_128": write_multiclass128_npz_dataset,
+    "convex_polygons_oriented": write_oriented_npz_dataset,
+    "convex_polygons_partial": write_partial_npz_dataset,
+    "convex_polygons_partial_oriented": write_partial_oriented_npz_dataset,
+}

@@ -10,6 +10,7 @@ import pytest
 from tests import torch_helpers  # noqa: F401 (one torch thread)
 
 from compare_gan_tpu import datasets as jdatasets
+from compare_gan_tpu import native as jnative
 from compare_gan_tpu import polygons as jpolygons
 from compare_gan_torch import config as tgin
 from compare_gan_torch import datasets, native, polygons
@@ -17,6 +18,11 @@ from compare_gan_torch import datasets, native, polygons
 
 @pytest.fixture(autouse=True)
 def _setup():
+    # Load the JAX package's native library before its pipeline threads
+    # do: its lazy loader is not thread-safe, and a thread that finds it
+    # half loaded converts uint8 to float on the numpy path (x / 255),
+    # one ulp off the native x * (1 / 255) for some values.
+    jnative.available()
     tgin.clear_config()
     yield
     for module in (datasets, jdatasets):
@@ -56,34 +62,49 @@ def test_fake_batches_equal_the_jax_package(name):
     _assert_same_batches(name, seed=547, batch_size=4, count=2)
 
 
-def test_polygon_set_equals_the_jax_package(tmp_path, monkeypatch):
-    """A small 32 px multiclass polygon set written by both packages'
-    generators is the same data, and both pipelines read it into the same
-    train and eval batches."""
+@pytest.mark.parametrize("writer, sub", [
+    ("write_multiclass_npz_dataset", "convex_polygons_multiclass"),
+    ("write_npz_dataset", "convex_polygons"),
+    ("write_oriented_npz_dataset", "convex_polygons_oriented"),
+    ("write_partial_npz_dataset", "convex_polygons_partial"),
+    ("write_partial_oriented_npz_dataset",
+     "convex_polygons_partial_oriented")])
+def test_polygon_set_equals_the_jax_package(writer, sub, tmp_path,
+                                            monkeypatch):
+    """A small polygon set of each kind the convergence proofs train on,
+    written by both packages' writers, is the same data (images, labels,
+    and the partial sets' unlabeled rows, -1), and both pipelines read it
+    into the same train and eval batches."""
     port_dir, ref_dir = tmp_path / "port", tmp_path / "ref"
     kw = dict(n_train=48, n_test=16, n_holdout=8, seed=3)
-    polygons.write_multiclass_npz_dataset(str(port_dir), **kw)
-    jpolygons.write_multiclass_npz_dataset(str(ref_dir), **kw)
-    sub = "convex_polygons_multiclass"
+    getattr(polygons, writer)(str(port_dir), **kw)
+    getattr(jpolygons, writer)(str(ref_dir), **kw)
     for split in ("train", "test", "holdout"):
         with np.load(port_dir / sub / f"{split}.npz") as a, \
                 np.load(ref_dir / sub / f"{split}.npz") as b:
             for k in ("images", "labels"):
+                assert a[k].dtype == b[k].dtype, (split, k)
                 assert np.array_equal(a[k], b[k]), (split, k)
+            unlabeled = a["labels"] == -1
+            if "partial" in sub and split == "train":
+                assert 0 < unlabeled.sum() < len(unlabeled)
+            else:
+                assert not unlabeled.any()
     monkeypatch.setattr(datasets, "DATA_DIR", str(port_dir))
     monkeypatch.setattr(jdatasets, "DATA_DIR", str(ref_dir))
     _assert_same_batches(sub, seed=5, batch_size=8, count=3, eval_batches=2)
 
 
 @pytest.mark.parametrize("generate", ["generate_multiclass_dataset",
-                                      "generate_oriented_dataset"])
+                                      "generate_oriented_dataset",
+                                      "generate_dataset"])
 def test_worker_pool_rasterizes_what_the_serial_path_does(generate):
     """`n_workers=2` rasterizes in worker threads: the images and labels
     are bitwise those of the port's and the JAX package's serial paths."""
     kw = dict(n_instances=24, raster_dim=16, subpixel_res=4, seed=7)
     pooled = getattr(polygons, generate)(n_workers=2, **kw)
     serial = getattr(polygons, generate)(n_workers=0, **kw)
-    reference = getattr(jpolygons, generate)(n_workers=0, **kw)
+    reference = getattr(jpolygons, generate)(**kw)  # Serial there.
     for got, want in ((pooled, serial), (pooled, reference)):
         for a, b in zip(got, want):
             assert a.dtype == b.dtype and np.array_equal(a, b)

@@ -6,6 +6,9 @@ and the convergence-proof tools on its model_dir.
         --out_dir OUT [--training_steps N] [--inception_seed 0]
     python3 tools/torch_convergence.py --run biggan32 ...
     python3 tools/torch_convergence.py --run s3gan_oriented ...
+    python3 tools/torch_convergence.py --run ssgan32 ...
+    python3 tools/torch_convergence.py --run dcgan28 ...
+    python3 tools/torch_convergence.py --run s3gan_partial ...
 
 Runs:
 
@@ -26,8 +29,22 @@ Runs:
   `convex_polygons_partial_oriented` (60,000 / 10,000 / 10,000, 20% of
   the train labels kept). Then `fid_anchors`, `tb_scalars`,
   `s3gan_predictor_eval` (test split, 2,048 examples), `rotation_probe`
-  on `convex_polygons_partial` against `convex_polygons_partial_oriented`
-  and the per-class grids.
+  on `convex_polygons_partial` against `convex_polygons_partial_oriented`,
+  the per-class grids and `eval_ema_vs_raw`.
+- `ssgan32`: example_configs/ssgan32_polygons_oriented.gin as published
+  (SSGAN on ResNet-CIFAR-32, batch 64, 6,000 steps, unconditional, no
+  EMA) on `convex_polygons_oriented` (60,000 / 10,000 / 10,000). Then
+  `fid_anchors`, `tb_scalars` (with `loss/rotation_accuracy`) and the
+  demo's plain grids, `samples_step<step>.png` as the JAX proofs name
+  theirs.
+- `dcgan28`: example_configs/dcgan_polygons28.gin as published (DCGAN,
+  non-saturating loss, batch 64, 10,000 steps, unconditional, no EMA) on
+  `convex_polygons` (60,000 / 10,000 / 10,000 triangles at 28 px). Then
+  the tools of `ssgan32`.
+- `s3gan_partial`: example_configs/s3gan32_polygons_partial.gin as
+  published (the degradation case: `s3gan_oriented`'s recipe on the
+  rot90-invariant `convex_polygons_partial`). Then the tools of
+  `s3gan_oriented`, `eval_ema_vs_raw` last.
 
 Every step goes through the entry points a user calls:
 `compare_gan_torch.main.main` with --schedule=eval_after_train
@@ -63,25 +80,65 @@ import traceback
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# Each run: its config, the dataset it trains on, the polygon sets it
+# needs (the trained set first), the loss tags it logs, and
+# what its tools need: a conditional G (per-class grids), S3GAN's label
+# predictor (the predictor eval and the rotation probe) and an EMA of G
+# (eval_ema_vs_raw).
 RUNS = {
     "biggan128": {
         "config": "biggan128_polygons_multiclass.gin",
         "dataset": "convex_polygons_multiclass_128",
+        "sets": ["convex_polygons_multiclass_128"],
         "loss_tags": ["loss/d_0", "loss/d_1", "loss/g", "loss/penalty"],
+        "conditional": True, "predictor": False, "ema": True,
     },
     "biggan32": {
         "config": "biggan32_polygons_multiclass.gin",
         "dataset": "convex_polygons_multiclass",
+        "sets": ["convex_polygons_multiclass"],
         "loss_tags": ["loss/d_0", "loss/d_1", "loss/g", "loss/penalty"],
+        "conditional": True, "predictor": False, "ema": True,
     },
     "s3gan_oriented": {
         "config": "s3gan32_polygons_partial_oriented.gin",
         "dataset": "convex_polygons_partial_oriented",
+        "sets": ["convex_polygons_partial_oriented",
+                 "convex_polygons_partial"],
         "loss_tags": ["loss/d_0", "loss/d_1", "loss/g",
                       "loss/class_loss_real",
                       "loss/rotation_accuracy_real"],
+        "conditional": True, "predictor": True, "ema": True,
+    },
+    "ssgan32": {
+        "config": "ssgan32_polygons_oriented.gin",
+        "dataset": "convex_polygons_oriented",
+        "sets": ["convex_polygons_oriented"],
+        "loss_tags": ["loss/d_0", "loss/d_1", "loss/g",
+                      "loss/c_real_loss", "loss/c_fake_loss",
+                      "loss/rotation_accuracy"],
+        "conditional": False, "predictor": False, "ema": False,
+    },
+    "dcgan28": {
+        "config": "dcgan_polygons28.gin",
+        "dataset": "convex_polygons",
+        "sets": ["convex_polygons"],
+        "loss_tags": ["loss/d_0", "loss/g", "loss/penalty"],
+        "conditional": False, "predictor": False, "ema": False,
+    },
+    "s3gan_partial": {
+        "config": "s3gan32_polygons_partial.gin",
+        "dataset": "convex_polygons_partial",
+        "sets": ["convex_polygons_partial",
+                 "convex_polygons_partial_oriented"],
+        "loss_tags": ["loss/d_0", "loss/d_1", "loss/g",
+                      "loss/class_loss_real",
+                      "loss/rotation_accuracy_real"],
+        "conditional": True, "predictor": True, "ema": True,
     },
 }
+# The rotation probe's two sets: rot90-invariant and oriented.
+PROBE_SETS = ("convex_polygons_partial", "convex_polygons_partial_oriented")
 
 
 def _card(device):
@@ -101,20 +158,10 @@ def write_datasets(run, data_dir, sizes, workers):
     kwargs = dict(n_workers=workers)
     if sizes:
         kwargs.update(zip(("n_train", "n_test", "n_holdout"), sizes))
-    writers = {
-        "biggan128": {"convex_polygons_multiclass_128":
-                      polygons.write_multiclass128_npz_dataset},
-        "biggan32": {"convex_polygons_multiclass":
-                     polygons.write_multiclass_npz_dataset},
-        # The probe's two sets; the run trains on the oriented one.
-        "s3gan_oriented": {"convex_polygons_partial_oriented":
-                           polygons.write_partial_oriented_npz_dataset,
-                           "convex_polygons_partial":
-                           polygons.write_partial_npz_dataset}}[run]
-    for name, write in writers.items():
+    for name in RUNS[run]["sets"]:
         if not all(os.path.exists(os.path.join(data_dir, name, f"{split}.npz"))
                    for split in ("train", "test", "holdout")):
-            write(data_dir, **kwargs)
+            polygons.WRITERS[name](data_dir, **kwargs)
 
 
 class Launches:
@@ -254,32 +301,35 @@ def run_tools(torch, args, device, model_dir, out_dir, record):
         f"--out_dir={os.path.join(out_dir, 'loss_traces')}",
         "--tags", *spec["loss_tags"]])
     record["events_match_jsonl"] = tb_scalars.forms_agree(model_dir)[0]
-    if args.run == "s3gan_oriented":
+    if spec["predictor"]:
         tool("s3gan_predictor_eval", s3gan_predictor_eval.main, [
             f"--model_dir={model_dir}", "--gin_config", config, *bindings,
             f"--num_examples={args.predictor_examples}",
             f"--out_csv={os.path.join(out_dir, 'predictor_accuracy.csv')}"])
         tool("rotation_probe", rotation_probe.main, [
-            "--datasets", "convex_polygons_partial", spec["dataset"],
-            f"--steps={args.probe_steps}",
+            "--datasets", *PROBE_SETS, f"--steps={args.probe_steps}",
             f"--out={os.path.join(out_dir, 'rotation_probe.json')}"])
     steps = [ckpt_lib.step_of(p) for p in ckpt_lib.all_checkpoints(model_dir)]
     exported = [s for s in steps if os.path.isdir(
         os.path.join(model_dir, "tfhub", str(s)))]
+    # A conditional G gets a row per class; an unconditional one the
+    # demo's plain grid, named as the JAX proofs name theirs.
+    grid_flag = ["--per_class_grid"] if spec["conditional"] else []
+    samples = "samples_per_class" if spec["conditional"] else "samples"
     for step in sorted({exported[0], exported[-1]} if exported else ()):
         grid_dir = os.path.join(model_dir, f"demo_{step}")
         export_dir = filled_export(config, args.gin_bindings, model_dir,
                                    step, device)
         tool(f"demo_{step}", demo.main, [
             f"--export_dir={export_dir}", f"--out_dir={grid_dir}",
-            "--per_class_grid"])
-        for name in ("samples", "interpolation"):
+            *grid_flag])
+        for name, kept in (("samples", samples),
+                           ("interpolation", "interpolation")):
             path = os.path.join(grid_dir, f"{name}.png")
             if os.path.exists(path):
                 shutil.copy(path, os.path.join(
-                    out_dir, f"{name}_per_class_step{step:05d}.png"
-                    if name == "samples" else f"{name}_step{step:05d}.png"))
-    if args.run in ("biggan128", "biggan32"):
+                    out_dir, f"{kept}_step{step:05d}.png"))
+    if spec["ema"]:
         # The longest tool last: its CSV is rewritten after every
         # checkpoint, so a cut run keeps the rows done.
         tool("eval_ema_vs_raw", eval_ema_vs_raw.main, [

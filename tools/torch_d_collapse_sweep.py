@@ -72,12 +72,8 @@ def write_polygon_set(name, data_dir, n_train, n_eval, workers):
     from compare_gan_torch import polygons
     if os.path.exists(os.path.join(data_dir, name, "train.npz")):
         return
-    write = {"convex_polygons_multiclass_128":
-             polygons.write_multiclass128_npz_dataset,
-             "convex_polygons_multiclass":
-             polygons.write_multiclass_npz_dataset}[name]
-    write(data_dir, n_train=n_train, n_test=n_eval, n_holdout=n_eval,
-          n_workers=workers)
+    polygons.WRITERS[name](data_dir, n_train=n_train, n_test=n_eval,
+                           n_holdout=n_eval, n_workers=workers)
 
 
 def cli_argv(model_dir, seed, ch, args):

@@ -2,7 +2,8 @@
 """Profile one of the port's train steps on one CUDA card.
 
     python3 tools/torch_profile_step.py
-        [--config biggan|biggan_deep|s3gan|ssgan|resnet5|sndcgan|dcgan]
+        [--config biggan|biggan_deep|s3gan|ssgan|resnet5|sndcgan|dcgan|
+                  dcgan28]
         [--warmup 3] [--steps 3] [--trace DIR]
 
 Builds a training configuration as chip_smoke.py drives it, on fake data
@@ -19,7 +20,9 @@ with seed 547, from the port's own pieces (gin, datasets, the GAN class):
 - `resnet5`, `sndcgan`, `dcgan`: the study zoo's
   resnet_lsun-bedroom128.gin (WGAN-GP), sndcgan_celebahq128.gin and
   dcgan_celeba64.gin as published, f32 with TF32 off, as the smoke runs
-  them.
+  them;
+- `dcgan28`: dcgan_polygons28.gin as published (the 28 px convergence
+  recipe, batch 64), f32 with TF32 off.
 
 It runs warm-up steps, then:
 
@@ -66,6 +69,7 @@ CONFIGS = {
     "resnet5": ("resnet_lsun-bedroom128.gin", []),
     "sndcgan": ("sndcgan_celebahq128.gin", []),
     "dcgan": ("dcgan_celeba64.gin", []),
+    "dcgan28": ("dcgan_polygons28.gin", []),
 }
 
 
