@@ -92,6 +92,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    forward and 4 backward attention launches at 8 rows. Its seconds are
    gloo through the host on one card, no figure for NCCL on several
    cards.
+   Spatial (after (b)): two spawned gloo workers on cuda:0 as a `data 1
+   x model 2` grid (image height in two bands of 64 rows: halo rows in
+   every conv, moments over the grid, the attention on each band's 2048
+   queries against all 1024 keys) take one BigGAN-128 step at full width
+   with the benchmark options and Adam's epsilon at 1e-3, in bf16 and in
+   f32 (TF32 off, deterministic cuDNN). The f32 state is held to the
+   one-process step by state kind (DP_TOL), and two faulty controls
+   (SPATIAL_CONTROLS: convs without halos; the gradients of what every
+   model rank computes whole summed twice) must fail it; the bf16 gaps
+   are printed beside the one-process step's own spread with autotuned
+   cuDNN. Ranks bitwise equal, all finite, 5 forward and 4 backward
+   launches a worker in each precision, every one at N 2048, M 1024 and
+   held to the plain version on its operands. The bf16 step's launches
+   count as the main path's.
 8. S3GAN main path: 3 steps of S3GAN on BigGAN-128 at full width through
    the CLI with example_configs/s3gan32_polygons_partial.gin on fake
    ImageNet-128: batch 16, rotation (rotated_batch_fraction 4), projection
@@ -192,8 +206,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    exceed that bound. Launches: 6 forward and 4 backward a step through
    the kernels, none in the plain runs (a comparison: not counted as the
    main path's).
-16. Prints the eval shape's forward row, the S3GAN D shape's bf16 row and
-   the BigGAN-deep rows as JSON lines of their own (`eval_shape_forward
+16. Prints the eval shape's forward row, the spatial bands' bf16 rows
+   (`spatial_shape {...}`: G after B4 and D after B1 at B 32, N 2048, M
+   1024, with the spatial step's launches), the spatial summary
+   (`spatial {...}`), the S3GAN D shape's bf16 row and the BigGAN-deep
+   rows as JSON lines of their own (`eval_shape_forward
    {...}`, `s3gan_shape {...}`, one `biggan_deep_shape {...}` per type and
    the eval forward: tolerances, SDPA backend, times, bound and share),
    the BigGAN-deep eval, G/D-task, data-parallel, TF-format and serving
@@ -208,6 +225,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -242,6 +260,11 @@ DEEP_PARAMS = (50244484, 34590210)
 # only, after B1 at 16x16 (N 256, M 64) on 2 * 64 + 2 * 3 * 4 = 152 rows.
 CONVERGENCE_SHAPES = (("G_B4_b16", (16, 4096, 1024, 24, 96)),
                       ("D_B1_s3gan32", (152, 256, 64, 24, 96)))
+# The spatial phase's bands (BigGAN-128 at batch 16, bf16, image height in
+# 2 bands): G after B4 and D after B1 on 32 rows, each worker's 2048 queries
+# (32 of 64 rows of the 64x64 map) against all 1024 pooled keys.
+SPATIAL_SHAPES = (("G_B4_band", (32, 2048, 1024, 24, 96)),
+                  ("D_B1_band", (32, 2048, 1024, 12, 48)))
 DEEP_BINDINGS = ("options.architecture = 'resnet_biggan_deep_arch'",
                  "options.z_dim = 128")
 # The eval tasks of the two eval phases that add tasks (class names of
@@ -436,6 +459,8 @@ def _cases():
     yield DEEP_EVAL_SHAPE + ("float32", False, False)
     for shape in CONVERGENCE_SHAPES:
         yield shape + ("float32", True, False)
+    for shape in SPATIAL_SHAPES:
+        yield shape + ("bfloat16", True, False)
 
 
 def compare_kernels(torch):
@@ -443,8 +468,9 @@ def compare_kernels(torch):
     max abs error over every case, and times and bounds summed over the
     bf16 training shapes; the eval shape's forward row; the S3GAN D
     shape's bf16 row (forward and backward); the BigGAN-deep rows (each
-    type's forward and backward at batch 32, the eval forward); and the
-    convergence configurations' f32 rows."""
+    type's forward and backward at batch 32, the eval forward); the
+    convergence configurations' f32 rows; and the spatial bands' bf16
+    rows."""
     _phase("kernels")
     from compare_gan_torch.ops import fused_attention as fa
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -453,7 +479,7 @@ def compare_kernels(torch):
                   "library_ms": 0.0, "bound_ms": 0.0, "bound_by": ""}
               for k in ("fwd", "bwd")}
     eval_row = s3gan_row = None
-    deep_rows, convergence_rows = [], []
+    deep_rows, convergence_rows, spatial_rows = [], [], []
     for name, (b, n, m, c, cg), dtype_name, with_bwd, summed in _cases():
         dtype = getattr(torch, dtype_name)
         tol = TOL[dtype_name]
@@ -563,9 +589,13 @@ def compare_kernels(torch):
         if (name, shape) in CONVERGENCE_SHAPES:
             convergence_rows.append(deep_shape_row(name, b, dtype_name,
                                                    backend, rows, issued))
+        if (name, shape) in SPATIAL_SHAPES:
+            spatial_rows.append(deep_shape_row(name, b, dtype_name, backend,
+                                               rows, issued))
         del q, k, v, theta, phi, g, dout, out, mx, den, p_mx, p_den
         torch.cuda.empty_cache()
-    return result, eval_row, s3gan_row, deep_rows, convergence_rows
+    return (result, eval_row, s3gan_row, deep_rows, convergence_rows,
+            spatial_rows)
 
 
 def deep_shape_row(name, b, dtype_name, backend, rows, issued):
@@ -1114,6 +1144,286 @@ def _dp_worker(rank, port, out):
     with open(out, "w") as f:
         json.dump(dict(result, bitwise=bitwise, launches=gathered,
                        step_seconds=seconds), f)
+
+
+# The spatial phase's faulty controls, each a fault of the spatial layout
+# that DP_TOL must catch (tests/test_torch_spatial_step.py holds them to
+# the CPU's tolerances too).
+SPATIAL_CONTROLS = ("no_halo", "k_times")
+
+
+@contextlib.contextmanager
+def spatial_control(name):
+    """Within the block the spatial layout runs with one fault (None: none).
+    "no_halo": every conv pads its band with zero rows instead of its
+    neighbours'. "k_times": each model rank's loss is its data rank's whole
+    share, and the model group's sum passes its gradient back unsummed (a
+    tensor-parallel layer's recipe): band gradients stay right, but those
+    of what every model rank computes whole (D's last linear layer and
+    projection embedding) are summed k times over the grid."""
+    if name is None:
+        yield
+        return
+    import torch
+    from compare_gan_torch.parallel import tpu_ops
+    summed = tpu_ops.model_sum
+
+    class Unsummed(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return summed(x)
+
+        @staticmethod
+        def backward(ctx, grad):
+            return grad
+
+    def zero_halos(x, lo, hi, what=""):
+        rest = tuple(x.shape[2:])
+        return torch.cat([x.new_zeros((x.shape[0], lo) + rest), x,
+                          x.new_zeros((x.shape[0], hi) + rest)], 1)
+
+    faults = {"no_halo": {"exchange_halos": zero_halos},
+              "k_times": {"model_sum": Unsummed.apply,
+                          "loss_shares": lambda replicas:
+                          replicas.data_size}}[name]
+    right = {attr: getattr(tpu_ops, attr) for attr in faults}
+    for attr, fault in faults.items():
+        setattr(tpu_ops, attr, fault)
+    try:
+        yield
+    finally:
+        for attr, fn in right.items():
+            setattr(tpu_ops, attr, fn)
+
+
+# The spatial phase's precisions: bf16 is the benchmark options' main path;
+# f32 (TF32 off) is where DP_TOL tells the layout from its faults. In bf16
+# each band's sums round otherwise than the whole image's, and the step's
+# gradients carry that through some forty layers of bf16 activations: in
+# a dry run on the CPU at ch 16 (`_spatial_worker(..., device="cpu",
+# bindings=...)`, batch 4) the bf16 grid's state lay 19.4 (parameters) to
+# 1.70e3 (Adam's second moment) times DP_TOL from the one-process step's,
+# as far as the f32 k_times control's (10.4 to 150), where the f32 grid's
+# lay within 0.101. On an NVIDIA H100 80GB HBM3 at 700 W the one-process
+# bf16 step with autotuned cuDNN itself lay 10.9-14.1 (parameters) and
+# 34.6-62.7 (Adam's second moment) times DP_TOL from the deterministic
+# one, the grid 18.5 and 146. So the bf16 step's gaps are printed beside
+# that spread, and DP_TOL holds the f32 step.
+SPATIAL_PRECISIONS = ("bfloat16", "float32")
+
+
+def run_spatial(torch, model_dir):
+    """Two spawned gloo workers on cuda:0 as a `data 1 x model 2` grid take
+    one BigGAN-128 step at full width in the spatial layout (image height
+    in two bands of 64 rows) with the benchmark options (batch 16, joint G
+    forward, fake-only G loss) and Adam's epsilon at 1e-3, in bf16 and in
+    f32 (SPATIAL_PRECISIONS). The f32 step is held to the one-process step
+    by state kind (DP_TOL) and the faulty controls (SPATIAL_CONTROLS, f32)
+    must fail it; the bf16 step's gaps are printed beside the one-process
+    step's own spread. Every attention launch of either step runs on the
+    band's 2048 queries against 1024 keys and is held to the plain version
+    on its operands. Returns (both workers' launches in the bf16 step,
+    summary)."""
+    _phase("spatial")
+    print("-- two gloo workers on cuda:0, a data 1 x model 2 grid, against "
+          "one process (gloo copies through the host on one card: its "
+          "seconds are no rate)")
+    os.makedirs(model_dir, exist_ok=True)
+    out = os.path.join(model_dir, "spatial.json")
+    from compare_gan_torch.parallel import mesh_utils
+    t0 = time.perf_counter()
+    torch.multiprocessing.start_processes(
+        _spatial_worker, args=(mesh_utils.free_port(), out), nprocs=2,
+        join=True, start_method="spawn")
+    with open(out) as f:
+        result = json.load(f)
+    result["seconds"] = time.perf_counter() - t0
+    for precision in SPATIAL_PRECISIONS:
+        gaps = result["gaps"][precision]
+        for kind, (rtol, atol) in DP_TOL.items():
+            print(f"{precision} {kind} (tol {rtol:.3g} of a tensor's rms + "
+                  f"{atol:.3g} of the largest): " + "; ".join(
+                      f"{run} {g[kind]['max']:.3g} abs, "
+                      f"{g[kind]['ratio']:.3g} of tol"
+                      for run, g in gaps.items()))
+    print(f"ranks bitwise equal: {result['bitwise']}; all finite: "
+          f"{result['finite']}; launches per rank {result['launches']}; "
+          f"shapes (B, N, M) {result['shapes']}; largest kernel error over "
+          f"the plain version, as a share of its tolerance: "
+          f"{result['kernel_err_ratio']:.3g}; step seconds (gloo through "
+          f"the host on one card) {result['step_seconds']}, phase "
+          f"{result['seconds']:.1f}")
+    failed = [k for k, g in result["gaps"]["float32"]["spatial"].items()
+              if g["ratio"] > 1]
+    shapes = {tuple(x) for rank in result["shapes"] for x in rank}
+    if failed or not all(result["bitwise"].values()) \
+            or not all(result["finite"].values()) \
+            or any(per_rank != [{"fwd": 5, "bwd": 4}] * 2
+                   for per_rank in result["launches"].values()) \
+            or {(n, m) for _, n, m in shapes} != {(2048, 1024)} \
+            or result["kernel_err_ratio"] > 1:
+        raise AssertionError(f"the spatial step disagrees with one process "
+                             f"or its kernels with plain: {failed} {result}")
+    must_fail = {"no_halo": {"params", "ema", "adam_mu", "adam_nu", "sn_u"},
+                 "k_times": {"params", "adam_mu", "adam_nu"}}
+    for control in SPATIAL_CONTROLS:
+        caught = {k for k, g in result["gaps"]["float32"][control].items()
+                  if g["ratio"] > 1}
+        if not must_fail[control] <= caught:
+            raise AssertionError(f"DP_TOL passes the {control} control: "
+                                 f"{caught}")
+    launches = {k: sum(rank[k] for rank in result["launches"]["bfloat16"])
+                for k in ("fwd", "bwd")}
+    return launches, result
+
+
+def _spatial_worker(rank, port, out, device="cuda", bindings=()):
+    """One of two gloo workers on cuda:0 in a `data 1 x model 2` grid: one
+    BigGAN-128 step of batch 16 (BIGGAN_BINDINGS, Adam's epsilon at 1e-3,
+    and `bindings`) in each of SPATIAL_PRECISIONS, TF32 off and
+    deterministic cuDNN, with every attention launch checked
+    (`_checked_attention`); its state against rank 0's bitwise; then the
+    f32 step with each control. Rank 0 then takes the one-process step of
+    the same batch and draws in each precision, the f32 one again, then
+    both with autotuned cuDNN, and writes each run's gaps (`_state_gaps`)
+    to `out` as JSON. (device="cpu" and narrower `bindings` make a dry run
+    off the card, with no launch.)"""
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    import torch
+    from compare_gan_torch import checkpoint
+    from compare_gan_torch import config as gin
+    from compare_gan_torch import datasets, gans, runner_lib
+    from compare_gan_torch.ops import fused_attention as fa
+    from compare_gan_torch.parallel import mesh_utils
+    del gans  # Imported for its gin registrations.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    device = torch.device(device, 0) if device == "cuda" else torch.device(
+        device)
+    replicas = mesh_utils.init_process_group(
+        rank, 2, "127.0.0.1", port, device, backend="gloo", model_size=2)
+    gin.parse_config_files_and_bindings(
+        [os.path.join(ROOT, "example_configs", "biggan_imagenet128.gin")],
+        list(BIGGAN_BINDINGS) + ["tf.train.AdamOptimizer.epsilon = 1e-3"]
+        + list(bindings))
+    datasets.set_fake_dataset(True)
+    options = runner_lib.get_options_dict()
+    batch_size = options["batch_size"]
+    rng = np.random.RandomState(0)
+    total = batch_size * (options["disc_iters"] + 1)
+    batch = {"images": rng.rand(total, 128, 128, 3).astype(np.float32),
+             "labels": rng.randint(0, 1000, total).astype(np.int32)}
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def step(reps, precision, init=None, control=None):
+        gan = options["gan_class"](dataset=datasets.get_dataset(),
+                                   parameters=options, model_dir="unused",
+                                   device=device, compute_dtype=(
+                                       None if precision == "float32"
+                                       else precision))
+        ts = gan.init_state(seed=0)
+        if init is not None:  # The parameters and EMA before the step.
+            init.update({k: v.detach().clone() for k, v in
+                         checkpoint.live_tensors(ts).items()
+                         if _state_kind(k) in ("params", "ema")})
+        train_step = gan.make_train_step(batch_size, reps)
+        sync()
+        t0 = time.perf_counter()
+        with spatial_control(control):
+            ts, _ = train_step(ts, batch)
+        sync()
+        return checkpoint.live_tensors(ts), time.perf_counter() - t0
+
+    states = {p: {} for p in SPATIAL_PRECISIONS}
+    mine = {"launches": {}, "bitwise": {}, "finite": {}, "seconds": {}}
+    checked = {"shapes": [], "ratio": 0.0}
+    try:
+        for precision in SPATIAL_PRECISIONS:
+            with _checked_attention(torch, fa, checked):
+                fa.launches_fwd = fa.launches_bwd = 0
+                state, mine["seconds"][precision] = step(replicas, precision)
+                mine["launches"][precision] = {"fwd": fa.launches_fwd,
+                                               "bwd": fa.launches_bwd}
+            states[precision]["spatial"] = state
+            mine["finite"][precision] = all(
+                bool(torch.isfinite(t).all()) for t in state.values()
+                if t.is_floating_point())
+            try:
+                mesh_utils.assert_replicated(state, replicas)
+                mine["bitwise"][precision] = True
+            except AssertionError:
+                mine["bitwise"][precision] = False
+        mine.update(checked)
+        gathered = [None, None]
+        torch.distributed.all_gather_object(gathered, mine)
+        for control in SPATIAL_CONTROLS:
+            states["float32"][control], _ = step(replicas, "float32",
+                                                 control=control)
+    finally:
+        mesh_utils.destroy_process_group()
+    if rank != 0:
+        return
+    init = {p: {} for p in SPATIAL_PRECISIONS}
+    want = {p: step(None, p, init[p])[0] for p in SPATIAL_PRECISIONS}
+    states["float32"]["again"], _ = step(None, "float32")
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    for precision in SPATIAL_PRECISIONS:
+        states[precision]["autotuned"], _ = step(None, precision)
+    gaps = {p: {run: _state_gaps(state, want[p], init[p])
+                for run, state in states[p].items()}
+            for p in SPATIAL_PRECISIONS}
+    first = gathered[0]
+    with open(out, "w") as f:
+        json.dump({
+            "gaps": gaps, "bitwise": first["bitwise"],
+            "finite": first["finite"], "step_seconds": first["seconds"],
+            "launches": {p: [g["launches"][p] for g in gathered]
+                         for p in SPATIAL_PRECISIONS},
+            "shapes": [g["shapes"] for g in gathered],
+            "kernel_err_ratio": max(g["ratio"] for g in gathered)}, f)
+
+
+@contextlib.contextmanager
+def _checked_attention(torch, fa, checked):
+    """Within the block each launch of the attention kernels is followed by
+    the plain version on the same operands (no launch): its outputs must
+    agree within TOL (abs + rel) of their type, mx and den within 1e-4.
+    `checked` gathers each launch's (B, N, M) and the largest error as a
+    share of its tolerance."""
+    launch_fwd, launch_bwd = fa.attention_fwd, fa.attention_bwd
+
+    def ratio(got, want, tol):
+        got, want = got.float(), want.float()
+        return float(((got - want).abs() / (tol + tol * want.abs())).max())
+
+    def fwd(theta, phi, g):
+        out = launch_fwd(theta, phi, g)
+        plain = fa.attention_fwd_plain(theta, phi, g)
+        tol = TOL[str(theta.dtype).split(".")[-1]]
+        checked["shapes"].append(list(theta.shape[:2]) + [phi.shape[1]])
+        checked["ratio"] = max([checked["ratio"]] + [
+            ratio(a, b, t) for a, b, t in zip(out, plain, (tol, 1e-4, 1e-4))])
+        return out
+
+    def bwd(theta, phi, g, dout, mx, den):
+        out = launch_bwd(theta, phi, g, dout, mx, den)
+        plain = fa.attention_bwd_plain(theta, phi, g, dout, mx, den)
+        tol = TOL[str(theta.dtype).split(".")[-1]]
+        checked["ratio"] = max([checked["ratio"]] + [
+            ratio(a, b, tol) for a, b in zip(out, plain)])
+        return out
+
+    fa.attention_fwd, fa.attention_bwd = fwd, bwd
+    try:
+        yield
+    finally:
+        fa.attention_fwd, fa.attention_bwd = launch_fwd, launch_bwd
 
 
 def _state_gaps(got, want, init):
@@ -2198,8 +2508,8 @@ def main():
     t_start = time.perf_counter()
     check_device(torch)
     build_kernels()
-    kernels, eval_row, s3gan_row, deep_rows, convergence_rows = \
-        compare_kernels(torch)
+    (kernels, eval_row, s3gan_row, deep_rows, convergence_rows,
+     spatial_rows) = compare_kernels(torch)
     model_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     runs, seconds = {}, {}
 
@@ -2225,6 +2535,8 @@ def main():
         runs["data_parallel"], data_parallel = timed(
             "data_parallel", run_data_parallel, torch,
             os.path.join(model_dir, "data_parallel"))
+        runs["spatial"], spatial = timed(
+            "spatial", run_spatial, torch, os.path.join(model_dir, "spatial"))
         runs["s3gan"] = timed("s3gan", run_s3gan, torch,
                               os.path.join(model_dir, "s3gan"))
         runs["ssgan"] = timed("ssgan", run_ssgan, torch,
@@ -2275,6 +2587,11 @@ def main():
     print("gan_tasks " + json.dumps(gan_tasks))
     print("study_zoo " + json.dumps(study_zoo))
     print("data_parallel " + json.dumps(data_parallel))
+    # The bands' rows, with both workers' launches of the spatial step.
+    for row in spatial_rows:
+        row["phase_launches"] = runs["spatial"]
+        print("spatial_shape " + json.dumps(row))
+    print("spatial " + json.dumps(spatial))
     print("tf_formats " + json.dumps(tf_formats))
     # The convergence configurations' f32 shapes, with the launches of the
     # phase's runs and tools that ran them (the counters count calls).

@@ -10,6 +10,7 @@ import torch.nn.functional as F
 
 from compare_gan_torch.architectures import abstract_arch
 from compare_gan_torch.ops import arch_ops as ops
+from compare_gan_torch.parallel import tpu_ops
 
 
 def conv_out_size_same(size, stride):
@@ -26,7 +27,9 @@ def halvings(size, times):
 
 class Generator(abstract_arch.AbstractGenerator):
     """DCGAN generator (dcgan.py:19-53): linear to 512 channels at 1/16 of
-    the image, then four 5x5 stride-2 deconvs."""
+    the image, then four 5x5 stride-2 deconvs. In the spatial layout the
+    linear layer runs whole on every model rank, and each keeps its band."""
+    SPATIAL = True
 
     def __init__(self, **kwargs):
         super().__init__(**kwargs)
@@ -45,7 +48,8 @@ class Generator(abstract_arch.AbstractGenerator):
                 widths[i], widths[i + 1], 5, 5, 2, 2, device=dev))
 
     def forward(self, z, y, is_training):
-        net = self.g_fc1(z).reshape(-1, *self._sizes[0], 512)
+        net = tpu_ops.split_bands(
+            self.g_fc1(z).reshape(-1, *self._sizes[0], 512), self.g_fc1.scope)
         for i in range(4):
             net = self._modules[f"g_bn{i + 1}"](net, z=z, y=y,
                                                 is_training=is_training)
@@ -56,7 +60,10 @@ class Generator(abstract_arch.AbstractGenerator):
 
 class Discriminator(abstract_arch.AbstractDiscriminator):
     """DCGAN discriminator (dcgan.py:56-79): four 5x5 stride-2 convs, batch
-    norm after the last three, a linear logit on the flattened features."""
+    norm after the last three, a linear logit on the flattened features
+    (in the spatial layout a band's product with its rows of the kernel,
+    summed over the model group)."""
+    SPATIAL = True
 
     def __init__(self, **kwargs):
         super().__init__(**kwargs)
@@ -78,5 +85,5 @@ class Discriminator(abstract_arch.AbstractDiscriminator):
             net = self._modules[f"d_conv{i + 1}"](net)
             net = ops.lrelu(self._modules[f"d_bn{i}"](
                 net, y=y, is_training=is_training))
-        out_logit = self.d_fc4(net.reshape(x.shape[0], -1))
+        out_logit = self.d_fc4.of_bands(net)
         return torch.sigmoid(out_logit), out_logit, net

@@ -9,10 +9,13 @@ import torch
 
 from compare_gan_torch.architectures import abstract_arch
 from compare_gan_torch.ops import arch_ops as ops
+from compare_gan_torch.parallel import tpu_ops
 
 
 class Generator(abstract_arch.AbstractGenerator):
-    """sigmoid(linear(z)) reshaped to the image (dummy.py:15-26)."""
+    """sigmoid(linear(z)) reshaped to the image (dummy.py:15-26); in the
+    spatial layout, this worker's band of it."""
+    SPATIAL = True
 
     def __init__(self, **kwargs):
         super().__init__(**kwargs)
@@ -21,11 +24,15 @@ class Generator(abstract_arch.AbstractGenerator):
 
     def forward(self, z, y, is_training):
         out = torch.sigmoid(self.fc_noise(z))
-        return out.reshape((z.shape[0],) + self._image_shape)
+        return tpu_ops.split_bands(
+            out.reshape((z.shape[0],) + self._image_shape),
+            self.fc_noise.scope)
 
 
 class Discriminator(abstract_arch.AbstractDiscriminator):
-    """A linear layer on the images' per-channel means (dummy.py:29-38)."""
+    """A linear layer on the images' per-channel means (dummy.py:29-38);
+    in the spatial layout the bands' sums added over the model group."""
+    SPATIAL = True
 
     def __init__(self, **kwargs):
         super().__init__(**kwargs)
@@ -39,6 +46,6 @@ class Discriminator(abstract_arch.AbstractDiscriminator):
         return self._image_shape[2]
 
     def forward(self, x, y, is_training):
-        h = x.mean(dim=(1, 2))
+        h = tpu_ops.spatial_sum(x) / (tpu_ops.image_rows(x) * x.shape[2])
         out = self.linear(h)
         return torch.sigmoid(out), out, h

@@ -14,6 +14,7 @@ from compare_gan_torch import config as gin
 from compare_gan_torch.architectures import abstract_arch
 from compare_gan_torch.architectures import resnet_ops
 from compare_gan_torch.ops import arch_ops as ops
+from compare_gan_torch.parallel import tpu_ops
 
 
 @gin.configurable("BigGanResNetBlock")
@@ -73,7 +74,10 @@ def _attention_channels(blocks_with_attention, names, channels):
 class Generator(abstract_arch.AbstractGenerator):
     """BigGAN generator (resnet_biggan.py:68-164): hierarchical z split
     across blocks and concatenated with the embedded y, attention after the
-    configured blocks, unconditional final BN, tanh -> [0, 1]."""
+    configured blocks, unconditional final BN, tanh -> [0, 1]. In the
+    spatial layout the first linear layer runs whole on every model rank,
+    and each keeps its band of rows of the 4x4 map."""
+    SPATIAL = True
 
     def __init__(self, ch=96, blocks_with_attention="B4", hierarchical_z=True,
                  embed_z=False, embed_y=True, embed_y_dim=128,
@@ -167,7 +171,9 @@ class Generator(abstract_arch.AbstractGenerator):
             z0, z_per_block = z, [z] * num_blocks
             y_per_block = [y] * num_blocks
 
-        net = self.fc_noise(z0).reshape(-1, 4, 4, self._in_channels[0])
+        net = tpu_ops.split_bands(
+            self.fc_noise(z0).reshape(-1, 4, 4, self._in_channels[0]),
+            self.fc_noise.scope)
         for i, name in enumerate(self._block_names):
             net = self._modules[name](net, z=z_per_block[i], y=y_per_block[i],
                                       is_training=is_training)
@@ -183,7 +189,10 @@ class Generator(abstract_arch.AbstractGenerator):
 @gin.configurable("resnet_biggan.Discriminator")
 class Discriminator(abstract_arch.AbstractDiscriminator):
     """BigGAN discriminator (resnet_biggan.py:167-243): sum pooling and the
-    projection head out += <embed(y), h>."""
+    projection head out += <embed(y), h>. In the spatial layout the sum
+    pooling adds the bands' sums over the model group, and the head runs
+    whole on every model rank."""
+    SPATIAL = True
 
     def __init__(self, ch=96, blocks_with_attention="B1", project_y=True,
                  **kwargs):
@@ -241,14 +250,15 @@ class Discriminator(abstract_arch.AbstractDiscriminator):
         return [colors] + out_channels[:-1], out_channels
 
     def forward(self, x, y, is_training):
-        resnet_ops.validate_image_inputs(x.shape)
+        resnet_ops.validate_image_inputs(
+            (x.shape[0], tpu_ops.image_rows(x)) + tuple(x.shape[2:]))
         net = x
         for name in self._block_names:
             net = self._modules[name](net, z=None, y=y,
                                       is_training=is_training)
             if name in self._blocks_with_attention:
                 net = self.non_local_block(net)
-        h = F.relu(net).sum(dim=(1, 2))
+        h = tpu_ops.spatial_sum(F.relu(net))
         out_logit = self.final_fc(h)
         if self._project_y:
             if y is None:

@@ -42,6 +42,16 @@ iteration, the optimizers and the EMA then run alike on every worker, and
 the step's metrics are the global values. The step equals the one-process
 step at the same global batch, up to the order of the sums.
 
+The spatial layout (`replicas.model_size` k > 1, counterpart of
+`compile_train_step(spatial=True)` there): a data rank's rows go whole to
+each of its k model ranks, each keeping its band of image height, and
+the z, labels and draws whole. The architecture's layers exchange the
+rows they read across bands; the losses are computed whole on every model
+rank, each taking 1 / world of them (`tpu_ops.loss_shares`), and the
+gradients are summed over the whole grid. Only the architectures that
+declare it (`SPATIAL`) and ModularGAN itself run in it; the rest raise,
+as do the gradient penalties.
+
 `sample` and `discriminate` are the inference surface (the reference's hub
 "gen" and "disc" tags): G runs with its EMA shadows swapped in for its
 weights, in the type of its z, committing no state unless asked (the BN
@@ -117,6 +127,8 @@ class TrainState:
                   denylist=["dataset", "parameters", "model_dir", "device"])
 class ModularGAN(AbstractGAN):
     """GAN with modular losses/penalties/architectures."""
+    # Whether the GAN's step runs in the spatial layout (module docstring).
+    SPATIAL = True
 
     def __init__(self, dataset, parameters, model_dir, device="cpu",
                  deprecated_split_disc_calls=False,
@@ -281,7 +293,7 @@ class ModularGAN(AbstractGAN):
         `penalty_draw` takes this worker's shape and returns its rows of
         the global draw."""
 
-        def mine(x):
+        def mine(x):  # A data rank's rows, the same on its model ranks.
             return x if replicas is None else replicas.rows(x, x.shape[0])
 
         features = {"z": self._cast_compute(self._to_device(
@@ -291,8 +303,8 @@ class ModularGAN(AbstractGAN):
                 mine(draws["sampled_labels"]))
 
         def penalty_draw(name, shape):
-            world = 1 if replicas is None else replicas.world
-            shape = (shape[0] * world,) + tuple(shape[1:])
+            data = 1 if replicas is None else replicas.data_size
+            shape = (shape[0] * data,) + tuple(shape[1:])
             if name not in draws:
                 return mine(rng.uniform(shape, rng.stream(
                     seed, step, sub_step, name, self._device)))
@@ -478,12 +490,18 @@ class ModularGAN(AbstractGAN):
         g_tx, d_tx = self._make_optimizers()
         num_sub_steps = self.num_sub_steps
         total = batch_size * num_sub_steps
-        if replicas is not None and batch_size % replicas.world:
+        data = 1 if replicas is None else replicas.data_size
+        if batch_size % data:
             raise ValueError(f"A sub-step batch of {batch_size} does not "
-                             f"split over {replicas.world} workers.")
+                             f"split over {data} data ranks.")
+        if replicas is not None and replicas.model_size > 1:
+            self._check_spatial_layout()
 
-        def mine(x):
+        def rows(x):
             return x if replicas is None else replicas.rows(x, batch_size)
+
+        def band(x):
+            return x if replicas is None else replicas.band(x)
 
         def train_step(ts: TrainState, batch,
                        draws: Optional[List[Dict]] = None):
@@ -495,15 +513,15 @@ class ModularGAN(AbstractGAN):
             labels = self._to_device(labels)
             if hosts > 1:
                 labels = replicas.gather_hosts(labels)
-                images_s = list(torch.split(replicas.exchange_blocks(
-                    self._to_device(images), batch_size),
-                    batch_size // replicas.world))
+                images_s = [band(x) for x in torch.split(
+                    replicas.exchange_blocks(self._to_device(images),
+                                             batch_size), batch_size // data)]
             else:
-                images_s = [self._to_device(mine(images[i * batch_size:
-                                                        (i + 1) * batch_size]))
-                            for i in range(num_sub_steps)]
+                images_s = [self._to_device(band(rows(
+                    images[i * batch_size:(i + 1) * batch_size])))
+                    for i in range(num_sub_steps)]
             global_labels = torch.split(labels, batch_size)
-            labels_s = [mine(x) for x in global_labels]
+            labels_s = [rows(x) for x in global_labels]
             if draws is None:
                 draws = [self.draw_sub_step_inputs(
                     batch_size, global_labels[i], ts.seed, ts.step, i)
@@ -523,6 +541,18 @@ class ModularGAN(AbstractGAN):
             return ts, metrics
 
         return train_step
+
+    def _check_spatial_layout(self):
+        """Raise unless this GAN and its G and D run in the spatial layout
+        (a gradient penalty raises when it is taken)."""
+        for what, ok in ((type(self).__name__, type(self).SPATIAL),
+                         (type(self.generator).__module__,
+                          self.generator.SPATIAL),
+                         (type(self.discriminator).__module__,
+                          self.discriminator.SPATIAL)):
+            if not ok:
+                raise ValueError(f"{what} has no spatial layout (image "
+                                 f"height split over a model group).")
 
     def _step(self, ts, images_s, labels_s, features, g_tx, d_tx, replicas):
         """The sub-steps of one train step on this worker's rows; returns

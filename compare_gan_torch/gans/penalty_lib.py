@@ -28,6 +28,9 @@ from compare_gan_torch.parallel import tpu_ops
 def _slope_penalty(d_logits_fn, x_perturbed):
     """mean((||grad_x D(x)||_2 - 1)^2) with the 1e-4 stabilizer under the
     root (penalty_lib.py:24-33)."""
+    if tpu_ops.spatial() is not None:
+        raise ValueError("The gradient penalties have no spatial layout "
+                         "(image height split over a model group).")
     xx = x_perturbed.detach().requires_grad_()
     logits = d_logits_fn(xx)
     gradients, = torch.autograd.grad(logits.float().sum(), xx,

@@ -33,6 +33,7 @@ NUM_ROTATIONS = ssgan.NUM_ROTATIONS
                   denylist=["dataset", "parameters", "model_dir", "device"])
 class S3GAN(modular_gan.ModularGAN):
     """S3GAN (s3gan.py:28-238)."""
+    SPATIAL = False
 
     def __init__(self, self_supervision="rotation",
                  rotated_batch_fraction=None, weight_rotation_loss_d=1.0,

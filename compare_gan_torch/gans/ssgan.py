@@ -72,6 +72,7 @@ def rotation_head(feature_dim, use_sn, device):
                   denylist=["dataset", "parameters", "model_dir", "device"])
 class SSGAN(modular_gan.ModularGAN):
     """Self-Supervised GAN (ssgan.py:28-140)."""
+    SPATIAL = False
 
     def __init__(self, self_supervision="rotation_gan",
                  rotated_batch_size=None, weight_rotation_loss_d=1.0,

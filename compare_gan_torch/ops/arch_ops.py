@@ -23,6 +23,16 @@ step (`parallel.mesh_utils.active()`) from one all-reduce across the
 workers, which carries the gradient, so every worker normalizes and updates
 its moving moments alike. EvoNorm-S0 and the weight-norm layers read no
 batch statistics in training, and start no collective.
+
+In the spatial layout (`tpu_ops.spatial()`) an activation is this worker's
+band of image rows. The convs pad each band with halo rows of the
+neighbouring bands (`tpu_ops.exchange_halos`), zeros only at the image's
+top and bottom, so every band starts on a stride boundary and its output
+is the band of the whole image's; batch norm's moments run over the
+whole grid as they do over the workers; pooling stays local; the
+non-local block attends from its own rows to the keys of every band. A
+height that does not split so raises, naming the layer. Layer norm and
+EvoNorm, whose moments are per image, raise there.
 """
 
 from __future__ import annotations
@@ -213,7 +223,8 @@ class SpectralNormKernel(_SNLayer):
 
 
 class Linear(_SNLayer):
-    """Dense layer (arch_ops.py:178-197). x: [B, D]; kernel [D, out]."""
+    """Dense layer (arch_ops.py:178-197). x: [B, D]; kernel [D, out].
+    `of_bands` takes the flattened features of a whole image from bands."""
 
     def __init__(self, in_features, output_size, stddev=0.02, bias_start=0.0,
                  use_sn=False, use_bias=True, device=None):
@@ -228,6 +239,21 @@ class Linear(_SNLayer):
     def forward(self, x):
         sigma = self._sigma(x.dtype)
         return self._finish(x @ self.kernel.to(x.dtype), sigma)
+
+    def of_bands(self, x):
+        """self(x.reshape(B, -1)) for NHWC `x`. In the spatial layout `x`
+        is a band, whose flattened features meet one block of the kernel's
+        rows: the partial products are summed over the model group."""
+        flat = x.reshape(x.shape[0], -1)
+        replicas = tpu_ops.spatial()
+        if replicas is None:
+            return self(flat)
+        sigma = self._sigma(flat.dtype)
+        n = flat.shape[1]
+        kernel = self.kernel[replicas.model_rank * n:
+                             (replicas.model_rank + 1) * n]
+        return self._finish(tpu_ops.model_sum(flat @ kernel.to(flat.dtype)),
+                            sigma)
 
 
 def _same_pads(size, k, stride):
@@ -245,17 +271,64 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
-def _conv2d_same(x, w, strides):
-    """TF "SAME" conv of NHWC `x` with an OIHW kernel, NHWC out."""
-    k_h, k_w = w.shape[2:]
-    (t, b), (l, r) = (_same_pads(x.shape[1], k_h, strides[0]),
-                      _same_pads(x.shape[2], k_w, strides[1]))
+def _conv_rows(x, w, strides, pads_h, pads_w, what):
+    """Conv of NHWC `x` with an OIHW kernel and (top, bottom), (left,
+    right) zero pads, NHWC out. In the spatial layout the band's pads in
+    height are halo rows of its neighbours: with a band that starts on a
+    stride boundary and the whole image's SAME pads as halo widths, the
+    output is the band of the whole image's output."""
+    (t, b), (l, r) = pads_h, pads_w
+    if tpu_ops.spatial() is not None:
+        if x.shape[1] % strides[0]:
+            raise ValueError(f"{what}: a band of {x.shape[1]} rows does not "
+                             f"start every band on a stride-{strides[0]} "
+                             f"row.")
+        x = tpu_ops.exchange_halos(x, t, b, what)
+        t = b = 0
     xc = _nchw(x)
     if (t, l) == (b, r):
         out = F.conv2d(xc, w, stride=strides, padding=(t, l))
     else:
         out = F.conv2d(F.pad(xc, (l, r, t, b)), w, stride=strides)
     return _nhwc(out)
+
+
+def _conv2d_same(x, w, strides, what="conv2d"):
+    """TF "SAME" conv of NHWC `x` with an OIHW kernel, NHWC out."""
+    k_h, k_w = w.shape[2:]
+    return _conv_rows(x, w, strides,
+                      _same_pads(tpu_ops.image_rows(x), k_h, strides[0]),
+                      _same_pads(x.shape[2], k_w, strides[1]), what)
+
+
+def _transposed_rows(x, w, strides, padding, output_padding, out_size,
+                     what):
+    """F.conv_transpose2d of NHWC `x` with an IOHW kernel, cropped to
+    `out_size` (H, W) of the whole image, NHWC out. In the spatial layout
+    the output band of a band of h rows is h * stride rows of global
+    output row o = stride * i + tap - padding[0]: it reads the input rows
+    (k - 1 - padding[0]) // stride above the band and (padding[0] - 1) //
+    stride + 1 below, and is cut from the output of the band with those
+    halos, uncropped and extended by stride - 1 rows (a 1x1 kernel's last
+    row, which no input row reaches)."""
+    replicas = tpu_ops.spatial()
+    if replicas is None:
+        out = F.conv_transpose2d(_nchw(x), w, stride=strides,
+                                 padding=padding,
+                                 output_padding=output_padding)
+        return _nhwc(out[:, :, :out_size[0], :out_size[1]])
+    k, s, t = w.shape[2], strides[0], padding[0]
+    h, band = x.shape[1], out_size[0] // replicas.model_size
+    if out_size[0] % replicas.model_size or band != h * s:
+        raise ValueError(f"{what}: an output of {out_size[0]} rows does not "
+                         f"split into bands of {s} x the input band's {h}.")
+    lo = (k - 1 - t) // s
+    x = tpu_ops.exchange_halos(x, lo, (t - 1) // s + 1, what)
+    out = F.conv_transpose2d(_nchw(x), w, stride=strides,
+                             padding=(0, padding[1]),
+                             output_padding=(s - 1, output_padding[1]))
+    start = lo * s + t
+    return _nhwc(out[:, :, start:start + band, :out_size[1]])
 
 
 class Conv2d(_SNLayer):
@@ -275,8 +348,8 @@ class Conv2d(_SNLayer):
 
     def forward(self, x):
         sigma = self._sigma(x.dtype)
-        return self._finish(
-            _conv2d_same(x, self.kernel.to(x.dtype), self.strides), sigma)
+        return self._finish(_conv2d_same(x, self.kernel.to(x.dtype),
+                                         self.strides, self.scope), sigma)
 
 
 def conv1x1(in_channels, output_dim, use_sn=False, use_bias=True,
@@ -297,10 +370,11 @@ class UpConv2d(Conv2d):
         k_h, k_w = self.kernel.shape[2:]
         pl_h, pl_w = (k_h - 1) // 2, (k_w - 1) // 2
         w = self.kernel.to(x.dtype).transpose(0, 1).flip(2, 3)
-        out = F.conv_transpose2d(
-            _nchw(x), w, stride=2, padding=(k_h - 1 - pl_h, k_w - 1 - pl_w),
-            output_padding=(k_h - 2 * pl_h, k_w - 2 * pl_w))
-        return self._finish(_nhwc(out), sigma)
+        out = _transposed_rows(
+            x, w, (2, 2), (k_h - 1 - pl_h, k_w - 1 - pl_w),
+            (k_h - 2 * pl_h, k_w - 2 * pl_w),
+            (2 * tpu_ops.image_rows(x), 2 * x.shape[2]), self.scope)
+        return self._finish(out, sigma)
 
 
 class Deconv2d(_SNLayer):
@@ -327,15 +401,16 @@ class Deconv2d(_SNLayer):
         """x: NHWC; output_size: (H, W) of the result."""
         sigma = self._sigma(x.dtype)
         return self._finish(_deconv2d_same(
-            x, self.kernel.to(x.dtype), self.strides, output_size), sigma)
+            x, self.kernel.to(x.dtype), self.strides, output_size,
+            self.scope), sigma)
 
 
-def _deconv2d_same(x, w, strides, output_size):
+def _deconv2d_same(x, w, strides, output_size, what="deconv2d"):
     """tf.nn.conv2d_transpose(padding="SAME") of NHWC `x` with an IOHW
-    kernel to an NHWC result of `output_size` (H, W)."""
+    kernel to an NHWC result of `output_size` (H, W) (the whole image's)."""
     lo, extra = [], []
-    for in_size, out_size, k, s in zip(x.shape[1:3], output_size,
-                                       w.shape[2:], strides):
+    for in_size, out_size, k, s in zip((tpu_ops.image_rows(x), x.shape[2]),
+                                       output_size, w.shape[2:], strides):
         if -(-out_size // s) != in_size:
             raise ValueError(
                 f"deconv2d: requested output size {out_size} is not a "
@@ -346,10 +421,9 @@ def _deconv2d_same(x, w, strides, output_size):
     # conv_transpose2d crops `padding` from both ends and adds
     # `output_padding` (< stride) back at the end; where the SAME pad is
     # larger at the end (lo < hi), the slice crops one more.
-    out = F.conv_transpose2d(
-        _nchw(x), w, stride=strides, padding=tuple(lo),
-        output_padding=tuple(max(e, 0) for e in extra))
-    return _nhwc(out[:, :, :output_size[0], :output_size[1]])
+    return _transposed_rows(x, w, strides, tuple(lo),
+                            tuple(max(e, 0) for e in extra), output_size,
+                            what)
 
 
 def lrelu(x, leak=0.2):
@@ -372,12 +446,10 @@ class DownConv2d(Conv2d):
         w_eff = (F.pad(w, (0, 1, 0, 1)) + F.pad(w, (0, 1, 1, 0))
                  + F.pad(w, (1, 0, 0, 1)) + F.pad(w, (1, 0, 1, 0))) * 0.25
         pl_h, pl_w = (k_h - 1) // 2, (k_w - 1) // 2
-        xc = _nchw(x)
-        if (pl_h, pl_w) != (k_h - 1 - pl_h, k_w - 1 - pl_w):
-            xc = F.pad(xc, (pl_w, k_w - 1 - pl_w, pl_h, k_h - 1 - pl_h))
-            pl_h = pl_w = 0
-        out = F.conv2d(xc, w_eff.to(x.dtype), stride=2, padding=(pl_h, pl_w))
-        return self._finish(_nhwc(out), sigma)
+        out = _conv_rows(x, w_eff.to(x.dtype), (2, 2),
+                         (pl_h, k_h - 1 - pl_h), (pl_w, k_w - 1 - pl_w),
+                         self.scope)
+        return self._finish(out, sigma)
 
 
 # ---------------------------------------------------------------------------
@@ -441,6 +513,9 @@ class StandardizeBatch(core.Module):
         dims = tuple(range(x.dim() - 1))
         replicas = mesh_utils.active()
         group_moments = None
+        if self.num_batch_groups > 1 and tpu_ops.spatial() is not None:
+            raise ValueError(f"{self.scope}: num_batch_groups has no "
+                             f"spatial layout.")
         if self.num_batch_groups > 1:
             mean, variance, group_moments = self._group_moments(x32,
                                                                 replicas)
@@ -633,6 +708,12 @@ class ConditionalBatchNorm(StandardizeBatch):
         return out
 
 
+def _per_image_moments(layer):
+    if tpu_ops.spatial() is not None:
+        raise ValueError(f"{layer.scope or type(layer).__name__}: moments "
+                         f"of each image have no spatial layout.")
+
+
 class LayerNorm(core.Module):
     """Layer norm over every non-batch axis with per-channel gamma/beta
     (`layer_norm`, arch_ops.py:517-530): f32 moments, var = E[(x - mean)^2],
@@ -646,6 +727,7 @@ class LayerNorm(core.Module):
                                    device)
 
     def forward(self, x):
+        _per_image_moments(self)
         x32 = x.float()
         dims = tuple(range(1, x.dim()))
         mean = x32.mean(dim=dims, keepdim=True)
@@ -671,6 +753,7 @@ class EvoNormS0(core.Module):
         self.groups = max(g for g in range(1, min(32, c) + 1) if c % g == 0)
 
     def forward(self, x, **unused):
+        _per_image_moments(self)
         x32 = x.float()
         b, h, w, c = x32.shape
         xg = x32.reshape(b, h, w, self.groups, c // self.groups)
@@ -800,7 +883,17 @@ class NonLocalBlock(core.Module):
     """SAGAN self-attention (arch_ops.py:676-711): 1x1 SN convs theta, phi,
     g; 2x2 max-pool on phi and g; softmax attention through the CUDA kernel
     (`fused_attention`); output cast back to x's type; learned gate `sigma`
-    starting at 0."""
+    starting at 0.
+
+    In the spatial layout theta keeps the band's own query rows; phi and g
+    are pooled in the band, then gathered over the model group in band
+    order, the whole image's keys in their global order. The kernels run
+    on the band's N / k queries against all M keys, and the keys'
+    gradients come back as partial sums that the gather's backward sums to
+    their owners. That computes what the JAX package's partitioning rule
+    computes (pallas_attention.py:33-75, :240-244), but the rule declares
+    the query dim replicated, so XLA gathers the whole map and every model
+    rank runs the whole attention; here each runs 1 / k of it."""
 
     def __init__(self, num_channels, use_sn, device=None):
         super().__init__()
@@ -818,11 +911,14 @@ class NonLocalBlock(core.Module):
 
     def forward(self, x):
         b, h, w, _ = x.shape
+        if h % 2 and tpu_ops.spatial() is not None:
+            raise ValueError(f"{self.scope}: a band of {h} rows does not "
+                             f"pool 2x2 in place.")
         theta = self.conv2d_theta(x).reshape(b, h * w, self.attn_ch)
-        phi = _max_pool_2x2(self.conv2d_phi(x)).reshape(
-            b, (h // 2) * (w // 2), self.attn_ch)
-        g = _max_pool_2x2(self.conv2d_g(x)).reshape(
-            b, (h // 2) * (w // 2), self.g_ch)
+        phi = tpu_ops.gather_bands(_max_pool_2x2(self.conv2d_phi(x)).reshape(
+            b, (h // 2) * (w // 2), self.attn_ch))
+        g = tpu_ops.gather_bands(_max_pool_2x2(self.conv2d_g(x)).reshape(
+            b, (h // 2) * (w // 2), self.g_ch))
         attn_g = attention_lib.fused_attention(
             theta.contiguous(), phi.contiguous(), g.contiguous())
         attn_g = attn_g.reshape(b, h, w, self.g_ch).to(x.dtype)

@@ -22,7 +22,10 @@ only shapes and types. A program traced by `torch.export`
 so the device is picked, and the operands checked, when the program runs.
 Importing this module registers the operator; it imports no layer code.
 
-theta: [B, N, C]; phi: [B, M, C]; g: [B, M, Cg] -> out [B, N, Cg].
+theta: [B, N, C]; phi: [B, M, C]; g: [B, M, Cg] -> out [B, N, Cg]. N and M
+are free: in the spatial layout (`ops.arch_ops.NonLocalBlock`) each worker
+passes its band's N / k queries against all M keys, and the key gradients
+it returns are its band's part of theirs.
 Scores, softmax and sums are f32 whatever the input type; `out` and
 `dtheta` come back in the input type, `mx`/`den` ([B, N, 1]) and the raw
 `dphi`/`dg` in f32, as the TPU kernels return them.

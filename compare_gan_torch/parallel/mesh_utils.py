@@ -26,6 +26,20 @@ Inside a train step `replica_context(replicas)` makes the group visible to
 the ops that read the batch as a whole (batch norm, the losses,
 `tpu_ops.batch_mean`). Outside it, as in evaluation and image summaries
 on rank 0, they compute over the local batch and start no collective.
+
+The spatial layout (counterpart of `make_mesh(extra_axes=(("model", k),))`
+and `compile_train_step(spatial=True)` there, mesh_utils.py:26-45,183-207)
+adds a second axis: the workers form a `data x model` grid, rank =
+data_rank * k + model_rank, so a model group is k consecutive ranks on one
+host, as the JAX mesh puts `model` last, inside a process's devices. A
+data rank's rows are cut into k bands of image height, band m on model
+rank m (`P("data", "model")`); labels, z and the sampled labels stay whole
+on every model rank of a data rank, which draw the same values. XLA
+derives every halo, moment and gradient sum of that layout from the
+sharding; here `tpu_ops` holds them as collectives of the model group
+(`model_group`), and the layers call them where they read rows of other
+bands (`ops.arch_ops`, the architectures that support the layout).
+Moments and gradients are summed over the whole grid.
 """
 
 from __future__ import annotations
@@ -55,12 +69,43 @@ TIMEOUT = datetime.timedelta(minutes=30)
 
 @dataclasses.dataclass(frozen=True)
 class Replicas:
-    """One worker's place among the data-parallel workers. `group` is the
-    torch.distributed process group (None: the default group)."""
+    """One worker's place among the workers. `group` is the
+    torch.distributed process group of all of them (None: the default
+    group). With `model_size` k > 1 they form a `data x model` grid (the
+    spatial layout): `model_group` holds the k workers that share this
+    worker's rows, each with one band of their image height."""
     rank: int
     world: int
     num_hosts: int = 1
     group: Any = None
+    model_size: int = 1
+    model_group: Any = None
+
+    @property
+    def model_rank(self) -> int:
+        """This worker's band of image height, 0 at the top."""
+        return self.rank % self.model_size
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.model_size
+
+    @property
+    def data_size(self) -> int:
+        """Workers that hold rows of their own."""
+        return self.world // self.model_size
+
+    def band(self, x):
+        """This worker's band of rows of image height (dim 1) of a whole
+        image batch."""
+        if self.model_size == 1:
+            return x
+        h = x.shape[1]
+        if h % self.model_size:
+            raise ValueError(f"An image height of {h} does not split into "
+                             f"{self.model_size} bands.")
+        n = h // self.model_size
+        return x[:, self.model_rank * n:(self.model_rank + 1) * n]
 
     @property
     def local_count(self) -> int:
@@ -73,12 +118,12 @@ class Replicas:
 
     def rows(self, x, global_rows: int):
         """This worker's block of a tensor or array whose leading dim is a
-        global batch of `global_rows` rows."""
-        if global_rows % self.world:
+        global batch of `global_rows` rows: its data rank's."""
+        if global_rows % self.data_size:
             raise ValueError(f"A global batch of {global_rows} rows does not "
-                             f"split over {self.world} workers.")
-        n = global_rows // self.world
-        return x[self.rank * n:(self.rank + 1) * n]
+                             f"split over {self.data_size} data ranks.")
+        n = global_rows // self.data_size
+        return x[self.data_rank * n:(self.data_rank + 1) * n]
 
     def _sent_rows(self, host_rows: torch.Tensor) -> torch.Tensor:
         """The global step batch holds every host's share in host order
@@ -107,7 +152,9 @@ class Replicas:
         every host's share: one all-to-all in which each worker sends
         each other worker the rows of its block of the host share that
         the other keeps, so T / W rows reach each worker. (With one host
-        every worker holds the whole batch and just takes its rows.)"""
+        every worker holds the whole batch and just takes its rows.) In
+        the spatial layout those are 1 / k of its data rank's rows, and
+        the model group gathers the k parts in order."""
         total = host_rows.shape[0] * self.num_hosts
         n, chunk = sub_batch // self.world, total // self.world
         sent = torch.arange(self.rank * chunk, (self.rank + 1) * chunk)
@@ -124,7 +171,16 @@ class Replicas:
             input_split_sizes=torch.bincount(
                 dest, minlength=self.world).tolist(),
             group=self.group)
-        return out
+        if self.model_size == 1:
+            return out
+        # [k parts, sub-steps, n rows] -> [sub-steps, k parts, n rows].
+        parts = out.new_zeros((self.model_size,) + tuple(out.shape))
+        parts[self.model_rank] = out
+        dist.all_reduce(parts, group=self.model_group)
+        steps = kept.numel() // n
+        return parts.reshape((self.model_size, steps, n)
+                             + tuple(out.shape[1:])).transpose(0, 1).reshape(
+            (-1,) + tuple(out.shape[1:]))
 
 
 @contextlib.contextmanager
@@ -187,24 +243,42 @@ def worker_device(device: str, local_rank: int,
 
 
 def init_process_group(rank: int, world: int, address: str, port: int,
-                       device: torch.device, num_hosts: int = 1,
-                       backend: Optional[str] = None) -> Replicas:
-    """Join the group of `world` workers at tcp://address:port as `rank`.
-    The backend follows the device (NCCL for CUDA, gloo for the CPU)
-    unless `backend` names one (gloo also takes CUDA tensors, and unlike
-    NCCL puts several workers on one device). Raises if the group cannot
-    form; there is no fallback to one process."""
+                       device=None, num_hosts: int = 1,
+                       backend: Optional[str] = None,
+                       model_size: int = 1) -> Replicas:
+    """Join the group of `world` workers at tcp://address:port as `rank`,
+    on `device` (by default the card of this host's rank: a CPU worker is
+    asked for with torch.device("cpu")). The backend follows the device
+    (NCCL for CUDA, gloo for the CPU) unless `backend` names one (gloo
+    also takes CUDA tensors, and unlike NCCL puts several workers on one
+    device). With `model_size` k > 1 the workers form the spatial layout's
+    `data x model` grid; each model group (k consecutive ranks) must lie
+    on one host. Raises if the group cannot form; there is no fallback to
+    one process."""
+    if world % num_hosts:
+        raise ValueError(f"{world} workers do not split over {num_hosts} "
+                         f"hosts.")
+    if model_size < 1 or (world // num_hosts) % model_size:
+        raise ValueError(f"A model group of {model_size} workers would span "
+                         f"hosts of {world // num_hosts} workers each: the "
+                         f"spatial layout keeps each group on one host.")
+    if device is None:
+        device = torch.device("cuda", rank % (world // num_hosts))
     if backend is None:
         backend = "nccl" if device.type == "cuda" else "gloo"
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    if world % num_hosts:
-        raise ValueError(f"{world} workers do not split over {num_hosts} "
-                         f"hosts.")
     dist.init_process_group(
         backend, init_method=f"tcp://{address}:{port}", rank=rank,
         world_size=world, timeout=TIMEOUT)
-    replicas = Replicas(rank=rank, world=world, num_hosts=num_hosts)
+    model_group = None
+    if model_size > 1:  # Every rank builds every group, in one order.
+        for first in range(0, world, model_size):
+            group = dist.new_group(list(range(first, first + model_size)))
+            if first <= rank < first + model_size:
+                model_group = group
+    replicas = Replicas(rank=rank, world=world, num_hosts=num_hosts,
+                        model_size=model_size, model_group=model_group)
     global _topology
     _topology = (num_hosts, replicas.host_id)
     return replicas

@@ -337,3 +337,31 @@ def test_convergence_phase_launches_are_those_of_the_configs(
     assert per_step == getattr(chip_smoke, launches)
     batch = dict(chip_smoke.CONVERGENCE_SHAPES)[shape][0]
     assert batch in {b for b, _ in calls}
+
+
+def test_spatial_shapes_are_the_main_path_shapes_in_two_bands():
+    """Each worker of the spatial phase's `1 x 2` grid holds 32 of the 64
+    rows of the 64x64 map: half the queries, all the pooled keys."""
+    for (name, band), (whole_name, whole) in zip(chip_smoke.SPATIAL_SHAPES,
+                                                 chip_smoke.SHAPES.items()):
+        assert name == whole_name + "_band"
+        b, n, m, c, cg = whole
+        assert band == (b, n // 2, m, c, cg) == (32, 2048, 1024, c, cg)
+
+
+def test_spatial_controls_patch_the_collectives_and_restore_them():
+    import torch
+    from compare_gan_torch.parallel import mesh_utils, tpu_ops
+    right = (tpu_ops.exchange_halos, tpu_ops.model_sum, tpu_ops.loss_shares)
+    grid = mesh_utils.Replicas(rank=3, world=4, model_size=2)
+    with chip_smoke.spatial_control("no_halo"):
+        x = torch.ones(1, 2, 3, 1)
+        padded = tpu_ops.exchange_halos(x, 1, 2)
+        assert padded.shape == (1, 5, 3, 1)
+        assert padded.sum() == x.sum()  # Zero rows, not a neighbour's.
+        assert tpu_ops.loss_shares(grid) == 4
+    with chip_smoke.spatial_control("k_times"):
+        assert tpu_ops.loss_shares(grid) == 2  # The data ranks only.
+        assert tpu_ops.model_sum is not right[1]
+    assert (tpu_ops.exchange_halos, tpu_ops.model_sum,
+            tpu_ops.loss_shares) == right

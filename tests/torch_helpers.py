@@ -378,3 +378,191 @@ def run_dp_ops(rank, world, port, workdir):
     finally:
         mesh_utils.destroy_process_group()
     np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
+
+
+# ---------------------------------------------------------------------------
+# The spatial layout's workers (tests/test_torch_spatial_*.py)
+# ---------------------------------------------------------------------------
+
+
+def _spatial_op_cases():
+    """{name: (build() -> module, input shape [B, H, W, C] of the whole
+    image, forward(module, x, y) -> (output, whether it is a band))}."""
+    from compare_gan_torch.architectures import resnet_ops
+    from compare_gan_torch.ops import arch_ops as ops
+    from compare_gan_torch.parallel import tpu_ops
+
+    def band(m, x, y):
+        return m(x), True
+
+    def bn(m, x, y):
+        return m(x, is_training=True), True
+
+    def cbn(m, x, y):
+        return m(x, is_training=True, y=y), True
+
+    def deconv(m, x, y):  # To twice the whole image's size.
+        return m(x, (2 * tpu_ops.image_rows(x), 2 * x.shape[2])), True
+
+    def whole(fn):
+        return lambda m, x, y: (fn(m, x), False)
+
+    return {
+        "conv3x3_sn": (lambda: ops.Conv2d(4, 5, 3, 3, use_sn=True),
+                       (2, 8, 6, 4), band),
+        "conv5x5_stride2": (lambda: ops.Conv2d(4, 5, 5, 5, 2, 2),
+                            (2, 16, 8, 4), band),
+        "conv1x1": (lambda: ops.conv1x1(4, 5), (2, 8, 6, 4), band),
+        "deconv5x5_stride2": (lambda: ops.Deconv2d(4, 5, 5, 5, 2, 2,
+                                                   use_sn=True),
+                              (2, 4, 4, 4), deconv),
+        "deconv5x5_stride2_one_row": (
+            lambda: ops.Deconv2d(4, 5, 5, 5, 2, 2), (2, 2, 2, 4), deconv),
+        "up_conv3x3": (lambda: ops.UpConv2d(4, 5, 3, 3, use_sn=True),
+                       (2, 4, 4, 4), band),
+        "up_conv1x1": (lambda: ops.UpConv2d(4, 5, 1, 1), (2, 4, 4, 4), band),
+        "down_conv3x3": (lambda: ops.DownConv2d(4, 5, 3, 3, use_sn=True),
+                         (2, 8, 8, 4), band),
+        "down_conv1x1": (lambda: ops.DownConv2d(4, 5, 1, 1), (2, 8, 8, 4),
+                         band),
+        "unpool_conv3x3": (lambda: resnet_ops.UnpoolConv2d(4, 5, 3, 3),
+                           (2, 4, 4, 4), band),
+        "conv3x3_avg_pool": (lambda: resnet_ops.ConvAvgPool2d(4, 5, 3, 3),
+                             (2, 8, 8, 4), band),
+        "batch_norm": (lambda: ops.BatchNorm(4), (3, 8, 6, 4), bn),
+        "conditional_batch_norm": (
+            lambda: ops.ConditionalBatchNorm(4, 3, use_sn=True),
+            (3, 8, 6, 4), cbn),
+        "non_local_block": (lambda: ops.NonLocalBlock(16, use_sn=True),
+                            (2, 8, 8, 16), band),
+        "linear_of_bands": (lambda: ops.Linear(8 * 6 * 4, 3, use_sn=True),
+                            (2, 8, 6, 4), whole(lambda m, x: m.of_bands(x))),
+        "spatial_sum": (lambda: ops.conv1x1(4, 5), (2, 8, 6, 4),
+                        whole(lambda m, x: tpu_ops.spatial_sum(m(x)))),
+    }
+
+
+def run_spatial_ops(rank, world, port, workdir):
+    """One gloo worker of tests/test_torch_spatial_ops.py: a `1 x world`
+    grid (every worker one band of image height). For each op of
+    `_spatial_op_cases`, from weights of one seed: its output on this
+    worker's band of `workdir/inputs.npz`'s whole input (`<op>/x`, and
+    `<op>/y` for the conditional one), and the gradients of sum(output *
+    r) (r: normal draws of seed 1 in the whole output's shape; this
+    worker's band of it, or all of it over `world` for an output every
+    worker holds whole) with respect to the band and to each parameter;
+    also each state buffer after the forward. Writes
+    `workdir/rank<r>.npz`; rank 0 also writes the one-process results
+    under `single/`."""
+    import os
+
+    from compare_gan_torch import core
+    from compare_gan_torch.parallel import mesh_utils
+
+    replicas = mesh_utils.init_process_group(
+        rank, world, "127.0.0.1", port, torch.device("cpu"),
+        model_size=world)
+    with np.load(os.path.join(workdir, "inputs.npz")) as d:
+        inputs = {k: torch.from_numpy(d[k]) for k in d.files}
+    out = {}
+    try:
+        runs = [("", replicas)] + ([("single/", None)] if rank == 0 else [])
+        for name, (build, _, forward) in _spatial_op_cases().items():
+            for prefix, reps in runs:
+                module = build()
+                core.assign_scopes(module, name)
+                core.initialize(module, name, 0)
+                if isinstance(getattr(module, "sigma", None), torch.Tensor):
+                    with torch.no_grad():
+                        module.sigma.fill_(0.5)  # Open the attention gate.
+                x = inputs[f"{name}/x"]
+                y = inputs.get(f"{name}/y")
+                if reps is not None:
+                    x = reps.band(x)
+                x = x.clone().requires_grad_()
+                params = [p for _, p in sorted(module.named_parameters())]
+                with mesh_utils.replica_context(reps):
+                    got, banded = forward(module, x, y)
+                shape = list(got.shape)
+                if reps is not None and banded:
+                    shape[1] *= world
+                r = torch.from_numpy(randn(shape, seed=1))
+                if reps is not None:
+                    r = reps.band(r) if banded else r / world
+                grads = torch.autograd.grad((got * r).sum(), [x] + params)
+                key = f"{prefix}{name}"
+                out[f"{key}/out"] = np32(got)
+                out[f"{key}/dx"] = np32(grads[0])
+                for (pname, _), g in zip(sorted(module.named_parameters()),
+                                         grads[1:]):
+                    out[f"{key}/d:{pname}"] = np32(g)
+                for bname, b in module.named_buffers():
+                    out[f"{key}/state:{bname}"] = np32(b)
+    finally:
+        mesh_utils.destroy_process_group()
+    np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
+
+
+def run_spatial_cases(rank, world, port, workdir, model_size=2):
+    """One gloo worker of tests/test_torch_spatial_step.py: joins a `world
+    / model_size x model_size` grid at 127.0.0.1:port and, for each case
+    of `workdir/cases.json`, takes one train step of the global batch and
+    draws in `workdir/<case>.npz` from the weights there, in the spatial
+    layout; then, on rank 0's behalf, with each of the case's faulty
+    `controls` (chip_smoke.spatial_control). Writes as `run_dp_cases`
+    does (`<case>/rank<r>`, on rank 0 also `<case>/single` and
+    `<case>/<control>`), and `hosts<r>.npz`: the step batch exchanged
+    between the grid's workers as two hosts."""
+    import json
+    import os
+    import sys
+
+    import chip_smoke
+    from compare_gan_torch import checkpoint, interop
+    from compare_gan_torch.parallel import mesh_utils
+
+    replicas = mesh_utils.init_process_group(
+        rank, world, "127.0.0.1", port, torch.device("cpu"),
+        model_size=model_size)
+    with open(os.path.join(workdir, "cases.json")) as f:
+        cases = json.load(f)
+    try:
+        for name, case in cases.items():
+            weights, batch, draws = case_inputs(
+                os.path.join(workdir, f"{name}.npz"))
+            runs = [(f"rank{rank}", replicas, None)] + [
+                (control, replicas, control)
+                for control in case.get("controls", ())]
+            if rank == 0:
+                runs.append(("single", None, None))
+            for tag, reps, control in runs:
+                gan = port_gan(case)
+                ts = gan.init_state(seed=1)
+                interop.load_state_dict(ts, {k: interop.to_port(v)
+                                             for k, v in weights.items()})
+                step = gan.make_train_step(case["batch"], reps)
+                with chip_smoke.spatial_control(control):
+                    ts, metrics = step(ts, batch, draws=draws)
+                mesh_utils.assert_replicated(checkpoint.live_tensors(ts),
+                                             reps)
+                if rank and not tag.startswith("rank"):
+                    continue
+                out = os.path.join(workdir, name, tag)
+                checkpoint.write_arrays(out, checkpoint.to_arrays(ts), 1)
+                np.savez(os.path.join(out, "metrics.npz"),
+                         **{k: np32(v) for k, v in metrics.items()})
+        # Two hosts of two workers: each host holds its half of a step
+        # batch of 3 sub-steps of 8 rows.
+        hosts = mesh_utils.Replicas(
+            rank=rank, world=world, num_hosts=2, model_size=model_size,
+            model_group=replicas.model_group)
+        step_batch = torch.arange(24 * 2, dtype=torch.float32).reshape(24, 2)
+        share = len(step_batch) // 2
+        np.savez(os.path.join(workdir, f"hosts{rank}.npz"),
+                 blocks=np32(hosts.exchange_blocks(
+                     step_batch[hosts.host_id * share:
+                                (hosts.host_id + 1) * share], 8)))
+    finally:
+        mesh_utils.destroy_process_group()
+    with open(os.path.join(workdir, f"rank{rank}.modules"), "w") as f:
+        f.write("\n".join(sorted({m.split(".")[0] for m in sys.modules})))
