@@ -95,17 +95,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    Spatial (after (b)): two spawned gloo workers on cuda:0 as a `data 1
    x model 2` grid (image height in two bands of 64 rows: halo rows in
    every conv, moments over the grid, the attention on each band's 2048
-   queries against all 1024 keys) take one BigGAN-128 step at full width
-   with the benchmark options and Adam's epsilon at 1e-3, in bf16 and in
-   f32 (TF32 off, deterministic cuDNN). The f32 state is held to the
-   one-process step by state kind (DP_TOL), and two faulty controls
-   (SPATIAL_CONTROLS: convs without halos; the gradients of what every
-   model rank computes whole summed twice) must fail it; the bf16 gaps
-   are printed beside the one-process step's own spread with autotuned
+   queries against all 1024 keys) take one step of each of SPATIAL_CASES
+   at full width with Adam's epsilon at 1e-3: BigGAN-128 with the
+   benchmark options and BigGAN-deep-128 as phase 11 runs it, each in
+   bf16 and in f32; S3GAN-128 as phase 8 runs it (rotations turned whole
+   across the bands, D on 38 rows) and ResNet5 with WGAN-GP as published
+   (batch 64, 5 D sub-steps with the penalty's double backward through
+   the halos), in f32. Every f32 step (TF32 off, deterministic cuDNN) is
+   held to the one-process step by state kind (DP_TOL), and the case's
+   faulty controls (SPATIAL_CONTROLS: convs without halos and the
+   gradients of what every model rank computes whole summed twice on
+   both BigGANs; each band turned by itself on S3GAN; the slope from a
+   band's gradient alone on ResNet5) must fail it; the bf16 gaps are
+   printed beside the one-process step's own spread with autotuned
    cuDNN. Ranks bitwise equal, all finite, 5 forward and 4 backward
-   launches a worker in each precision, every one at N 2048, M 1024 and
-   held to the plain version on its operands. The bf16 step's launches
-   count as the main path's.
+   launches a worker in each precision (none on ResNet5), every one at N
+   2048, M 1024 and the case's C, Cg, held to the plain version on its
+   operands. The launches of each case's phase precision (bf16 on the
+   BigGANs, f32 on S3GAN) count as the main path's.
 8. S3GAN main path: 3 steps of S3GAN on BigGAN-128 at full width through
    the CLI with example_configs/s3gan32_polygons_partial.gin on fake
    ImageNet-128: batch 16, rotation (rotated_batch_fraction 4), projection
@@ -206,9 +213,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    exceed that bound. Launches: 6 forward and 4 backward a step through
    the kernels, none in the plain runs (a comparison: not counted as the
    main path's).
-16. Prints the eval shape's forward row, the spatial bands' bf16 rows
-   (`spatial_shape {...}`: G after B4 and D after B1 at B 32, N 2048, M
-   1024, with the spatial step's launches), the spatial summary
+16. Prints the eval shape's forward row, the spatial bands' rows in f32
+   and bf16 (`spatial_shape {...}`: BigGAN-128's G after B4 and D after
+   B1 and BigGAN-deep's B8/B2 at B 32, S3GAN's D after B1 at B 38, all at
+   N 2048, M 1024, with the spatial phase's launches), the spatial summary
    (`spatial {...}`), the S3GAN D shape's bf16 row and the BigGAN-deep
    rows as JSON lines of their own (`eval_shape_forward
    {...}`, `s3gan_shape {...}`, one `biggan_deep_shape {...}` per type and
@@ -226,6 +234,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 """
 
 import contextlib
+import copy
+import dataclasses
 import json
 import os
 import shutil
@@ -260,11 +270,15 @@ DEEP_PARAMS = (50244484, 34590210)
 # only, after B1 at 16x16 (N 256, M 64) on 2 * 64 + 2 * 3 * 4 = 152 rows.
 CONVERGENCE_SHAPES = (("G_B4_b16", (16, 4096, 1024, 24, 96)),
                       ("D_B1_s3gan32", (152, 256, 64, 24, 96)))
-# The spatial phase's bands (BigGAN-128 at batch 16, bf16, image height in
-# 2 bands): G after B4 and D after B1 on 32 rows, each worker's 2048 queries
-# (32 of 64 rows of the 64x64 map) against all 1024 pooled keys.
+# The spatial phase's bands (image height in 2 bands), run in f32 and bf16:
+# each worker's 2048 queries (32 of 64 rows of the 64x64 map) against all
+# 1024 pooled keys. BigGAN-128 at batch 16: G after B4 and D after B1 on 32
+# rows; BigGAN-deep-128: G after B8 and D after B2 on 32 rows; S3GAN-128:
+# D after B1 on its 38 rows.
 SPATIAL_SHAPES = (("G_B4_band", (32, 2048, 1024, 24, 96)),
-                  ("D_B1_band", (32, 2048, 1024, 12, 48)))
+                  ("D_B1_band", (32, 2048, 1024, 12, 48)),
+                  ("G_B8_D_B2_deep_band", (32, 2048, 1024, 32, 128)),
+                  ("D_B1_s3gan_band", (S3GAN_D_ROWS, 2048, 1024, 12, 48)))
 DEEP_BINDINGS = ("options.architecture = 'resnet_biggan_deep_arch'",
                  "options.z_dim = 128")
 # The eval tasks of the two eval phases that add tasks (class names of
@@ -460,17 +474,19 @@ def _cases():
     for shape in CONVERGENCE_SHAPES:
         yield shape + ("float32", True, False)
     for shape in SPATIAL_SHAPES:
-        yield shape + ("bfloat16", True, False)
+        for dtype_name in ("float32", "bfloat16"):
+            yield shape + (dtype_name, True, False)
 
 
-def compare_kernels(torch):
-    """Kernel vs plain version per shape and type. Returns per kernel its
-    max abs error over every case, and times and bounds summed over the
-    bf16 training shapes; the eval shape's forward row; the S3GAN D
+def compare_kernels(torch, shapes=None):
+    """Kernel vs plain version per shape and type (of `shapes`, (name,
+    shape) pairs, when given). Returns per kernel its max abs error over
+    every case, and times and bounds summed over the bf16 training
+    shapes; the eval shape's forward row; the S3GAN D
     shape's bf16 row (forward and backward); the BigGAN-deep rows (each
     type's forward and backward at batch 32, the eval forward); the
-    convergence configurations' f32 rows; and the spatial bands' bf16
-    rows."""
+    convergence configurations' f32 rows; and the spatial bands' rows in
+    each type."""
     _phase("kernels")
     from compare_gan_torch.ops import fused_attention as fa
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -481,6 +497,8 @@ def compare_kernels(torch):
     eval_row = s3gan_row = None
     deep_rows, convergence_rows, spatial_rows = [], [], []
     for name, (b, n, m, c, cg), dtype_name, with_bwd, summed in _cases():
+        if shapes is not None and (name, (b, n, m, c, cg)) not in shapes:
+            continue
         dtype = getattr(torch, dtype_name)
         tol = TOL[dtype_name]
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -1040,6 +1058,13 @@ DP_TOL = {"params": (5e-2, 1e-4), "ema": (5e-2, 1e-4),
           "sn_u": (1e-2, 0.0), "bn_accumulators": (0.0, 0.0)}
 
 
+# The spatial phase's tolerances: DP_TOL's, and for batch norm's moving
+# moments (ResNet5's G), which a step updates from the batch's moments
+# summed over the bands in another order: 1e-4 of a tensor's rms (f32
+# sums over a million elements; a fault moves them by 1e-2 or more).
+SPATIAL_TOL = dict(DP_TOL, bn_moving=(1e-4, 0.0))
+
+
 def _state_kind(key):
     if key.startswith(".ema_params"):
         return "ema"
@@ -1051,6 +1076,8 @@ def _state_kind(key):
         return "adam_nu"
     if key.endswith("u_var']"):
         return "sn_u"
+    if "/moving_" in key:
+        return "bn_moving"
     return "bn_accumulators"
 
 
@@ -1147,9 +1174,9 @@ def _dp_worker(rank, port, out):
 
 
 # The spatial phase's faulty controls, each a fault of the spatial layout
-# that DP_TOL must catch (tests/test_torch_spatial_step.py holds them to
-# the CPU's tolerances too).
-SPATIAL_CONTROLS = ("no_halo", "k_times")
+# that DP_TOL must catch (tests/test_torch_spatial_{step,zoo}.py hold them
+# to the CPU's tolerances too).
+SPATIAL_CONTROLS = ("no_halo", "k_times", "local_rotation", "band_slope")
 
 
 @contextlib.contextmanager
@@ -1160,11 +1187,16 @@ def spatial_control(name):
     share, and the model group's sum passes its gradient back unsummed (a
     tensor-parallel layer's recipe): band gradients stay right, but those
     of what every model rank computes whole (D's last linear layer and
-    projection embedding) are summed k times over the grid."""
+    projection embedding) are summed k times over the grid.
+    "local_rotation": SSGAN's and S3GAN's quarter-turns turn each band by
+    itself (its pixels read back in the band's shape), not the whole
+    image. "band_slope": the gradient penalties' slope of each image from
+    the band's gradient alone, not summed over the model group."""
     if name is None:
         yield
         return
     import torch
+    from compare_gan_torch import utils
     from compare_gan_torch.parallel import tpu_ops
     summed = tpu_ops.model_sum
 
@@ -1182,10 +1214,17 @@ def spatial_control(name):
         return torch.cat([x.new_zeros((x.shape[0], lo) + rest), x,
                           x.new_zeros((x.shape[0], hi) + rest)], 1)
 
+    def local_rotation(x, rot90_scalars=(0, 1, 2, 3)):
+        return torch.cat([utils.rotate_images(x, (k,)).reshape(x.shape)
+                          for k in rot90_scalars])
+
     faults = {"no_halo": {"exchange_halos": zero_halos},
               "k_times": {"model_sum": Unsummed.apply,
                           "loss_shares": lambda replicas:
-                          replicas.data_size}}[name]
+                          replicas.data_size},
+              "local_rotation": {"rotate_bands": local_rotation},
+              "band_slope": {"image_sum": lambda x: x.sum(
+                  dim=tuple(range(1, x.dim())))}}[name]
     right = {attr: getattr(tpu_ops, attr) for attr in faults}
     for attr, fault in faults.items():
         setattr(tpu_ops, attr, fault)
@@ -1196,34 +1235,79 @@ def spatial_control(name):
             setattr(tpu_ops, attr, fn)
 
 
-# The spatial phase's precisions: bf16 is the benchmark options' main path;
-# f32 (TF32 off) is where DP_TOL tells the layout from its faults. In bf16
-# each band's sums round otherwise than the whole image's, and the step's
-# gradients carry that through some forty layers of bf16 activations: in
-# a dry run on the CPU at ch 16 (`_spatial_worker(..., device="cpu",
-# bindings=...)`, batch 4) the bf16 grid's state lay 19.4 (parameters) to
-# 1.70e3 (Adam's second moment) times DP_TOL from the one-process step's,
-# as far as the f32 k_times control's (10.4 to 150), where the f32 grid's
-# lay within 0.101. On an NVIDIA H100 80GB HBM3 at 700 W the one-process
-# bf16 step with autotuned cuDNN itself lay 10.9-14.1 (parameters) and
-# 34.6-62.7 (Adam's second moment) times DP_TOL from the deterministic
-# one, the grid 18.5 and 146. So the bf16 step's gaps are printed beside
-# that spread, and DP_TOL holds the f32 step.
-SPATIAL_PRECISIONS = ("bfloat16", "float32")
+# The spatial phase's cases, each one step on a `data 1 x model 2` grid of
+# two gloo workers on cuda:0 (Adam's epsilon at 1e-3) against the
+# one-process step: the config and the bindings over it; the precisions,
+# f32 (TF32 off, deterministic cuDNN) held to DP_TOL and bf16 printed beside
+# the one-process step's own spread; the faulty controls
+# (`spatial_control`, in f32), each with the state kinds it must fail;
+# the attention launches a worker makes in a step (forward, backward) and
+# the (N, M, C, Cg) of every launch; the images' size and classes (None:
+# unconditional), every third row unlabeled (S3GAN's partial labels), and
+# whether the one-process f32 step runs twice (`again`: 0 shows it
+# deterministic; once, on the first case, to keep the phase's time).
+#
+# In bf16 each band's sums round otherwise than the whole image's, and the
+# step's gradients carry that through some forty layers of bf16
+# activations: in a dry run on the CPU at ch 16 the bf16 grid's state lay
+# 19.4 (parameters) to 1.70e3 (Adam's second moment) times DP_TOL from the
+# one-process step's, as far as the f32 k_times control's (10.4 to 150),
+# where the f32 grid's lay within 0.101. On an NVIDIA H100 80GB HBM3 at
+# 700 W the one-process bf16 step of BigGAN-128 with autotuned cuDNN
+# itself lay 10.9-14.1 (parameters) and 34.6-62.7 (Adam's second moment)
+# times DP_TOL from the deterministic one, the grid 18.5 and 146. So the
+# bf16 steps' gaps are printed beside that spread, and DP_TOL holds f32.
+_CAUGHT = {"params", "adam_mu", "adam_nu"}
+SPATIAL_CASES = {
+    # BigGAN-128 with the benchmark options (PR 13's case).
+    "biggan128": dict(
+        config="biggan_imagenet128.gin", bindings=BIGGAN_BINDINGS,
+        precisions=("bfloat16", "float32"),
+        controls={"no_halo": _CAUGHT | {"ema", "sn_u"}, "k_times": _CAUGHT},
+        launches=(5, 4), attention={(2048, 1024, 24, 96),
+                                    (2048, 1024, 12, 48)},
+        image=128, classes=1000, again=True),
+    # BigGAN-deep-128 as phase 11 runs it (ch 128, z_dim 128; G f32 by
+    # the z/label promotion, D bf16 under compute_dtype = bfloat16).
+    "biggan_deep128": dict(
+        config="biggan_imagenet128.gin",
+        bindings=BIGGAN_BINDINGS + DEEP_BINDINGS,
+        precisions=("bfloat16", "float32"),
+        controls={"no_halo": _CAUGHT, "k_times": _CAUGHT},
+        launches=(5, 4), attention={(2048, 1024, 32, 128)},
+        image=128, classes=1000),
+    # S3GAN on BigGAN-128 as phase 8 runs it (D on 38 rows), f32.
+    "s3gan128": dict(
+        config="s3gan32_polygons_partial.gin", bindings=(
+            "dataset.name = 'imagenet_128'",
+            f"options.batch_size = {S3GAN_BATCH}",
+            f"S3GAN.rotated_batch_fraction = {S3GAN_ROTATED_FRACTION}",
+            "S3GAN.experimental_joint_gen_for_disc = True"),
+        precisions=("float32",), controls={"local_rotation": _CAUGHT},
+        launches=(5, 4), attention={(2048, 1024, 24, 96),
+                                    (2048, 1024, 12, 48)},
+        image=128, classes=1000, unlabeled=True),
+    # ResNet5 with WGAN-GP as published (batch 64, 5 D sub-steps, each with
+    # the penalty's double backward through the halos), f32.
+    "resnet5_wgangp": dict(
+        config="resnet_lsun-bedroom128.gin", bindings=(),
+        precisions=("float32",), controls={"band_slope": _CAUGHT},
+        launches=(0, 0), attention=set(), image=128, classes=None),
+}
 
 
-def run_spatial(torch, model_dir):
+def run_spatial(torch, model_dir, cases=tuple(SPATIAL_CASES)):
     """Two spawned gloo workers on cuda:0 as a `data 1 x model 2` grid take
-    one BigGAN-128 step at full width in the spatial layout (image height
-    in two bands of 64 rows) with the benchmark options (batch 16, joint G
-    forward, fake-only G loss) and Adam's epsilon at 1e-3, in bf16 and in
-    f32 (SPATIAL_PRECISIONS). The f32 step is held to the one-process step
-    by state kind (DP_TOL) and the faulty controls (SPATIAL_CONTROLS, f32)
-    must fail it; the bf16 step's gaps are printed beside the one-process
-    step's own spread. Every attention launch of either step runs on the
-    band's 2048 queries against 1024 keys and is held to the plain version
-    on its operands. Returns (both workers' launches in the bf16 step,
-    summary)."""
+    one step of each of `cases` (names of SPATIAL_CASES) at full width in
+    the spatial layout (image height in two bands of 64 rows), in each of
+    its precisions; the f32 step is held to the one-process step by state
+    kind (SPATIAL_TOL) and the case's faulty controls must fail it; a bf16
+    step's gaps are
+    printed beside the one-process step's own spread. Every attention
+    launch runs on a band's 2048 queries against 1024 keys at the case's
+    widths and is held to the plain version on its operands. Returns (both
+    workers' launches in each case's first precision, the one its phase
+    runs: bf16 for BigGAN-128 and BigGAN-deep, f32 for S3GAN; summary)."""
     _phase("spatial")
     print("-- two gloo workers on cuda:0, a data 1 x model 2 grid, against "
           "one process (gloo copies through the host on one card: its "
@@ -1233,61 +1317,71 @@ def run_spatial(torch, model_dir):
     from compare_gan_torch.parallel import mesh_utils
     t0 = time.perf_counter()
     torch.multiprocessing.start_processes(
-        _spatial_worker, args=(mesh_utils.free_port(), out), nprocs=2,
-        join=True, start_method="spawn")
+        _spatial_worker, args=(mesh_utils.free_port(), out, "cuda",
+                               list(cases)),
+        nprocs=2, join=True, start_method="spawn")
     with open(out) as f:
-        result = json.load(f)
-    result["seconds"] = time.perf_counter() - t0
-    for precision in SPATIAL_PRECISIONS:
-        gaps = result["gaps"][precision]
-        for kind, (rtol, atol) in DP_TOL.items():
-            print(f"{precision} {kind} (tol {rtol:.3g} of a tensor's rms + "
-                  f"{atol:.3g} of the largest): " + "; ".join(
-                      f"{run} {g[kind]['max']:.3g} abs, "
-                      f"{g[kind]['ratio']:.3g} of tol"
-                      for run, g in gaps.items()))
-    print(f"ranks bitwise equal: {result['bitwise']}; all finite: "
-          f"{result['finite']}; launches per rank {result['launches']}; "
-          f"shapes (B, N, M) {result['shapes']}; largest kernel error over "
-          f"the plain version, as a share of its tolerance: "
-          f"{result['kernel_err_ratio']:.3g}; step seconds (gloo through "
-          f"the host on one card) {result['step_seconds']}, phase "
-          f"{result['seconds']:.1f}")
-    failed = [k for k, g in result["gaps"]["float32"]["spatial"].items()
-              if g["ratio"] > 1]
-    shapes = {tuple(x) for rank in result["shapes"] for x in rank}
-    if failed or not all(result["bitwise"].values()) \
-            or not all(result["finite"].values()) \
-            or any(per_rank != [{"fwd": 5, "bwd": 4}] * 2
-                   for per_rank in result["launches"].values()) \
-            or {(n, m) for _, n, m in shapes} != {(2048, 1024)} \
-            or result["kernel_err_ratio"] > 1:
-        raise AssertionError(f"the spatial step disagrees with one process "
-                             f"or its kernels with plain: {failed} {result}")
-    must_fail = {"no_halo": {"params", "ema", "adam_mu", "adam_nu", "sn_u"},
-                 "k_times": {"params", "adam_mu", "adam_nu"}}
-    for control in SPATIAL_CONTROLS:
-        caught = {k for k, g in result["gaps"]["float32"][control].items()
-                  if g["ratio"] > 1}
-        if not must_fail[control] <= caught:
-            raise AssertionError(f"DP_TOL passes the {control} control: "
-                                 f"{caught}")
-    launches = {k: sum(rank[k] for rank in result["launches"]["bfloat16"])
-                for k in ("fwd", "bwd")}
-    return launches, result
+        results = json.load(f)
+    launches = {"fwd": 0, "bwd": 0}
+    failures = []
+    for name in cases:
+        case, result = SPATIAL_CASES[name], results[name]
+        print(f"-- {name}: step seconds (gloo through the host on one "
+              f"card) {result['step_seconds']}, one process "
+              f"{result['single_step_seconds']}, case "
+              f"{result['seconds']:.1f}")
+        for precision in case["precisions"]:
+            gaps = result["gaps"][precision]
+            for kind, (rtol, atol) in SPATIAL_TOL.items():
+                print(f"{name} {precision} {kind} (tol {rtol:.3g} of a "
+                      f"tensor's rms + {atol:.3g} of the largest): "
+                      + "; ".join(f"{run} {g[kind]['max']:.3g} abs, "
+                                  f"{g[kind]['ratio']:.3g} of tol"
+                                  for run, g in gaps.items()))
+        print(f"{name}: ranks bitwise equal {result['bitwise']}; all finite "
+              f"{result['finite']}; launches per rank {result['launches']}; "
+              f"shapes (N, M, C, Cg) {result['shapes']}; largest kernel "
+              f"error over the plain version, as a share of its tolerance: "
+              f"{result['kernel_err_ratio']:.3g}")
+        failed = [k for k, g in result["gaps"]["float32"]["spatial"].items()
+                  if g["ratio"] > 1]
+        want = {"fwd": case["launches"][0], "bwd": case["launches"][1]}
+        if failed or not all(result["bitwise"].values()) \
+                or not all(result["finite"].values()) \
+                or any(per_rank != [want] * 2
+                       for per_rank in result["launches"].values()) \
+                or {tuple(x) for x in result["shapes"]} != case["attention"] \
+                or result["kernel_err_ratio"] > 1:
+            failures.append(f"{name}: the spatial step disagrees with one "
+                            f"process or its kernels with plain: {failed}")
+        for control, must_fail in case["controls"].items():
+            caught = {k for k, g in result["gaps"]["float32"][control].items()
+                      if g["ratio"] > 1}
+            if not must_fail <= caught:
+                failures.append(f"{name}: DP_TOL passes the {control} "
+                                f"control: {caught}")
+        for k in launches:
+            launches[k] += sum(rank[k] for rank in
+                               result["launches"][case["precisions"][0]])
+    results["seconds"] = time.perf_counter() - t0
+    if failures:
+        raise AssertionError(f"{failures} {results}")
+    return launches, results
 
 
-def _spatial_worker(rank, port, out, device="cuda", bindings=()):
-    """One of two gloo workers on cuda:0 in a `data 1 x model 2` grid: one
-    BigGAN-128 step of batch 16 (BIGGAN_BINDINGS, Adam's epsilon at 1e-3,
-    and `bindings`) in each of SPATIAL_PRECISIONS, TF32 off and
-    deterministic cuDNN, with every attention launch checked
-    (`_checked_attention`); its state against rank 0's bitwise; then the
-    f32 step with each control. Rank 0 then takes the one-process step of
-    the same batch and draws in each precision, the f32 one again, then
-    both with autotuned cuDNN, and writes each run's gaps (`_state_gaps`)
-    to `out` as JSON. (device="cpu" and narrower `bindings` make a dry run
-    off the card, with no launch.)"""
+def _spatial_worker(rank, port, out, device="cuda", cases=None,
+                    bindings=None):
+    """One of two gloo workers on cuda:0 in a `data 1 x model 2` grid: for
+    each case of SPATIAL_CASES (`cases`: their names, all by default), one
+    step of its config (Adam's epsilon at 1e-3, and the case's `bindings`
+    entry) in each of its precisions, TF32 off and deterministic cuDNN,
+    with every attention launch checked (`_checked_attention`); its state
+    against rank 0's bitwise; then the f32 step with each control. Rank 0
+    then takes the one-process step of the same batch and draws in each
+    precision, the f32 one again, then each with autotuned cuDNN, and
+    writes each run's gaps (`_state_gaps`) to `out` as JSON. (device="cpu"
+    and narrower `bindings` make a dry run off the card, with no
+    launch.)"""
     sys.path.insert(0, ROOT)
     import numpy as np
     import torch
@@ -1297,96 +1391,160 @@ def _spatial_worker(rank, port, out, device="cuda", bindings=()):
     from compare_gan_torch.ops import fused_attention as fa
     from compare_gan_torch.parallel import mesh_utils
     del gans  # Imported for its gin registrations.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
     device = torch.device(device, 0) if device == "cuda" else torch.device(
         device)
     replicas = mesh_utils.init_process_group(
         rank, 2, "127.0.0.1", port, device, backend="gloo", model_size=2)
-    gin.parse_config_files_and_bindings(
-        [os.path.join(ROOT, "example_configs", "biggan_imagenet128.gin")],
-        list(BIGGAN_BINDINGS) + ["tf.train.AdamOptimizer.epsilon = 1e-3"]
-        + list(bindings))
-    datasets.set_fake_dataset(True)
-    options = runner_lib.get_options_dict()
-    batch_size = options["batch_size"]
-    rng = np.random.RandomState(0)
-    total = batch_size * (options["disc_iters"] + 1)
-    batch = {"images": rng.rand(total, 128, 128, 3).astype(np.float32),
-             "labels": rng.randint(0, 1000, total).astype(np.int32)}
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize()
 
-    def step(reps, precision, init=None, control=None):
+    def deterministic(on):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = on
+        torch.backends.cudnn.benchmark = not on
+
+    def configure(name):
+        """Parse the case's config; returns (options, the step batch)."""
+        case = SPATIAL_CASES[name]
+        gin.clear_config()
+        gin.parse_config_files_and_bindings(
+            [os.path.join(ROOT, "example_configs", case["config"])],
+            list(case["bindings"]) + ["tf.train.AdamOptimizer.epsilon = 1e-3"]
+            + list((bindings or {}).get(name, ())))
+        datasets.set_fake_dataset(True)
+        options = runner_lib.get_options_dict()
+        rng = np.random.RandomState(0)
+        total = options["batch_size"] * (options["disc_iters"] + 1)
+        size = case["image"]
+        labels = rng.randint(0, case["classes"] or 1, total).astype(np.int32)
+        if case.get("unlabeled"):
+            labels[::3] = -1
+        return options, {"images": rng.rand(total, size, size, 3).astype(
+            np.float32), "labels": labels}
+
+    def build(options, precision):
+        """The case's GAN in `precision` and its TrainState from seed 0,
+        with what init_state left (every live tensor, the optimizers'
+        scalar fields): each run starts from it, with no second init."""
         gan = options["gan_class"](dataset=datasets.get_dataset(),
                                    parameters=options, model_dir="unused",
                                    device=device, compute_dtype=(
                                        None if precision == "float32"
                                        else precision))
         ts = gan.init_state(seed=0)
+        tensors = {k: v.detach().clone()
+                   for k, v in checkpoint.live_tensors(ts).items()}
+        scalars = [{f.name: copy.deepcopy(getattr(opt, f.name))
+                    for f in dataclasses.fields(opt)
+                    if not isinstance(getattr(opt, f.name), dict)}
+                   for opt in (ts.g_opt, ts.d_opt)]
+        return options, gan, ts, tensors, scalars
+
+    def step(built, batch, reps, init=None, control=None):
+        options, gan, ts, tensors, scalars = built
+        with torch.no_grad():
+            for k, v in checkpoint.live_tensors(ts).items():
+                v.copy_(tensors[k])
+        for opt, fields in zip((ts.g_opt, ts.d_opt), scalars):
+            for name, value in fields.items():
+                setattr(opt, name, copy.deepcopy(value))
+        ts.step = ts.disc_step = 0
         if init is not None:  # The parameters and EMA before the step.
             init.update({k: v.detach().clone() for k, v in
                          checkpoint.live_tensors(ts).items()
                          if _state_kind(k) in ("params", "ema")})
-        train_step = gan.make_train_step(batch_size, reps)
+        train_step = gan.make_train_step(options["batch_size"], reps)
         sync()
         t0 = time.perf_counter()
         with spatial_control(control):
             ts, _ = train_step(ts, batch)
         sync()
-        return checkpoint.live_tensors(ts), time.perf_counter() - t0
+        seconds = time.perf_counter() - t0
+        return {k: v.detach().clone() for k, v in
+                checkpoint.live_tensors(ts).items()}, seconds
 
-    states = {p: {} for p in SPATIAL_PRECISIONS}
-    mine = {"launches": {}, "bitwise": {}, "finite": {}, "seconds": {}}
-    checked = {"shapes": [], "ratio": 0.0}
+    names = list(cases or SPATIAL_CASES)
+    states, gathered, seconds = {}, {}, {}
     try:
-        for precision in SPATIAL_PRECISIONS:
-            with _checked_attention(torch, fa, checked):
-                fa.launches_fwd = fa.launches_bwd = 0
-                state, mine["seconds"][precision] = step(replicas, precision)
-                mine["launches"][precision] = {"fwd": fa.launches_fwd,
-                                               "bwd": fa.launches_bwd}
-            states[precision]["spatial"] = state
-            mine["finite"][precision] = all(
-                bool(torch.isfinite(t).all()) for t in state.values()
-                if t.is_floating_point())
-            try:
-                mesh_utils.assert_replicated(state, replicas)
-                mine["bitwise"][precision] = True
-            except AssertionError:
-                mine["bitwise"][precision] = False
-        mine.update(checked)
-        gathered = [None, None]
-        torch.distributed.all_gather_object(gathered, mine)
-        for control in SPATIAL_CONTROLS:
-            states["float32"][control], _ = step(replicas, "float32",
-                                                 control=control)
+        for name in names:
+            t0 = time.perf_counter()
+            case = SPATIAL_CASES[name]
+            deterministic(True)
+            options, batch = configure(name)
+            built = {p: build(options, p) for p in case["precisions"]}
+            states[name] = {p: {} for p in case["precisions"]}
+            mine = {"launches": {}, "bitwise": {}, "finite": {},
+                    "seconds": {}}
+            checked = {"shapes": [], "ratio": 0.0}
+            for precision in case["precisions"]:
+                with _checked_attention(torch, fa, checked):
+                    fa.launches_fwd = fa.launches_bwd = 0
+                    state, mine["seconds"][precision] = step(
+                        built[precision], batch, replicas)
+                    mine["launches"][precision] = {"fwd": fa.launches_fwd,
+                                                   "bwd": fa.launches_bwd}
+                states[name][precision]["spatial"] = state
+                mine["finite"][precision] = all(
+                    bool(torch.isfinite(t).all()) for t in state.values()
+                    if t.is_floating_point())
+                try:
+                    mesh_utils.assert_replicated(state, replicas)
+                    mine["bitwise"][precision] = True
+                except AssertionError:
+                    mine["bitwise"][precision] = False
+            mine.update(checked)
+            gathered[name] = [None, None]
+            torch.distributed.all_gather_object(gathered[name], mine)
+            for control in case["controls"]:
+                states[name]["float32"][control], _ = step(
+                    built["float32"], batch, replicas, control=control)
+            del built
+            seconds[name] = time.perf_counter() - t0
     finally:
         mesh_utils.destroy_process_group()
     if rank != 0:
         return
-    init = {p: {} for p in SPATIAL_PRECISIONS}
-    want = {p: step(None, p, init[p])[0] for p in SPATIAL_PRECISIONS}
-    states["float32"]["again"], _ = step(None, "float32")
-    torch.backends.cudnn.deterministic = False
-    torch.backends.cudnn.benchmark = True
-    for precision in SPATIAL_PRECISIONS:
-        states[precision]["autotuned"], _ = step(None, precision)
-    gaps = {p: {run: _state_gaps(state, want[p], init[p])
-                for run, state in states[p].items()}
-            for p in SPATIAL_PRECISIONS}
-    first = gathered[0]
+    results = {}
+    for name in names:
+        t0 = time.perf_counter()
+        case = SPATIAL_CASES[name]
+        deterministic(True)
+        options, batch = configure(name)
+        built = {p: build(options, p) for p in case["precisions"]}
+        init = {p: {} for p in case["precisions"]}
+        want, single_seconds = {}, {}
+        for p in case["precisions"]:
+            want[p], single_seconds[p] = step(built[p], batch, None, init[p])
+        if case.get("again"):
+            states[name]["float32"]["again"], _ = step(built["float32"],
+                                                       batch, None)
+        deterministic(False)
+        for precision in case["precisions"]:
+            states[name][precision]["autotuned"], _ = step(
+                built[precision], batch, None)
+        first = gathered[name][0]
+        results[name] = {
+            "gaps": {p: {run: _state_gaps(state, want[p], init[p],
+                                          SPATIAL_TOL)
+                         for run, state in states[name][p].items()}
+                     for p in case["precisions"]},
+            "bitwise": first["bitwise"], "finite": first["finite"],
+            "step_seconds": first["seconds"],
+            "single_step_seconds": single_seconds,
+            "launches": {p: [g["launches"][p] for g in gathered[name]]
+                         for p in case["precisions"]},
+            "shapes": sorted({tuple(x[1:]) for g in gathered[name]
+                              for x in g["shapes"]}),
+            "kernel_err_ratio": max(g["ratio"] for g in gathered[name]),
+            "seconds": seconds[name] + time.perf_counter() - t0}
+        del states[name], want, init, built
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
     with open(out, "w") as f:
-        json.dump({
-            "gaps": gaps, "bitwise": first["bitwise"],
-            "finite": first["finite"], "step_seconds": first["seconds"],
-            "launches": {p: [g["launches"][p] for g in gathered]
-                         for p in SPATIAL_PRECISIONS},
-            "shapes": [g["shapes"] for g in gathered],
-            "kernel_err_ratio": max(g["ratio"] for g in gathered)}, f)
+        json.dump(results, f)
 
 
 @contextlib.contextmanager
@@ -1394,8 +1552,8 @@ def _checked_attention(torch, fa, checked):
     """Within the block each launch of the attention kernels is followed by
     the plain version on the same operands (no launch): its outputs must
     agree within TOL (abs + rel) of their type, mx and den within 1e-4.
-    `checked` gathers each launch's (B, N, M) and the largest error as a
-    share of its tolerance."""
+    `checked` gathers each launch's (B, N, M, C, Cg) and the largest
+    error as a share of its tolerance."""
     launch_fwd, launch_bwd = fa.attention_fwd, fa.attention_bwd
 
     def ratio(got, want, tol):
@@ -1406,7 +1564,8 @@ def _checked_attention(torch, fa, checked):
         out = launch_fwd(theta, phi, g)
         plain = fa.attention_fwd_plain(theta, phi, g)
         tol = TOL[str(theta.dtype).split(".")[-1]]
-        checked["shapes"].append(list(theta.shape[:2]) + [phi.shape[1]])
+        checked["shapes"].append([theta.shape[0], theta.shape[1],
+                                  phi.shape[1], theta.shape[2], g.shape[2]])
         checked["ratio"] = max([checked["ratio"]] + [
             ratio(a, b, t) for a, b, t in zip(out, plain, (tol, 1e-4, 1e-4))])
         return out
@@ -1426,10 +1585,10 @@ def _checked_attention(torch, fa, checked):
         fa.attention_fwd, fa.attention_bwd = launch_fwd, launch_bwd
 
 
-def _state_gaps(got, want, init):
+def _state_gaps(got, want, init, tol=DP_TOL):
     """{state kind: {"max": largest |got - want| of an entry, "ratio":
     largest rms(got - want) / (rtol * rms(ref) + atol * largest rms(ref))
-    of a tensor of the kind, with the kind's DP_TOL}}. `init` holds the
+    of a tensor of the kind, with the kind's `tol`}}. `init` holds the
     parameters and EMA before the step: their ref is the step's update."""
     def rms(t):
         return float(t.square().mean().sqrt())
@@ -1441,10 +1600,10 @@ def _state_gaps(got, want, init):
     for key, ref in refs.items():
         scope = (_state_kind(key), "generator/" in key)
         largest[scope] = max(largest.get(scope, 0.0), rms(ref))
-    gaps = {kind: {"max": 0.0, "ratio": 0.0} for kind in DP_TOL}
+    gaps = {kind: {"max": 0.0, "ratio": 0.0} for kind in tol}
     for key, ref in refs.items():
         kind = _state_kind(key)
-        rtol, atol = DP_TOL[kind]
+        rtol, atol = tol[kind]
         diff = got[key].detach().double() - want[key].detach().double()
         gap, bound = rms(diff), (rtol * rms(ref) + atol
                                  * largest[kind, "generator/" in key])

@@ -17,10 +17,6 @@ from compare_gan_torch.ops import arch_ops as ops
 
 
 class _Arch(core.Module):
-    # Whether the architecture runs in the spatial layout (bands of image
-    # height over a model group of workers, `parallel.tpu_ops.spatial`).
-    SPATIAL = False
-
     def __init__(self, name, batch_norm_fn, spectral_norm, device):
         super().__init__()
         self.name = name

@@ -29,7 +29,6 @@ class Generator(abstract_arch.AbstractGenerator):
     """DCGAN generator (dcgan.py:19-53): linear to 512 channels at 1/16 of
     the image, then four 5x5 stride-2 deconvs. In the spatial layout the
     linear layer runs whole on every model rank, and each keeps its band."""
-    SPATIAL = True
 
     def __init__(self, **kwargs):
         super().__init__(**kwargs)
@@ -63,7 +62,6 @@ class Discriminator(abstract_arch.AbstractDiscriminator):
     norm after the last three, a linear logit on the flattened features
     (in the spatial layout a band's product with its rows of the kernel,
     summed over the model group)."""
-    SPATIAL = True
 
     def __init__(self, **kwargs):
         super().__init__(**kwargs)
@@ -87,3 +85,9 @@ class Discriminator(abstract_arch.AbstractDiscriminator):
                 net, y=y, is_training=is_training))
         out_logit = self.d_fc4.of_bands(net)
         return torch.sigmoid(out_logit), out_logit, net
+
+    @property
+    def feature_dim(self):
+        """Width of the flattened features that D returns (SSGAN's
+        rotation head reads them)."""
+        return self.d_fc4.kernel.shape[0]

@@ -15,7 +15,6 @@ from compare_gan_torch.parallel import tpu_ops
 class Generator(abstract_arch.AbstractGenerator):
     """sigmoid(linear(z)) reshaped to the image (dummy.py:15-26); in the
     spatial layout, this worker's band of it."""
-    SPATIAL = True
 
     def __init__(self, **kwargs):
         super().__init__(**kwargs)
@@ -32,7 +31,6 @@ class Generator(abstract_arch.AbstractGenerator):
 class Discriminator(abstract_arch.AbstractDiscriminator):
     """A linear layer on the images' per-channel means (dummy.py:29-38);
     in the spatial layout the bands' sums added over the model group."""
-    SPATIAL = True
 
     def __init__(self, **kwargs):
         super().__init__(**kwargs)

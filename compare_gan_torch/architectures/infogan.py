@@ -1,5 +1,8 @@
 """InfoGAN's MLP + conv G and D for MNIST-scale images (counterpart of
-compare_gan_tpu/architectures/infogan.py)."""
+compare_gan_tpu/architectures/infogan.py). In the spatial layout
+(`parallel.tpu_ops`) G's linear layers run whole on every model rank, each
+keeping its band of the first map, and D's d_fc3 takes the bands'
+flattened features (`Linear.of_bands`); what follows it is whole."""
 
 from __future__ import annotations
 
@@ -7,6 +10,7 @@ import torch
 
 from compare_gan_torch.architectures import abstract_arch
 from compare_gan_torch.ops import arch_ops as ops
+from compare_gan_torch.parallel import tpu_ops
 
 
 class Generator(abstract_arch.AbstractGenerator):
@@ -31,7 +35,8 @@ class Generator(abstract_arch.AbstractGenerator):
         h, w, _ = self._image_shape
         net = ops.lrelu(self.g_bn1(self.g_fc1(z), is_training))
         net = ops.lrelu(self.g_bn2(self.g_fc2(net), is_training))
-        net = net.reshape(z.shape[0], h // 4, w // 4, 128)
+        net = tpu_ops.split_bands(
+            net.reshape(z.shape[0], h // 4, w // 4, 128), self.g_fc2.scope)
         net = self.g_dc3(net, (h // 2, w // 2))
         net = ops.lrelu(self.g_bn3(net, is_training))
         return torch.sigmoid(self.g_dc4(net, (h, w)))
@@ -55,8 +60,8 @@ class Discriminator(abstract_arch.AbstractDiscriminator):
     def forward(self, x, y, is_training):
         net = ops.lrelu(self.d_conv1(x))
         net = self.d_bn2(self.d_conv2(net), y=y, is_training=is_training)
-        net = ops.lrelu(net).reshape(x.shape[0], -1)
-        net = self.d_bn3(self.d_fc3(net), y=y, is_training=is_training)
+        net = self.d_bn3(self.d_fc3.of_bands(ops.lrelu(net)), y=y,
+                         is_training=is_training)
         net = ops.lrelu(net)
         out_logit = self.d_fc4(net)
         return torch.sigmoid(out_logit), out_logit, net

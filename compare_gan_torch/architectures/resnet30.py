@@ -1,6 +1,9 @@
 """The 30-block ResNet: 6 super-blocks of 5 residual blocks at 128x128
 (counterpart of compare_gan_tpu/architectures/resnet30.py; Gulrajani et
-al. 2017)."""
+al. 2017). In the spatial layout (`parallel.tpu_ops`) G's fc_noise runs
+whole on every model rank, each keeping its band of the 4x4 seed, and D's
+last linear layer takes the bands' flattened features
+(`Linear.of_bands`)."""
 
 from __future__ import annotations
 
@@ -8,6 +11,7 @@ import torch
 
 from compare_gan_torch.architectures import resnet_ops
 from compare_gan_torch.ops import arch_ops as ops
+from compare_gan_torch.parallel import tpu_ops
 
 CH = 64
 
@@ -47,7 +51,8 @@ class Generator(resnet_ops.ResNetGenerator):
         if z.dim() != 2:
             raise ValueError(f"Expected [batch_size, z_dim], got "
                              f"{tuple(z.shape)}.")
-        net = self.fc_noise(z).reshape(-1, 4, 4, 8 * CH)
+        net = tpu_ops.split_bands(self.fc_noise(z).reshape(-1, 4, 4, 8 * CH),
+                                  self.fc_noise.scope)
         for name in self._block_names:
             net = self._modules[name](net, z=z, y=y, is_training=is_training)
         return torch.sigmoid(self.final_conv(net))
@@ -74,11 +79,12 @@ class Discriminator(resnet_ops.ResNetDiscriminator):
                                         device=dev)
 
     def forward(self, x, y, is_training):
-        resnet_ops.validate_image_inputs(x.shape)
+        resnet_ops.validate_image_inputs(
+            (x.shape[0], tpu_ops.image_rows(x)) + tuple(x.shape[2:]))
         net = self.color_conv(x)
         for name in self._block_names:
             net = self._modules[name](net, z=None, y=y,
                                       is_training=is_training)
-        net = net.reshape(-1, 4 * 4 * 8 * CH)
-        out_logit = self.disc_final_fc(net)
+        out_logit = self.disc_final_fc.of_bands(net)
+        net = net.reshape(x.shape[0], -1)
         return torch.sigmoid(out_logit), out_logit, net

@@ -1,6 +1,9 @@
 """The WGAN-GP ResNet (Gulrajani et al. 2017): 5 G blocks and 6 D blocks
 at up to 128x128 (counterpart of compare_gan_tpu/architectures/resnet5.py).
-D pools by the mean and outputs a sigmoid."""
+D pools by the mean and outputs a sigmoid. In the spatial layout
+(`parallel.tpu_ops`) G's fc_noise runs whole on every model rank, each
+keeping its band of the 4x4 seed, and D's mean pooling adds the bands'
+sums over the model group."""
 
 from __future__ import annotations
 
@@ -11,6 +14,7 @@ import torch.nn.functional as F
 
 from compare_gan_torch.architectures import resnet_ops
 from compare_gan_torch.ops import arch_ops as ops
+from compare_gan_torch.parallel import tpu_ops
 
 
 class Generator(resnet_ops.ResNetGenerator):
@@ -41,7 +45,9 @@ class Generator(resnet_ops.ResNetGenerator):
                                      3, 3, device=dev)
 
     def forward(self, z, y, is_training):
-        net = self.fc_noise(z).reshape(-1, 4, 4, self._seed_ch)
+        net = tpu_ops.split_bands(
+            self.fc_noise(z).reshape(-1, 4, 4, self._seed_ch),
+            self.fc_noise.scope)
         for name in self._block_names:
             net = self._modules[name](net, z=z, y=y, is_training=is_training)
         net = self.final_norm(net, z=z, y=y, is_training=is_training)
@@ -75,11 +81,12 @@ class Discriminator(resnet_ops.ResNetDiscriminator):
 
 
     def forward(self, x, y, is_training):
-        resnet_ops.validate_image_inputs(x.shape)
+        resnet_ops.validate_image_inputs(
+            (x.shape[0], tpu_ops.image_rows(x)) + tuple(x.shape[2:]))
         net = x
         for name in self._block_names:
             net = self._modules[name](net, z=None, y=y,
                                       is_training=is_training)
-        pre_logits = F.relu(net).mean(dim=(1, 2))
+        pre_logits = tpu_ops.spatial_mean(F.relu(net))
         out_logit = self.disc_final_fc(pre_logits)
         return torch.sigmoid(out_logit), out_logit, pre_logits

@@ -77,7 +77,6 @@ class Generator(abstract_arch.AbstractGenerator):
     configured blocks, unconditional final BN, tanh -> [0, 1]. In the
     spatial layout the first linear layer runs whole on every model rank,
     and each keeps its band of rows of the 4x4 map."""
-    SPATIAL = True
 
     def __init__(self, ch=96, blocks_with_attention="B4", hierarchical_z=True,
                  embed_z=False, embed_y=True, embed_y_dim=128,
@@ -192,7 +191,6 @@ class Discriminator(abstract_arch.AbstractDiscriminator):
     projection head out += <embed(y), h>. In the spatial layout the sum
     pooling adds the bands' sums over the model group, and the head runs
     whole on every model rank."""
-    SPATIAL = True
 
     def __init__(self, ch=96, blocks_with_attention="B1", project_y=True,
                  **kwargs):

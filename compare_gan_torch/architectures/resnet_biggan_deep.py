@@ -11,6 +11,11 @@ Parameter counts match the JAX package (z_dim 128 and 1,000 classes at
 G concatenates z with the embedded labels, and the concatenation promotes a
 bf16 z to the labels' f32 (as `jnp.concatenate` does), so under
 `compute_dtype = bfloat16` a conditional G runs in f32 in both packages.
+
+In the spatial layout (`parallel.tpu_ops`) G's fc_noise runs whole on
+every model rank, each keeping its band of the 4x4 seed; D's sum pooling
+adds the bands' sums over the model group; the pools of D's "down" blocks
+stay in the band, which must hold whole pairs of rows.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from compare_gan_torch import core
 from compare_gan_torch.architectures import abstract_arch
 from compare_gan_torch.architectures import resnet_ops
 from compare_gan_torch.ops import arch_ops as ops
+from compare_gan_torch.parallel import tpu_ops
 
 
 class _NormConv(core.Module):
@@ -202,7 +208,9 @@ class Generator(abstract_arch.AbstractGenerator):
             dt = torch.promote_types(z.dtype, y.dtype)
             y = torch.cat([z.to(dt), y.to(dt)], dim=1)
             z = y
-        net = self.fc_noise(z).reshape(-1, 4, 4, self._in_channels[0])
+        net = tpu_ops.split_bands(
+            self.fc_noise(z).reshape(-1, 4, 4, self._in_channels[0]),
+            self.fc_noise.scope)
         for i, name in enumerate(self._block_names):
             net = self._modules[name](net, z=z, y=y, is_training=is_training)
             if i == self._attention:
@@ -273,14 +281,15 @@ class Discriminator(abstract_arch.AbstractDiscriminator):
                 [self._ch * c for c in m[1:]])
 
     def forward(self, x, y, is_training):
-        resnet_ops.validate_image_inputs(x.shape)
+        resnet_ops.validate_image_inputs(
+            (x.shape[0], tpu_ops.image_rows(x)) + tuple(x.shape[2:]))
         net = self.initial_conv(x)
         for i, name in enumerate(self._block_names):
             net = self._modules[name](net, z=None, y=y,
                                       is_training=is_training)
             if i == self._attention:
                 net = self.non_local_block(net)
-        h = F.relu(net).sum(dim=(1, 2))
+        h = tpu_ops.spatial_sum(F.relu(net))
         out_logit = self.final_fc(h)
         if self._project_y:
             if y is None:

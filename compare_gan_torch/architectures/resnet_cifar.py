@@ -1,7 +1,10 @@
 """SN-GAN CIFAR ResNet, 32x32 (counterpart of
 compare_gan_tpu/architectures/resnet_cifar.py). G: 3 up-blocks at 256
 channels with optional hierarchical z and z/y embeddings, sigmoid output;
-D: 4 blocks at 128 channels with an optional projection head."""
+D: 4 blocks at 128 channels with an optional projection head. In the
+spatial layout (`parallel.tpu_ops`) G's fc_noise runs whole on every model
+rank, each keeping its band of the 4x4 seed, and D's mean pooling adds the
+bands' sums over the model group."""
 
 from __future__ import annotations
 
@@ -11,6 +14,7 @@ import torch.nn.functional as F
 from compare_gan_torch import config as gin
 from compare_gan_torch.architectures import resnet_ops
 from compare_gan_torch.ops import arch_ops as ops
+from compare_gan_torch.parallel import tpu_ops
 
 G_CH, D_CH, NUM_G_BLOCKS = 256, 128, 3
 
@@ -73,7 +77,8 @@ class Generator(resnet_ops.ResNetGenerator):
         else:
             z0, z_per_block = z, [z] * NUM_G_BLOCKS
 
-        net = self.fc_noise(z0).reshape(-1, 4, 4, G_CH)
+        net = tpu_ops.split_bands(self.fc_noise(z0).reshape(-1, 4, 4, G_CH),
+                                  self.fc_noise.scope)
         for i, name in enumerate(self._block_names):
             net = self._modules[name](net, z=z_per_block[i], y=y_per_block[i],
                                       is_training=is_training)
@@ -113,12 +118,13 @@ class Discriminator(resnet_ops.ResNetDiscriminator):
         return D_CH
 
     def forward(self, x, y, is_training):
-        resnet_ops.validate_image_inputs(x.shape)
+        resnet_ops.validate_image_inputs(
+            (x.shape[0], tpu_ops.image_rows(x)) + tuple(x.shape[2:]))
         net = x
         for name in self._block_names:
             net = self._modules[name](net, z=None, y=y,
                                       is_training=is_training)
-        h = F.relu(net).mean(dim=(1, 2))
+        h = tpu_ops.spatial_mean(F.relu(net))
         out_logit = self.disc_final_fc(h)
         if self._project_y:
             if y is None:

@@ -18,6 +18,7 @@ from compare_gan_torch import config as gin
 from compare_gan_torch import core
 from compare_gan_torch.architectures import abstract_arch
 from compare_gan_torch.ops import arch_ops as ops
+from compare_gan_torch.parallel import tpu_ops
 
 
 @gin.configurable("resnet_ops")
@@ -38,7 +39,12 @@ def unpool(value):
 
 
 def avg_pool_2x2(x):
+    """2x2 average pooling of NHWC `x`; in the spatial layout of the band,
+    which must hold whole pairs of rows."""
     b, h, w, c = x.shape
+    if h % 2 and tpu_ops.spatial() is not None:
+        raise ValueError(f"avg_pool_2x2: a band of {h} rows does not pool "
+                         f"2x2 in place; use fewer model ranks.")
     return x.reshape(b, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4))
 
 

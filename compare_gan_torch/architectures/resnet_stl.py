@@ -1,5 +1,8 @@
 """The SN-GAN STL-10 ResNet: 48x48 from a 6x6 seed (counterpart of
-compare_gan_tpu/architectures/resnet_stl.py)."""
+compare_gan_tpu/architectures/resnet_stl.py). In the spatial layout
+(`parallel.tpu_ops`) G's fc_noise runs whole on every model rank, each
+keeping its band of the 6x6 seed, and D's mean pooling adds the bands'
+sums over the model group."""
 
 from __future__ import annotations
 
@@ -8,6 +11,7 @@ import torch.nn.functional as F
 
 from compare_gan_torch.architectures import resnet_ops
 from compare_gan_torch.ops import arch_ops as ops
+from compare_gan_torch.parallel import tpu_ops
 
 CH = 64
 
@@ -30,7 +34,9 @@ class Generator(resnet_ops.ResNetGenerator):
                                      device=dev)
 
     def forward(self, z, y, is_training):
-        net = self.fc_noise(z).reshape(z.shape[0], 6, 6, 512)
+        net = tpu_ops.split_bands(
+            self.fc_noise(z).reshape(z.shape[0], 6, 6, 512),
+            self.fc_noise.scope)
         for name in self._block_names:
             net = self._modules[name](net, z=z, y=y, is_training=is_training)
         net = self.final_norm(net, z=z, y=y, is_training=is_training)
@@ -58,11 +64,13 @@ class Discriminator(resnet_ops.ResNetDiscriminator):
 
 
     def forward(self, x, y, is_training):
-        resnet_ops.validate_image_inputs(x.shape, validate_power2=False)
+        resnet_ops.validate_image_inputs(
+            (x.shape[0], tpu_ops.image_rows(x)) + tuple(x.shape[2:]),
+            validate_power2=False)
         net = x
         for name in self._block_names:
             net = self._modules[name](net, z=None, y=y,
                                       is_training=is_training)
-        pre_logits = F.relu(net).mean(dim=(1, 2))
+        pre_logits = tpu_ops.spatial_mean(F.relu(net))
         out_logit = self.disc_final_fc(pre_logits)
         return torch.sigmoid(out_logit), out_logit, pre_logits

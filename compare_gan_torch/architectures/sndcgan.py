@@ -1,7 +1,10 @@
 """SN-DCGAN (counterpart of compare_gan_tpu/architectures/sndcgan.py;
 Miyato et al. 2018). G: a linear layer and four deconvs, tanh output
 mapped to [0, 1]; D: seven convs with leaky ReLU 0.1 on inputs rescaled to
-[-1, 1]."""
+[-1, 1]. In the spatial layout (`parallel.tpu_ops`) G's linear layer and
+g_bn1 run whole on every model rank, each keeping its band of the seed
+map, and D's last linear layer takes the bands' flattened features
+(`Linear.of_bands`)."""
 
 from __future__ import annotations
 
@@ -11,6 +14,7 @@ import torch.nn.functional as F
 from compare_gan_torch.architectures import abstract_arch
 from compare_gan_torch.architectures.dcgan import halvings
 from compare_gan_torch.ops import arch_ops as ops
+from compare_gan_torch.parallel import tpu_ops
 
 # (out channels, kernel, stride) of D's convs d_conv1..d_conv7.
 D_CONVS = [(64, 3, 1), (128, 4, 2), (128, 3, 1), (256, 4, 2), (256, 3, 1),
@@ -42,7 +46,8 @@ class Generator(abstract_arch.AbstractGenerator):
     def forward(self, z, y, is_training):
         net = F.relu(self.g_bn1(self.g_fc1(z), z=z, y=y,
                                 is_training=is_training))
-        net = net.reshape(z.shape[0], *self._sizes[0], 512)
+        net = tpu_ops.split_bands(
+            net.reshape(z.shape[0], *self._sizes[0], 512), self.g_fc1.scope)
         for i in range(3):
             net = self._modules[f"g_dc{i + 2}"](net, self._sizes[i + 1])
             net = F.relu(self._modules[f"g_bn{i + 2}"](
@@ -70,6 +75,6 @@ class Discriminator(abstract_arch.AbstractDiscriminator):
         net = x * 2.0 - 1.0
         for i in range(len(D_CONVS)):
             net = ops.lrelu(self._modules[f"d_conv{i + 1}"](net), leak=0.1)
+        out_logit = self.d_fc1.of_bands(net)
         net = net.reshape(x.shape[0], -1)
-        out_logit = self.d_fc1(net)
         return torch.sigmoid(out_logit), out_logit, net

@@ -48,9 +48,10 @@ each of its k model ranks, each keeping its band of image height, and
 the z, labels and draws whole. The architecture's layers exchange the
 rows they read across bands; the losses are computed whole on every model
 rank, each taking 1 / world of them (`tpu_ops.loss_shares`), and the
-gradients are summed over the whole grid. Only the architectures that
-declare it (`SPATIAL`) and ModularGAN itself run in it; the rest raise,
-as do the gradient penalties.
+gradients are summed over the whole grid. Every architecture, GAN class,
+penalty and normalization runs in it; a layer whose band cannot be cut
+as the layout needs (thinner than its halo, not on a stride row, an odd
+band to pool) raises, naming the layer.
 
 `sample` and `discriminate` are the inference surface (the reference's hub
 "gen" and "disc" tags): G runs with its EMA shadows swapped in for its
@@ -127,8 +128,6 @@ class TrainState:
                   denylist=["dataset", "parameters", "model_dir", "device"])
 class ModularGAN(AbstractGAN):
     """GAN with modular losses/penalties/architectures."""
-    # Whether the GAN's step runs in the spatial layout (module docstring).
-    SPATIAL = True
 
     def __init__(self, dataset, parameters, model_dir, device="cpu",
                  deprecated_split_disc_calls=False,
@@ -494,8 +493,6 @@ class ModularGAN(AbstractGAN):
         if batch_size % data:
             raise ValueError(f"A sub-step batch of {batch_size} does not "
                              f"split over {data} data ranks.")
-        if replicas is not None and replicas.model_size > 1:
-            self._check_spatial_layout()
 
         def rows(x):
             return x if replicas is None else replicas.rows(x, batch_size)
@@ -541,18 +538,6 @@ class ModularGAN(AbstractGAN):
             return ts, metrics
 
         return train_step
-
-    def _check_spatial_layout(self):
-        """Raise unless this GAN and its G and D run in the spatial layout
-        (a gradient penalty raises when it is taken)."""
-        for what, ok in ((type(self).__name__, type(self).SPATIAL),
-                         (type(self.generator).__module__,
-                          self.generator.SPATIAL),
-                         (type(self.discriminator).__module__,
-                          self.discriminator.SPATIAL)):
-            if not ok:
-                raise ValueError(f"{what} has no spatial layout (image "
-                                 f"height split over a model group).")
 
     def _step(self, ts, images_s, labels_s, features, g_tx, d_tx, replicas):
         """The sub-steps of one train step on this worker's rows; returns

@@ -13,6 +13,15 @@ Means and DRAGAN's standard deviation are over the global batch
 penalty, and of the L2 penalty, which every worker computes alike from the
 replicated weights, its 1 / world part.
 
+In the spatial layout the perturbed images are bands of image height and
+D's logits are whole on every model rank. The backward of D's sums over
+the model group adds the k ranks' seeds, so each rank seeds 1 / k of the
+logits' sum: the gradient is then the band of the whole image's. The
+slope sums the bands' squares over the group (`tpu_ops.image_sum`), and
+the penalty's double backward runs the collectives' adjoints, the same
+calls in the same order on every rank. DRAGAN's noise is drawn in the
+whole image's shape and cut into the band, the one-process stream.
+
 Gin-selected via `penalty.fn`.
 """
 
@@ -25,19 +34,21 @@ from compare_gan_torch import utils
 from compare_gan_torch.parallel import tpu_ops
 
 
-def _slope_penalty(d_logits_fn, x_perturbed):
-    """mean((||grad_x D(x)||_2 - 1)^2) with the 1e-4 stabilizer under the
-    root (penalty_lib.py:24-33)."""
-    if tpu_ops.spatial() is not None:
-        raise ValueError("The gradient penalties have no spatial layout "
-                         "(image height split over a model group).")
-    xx = x_perturbed.detach().requires_grad_()
-    logits = d_logits_fn(xx)
-    gradients, = torch.autograd.grad(logits.float().sum(), xx,
+def slopes(d_logits_fn, x):
+    """||grad_x D(x)||_2 of each image, with the 1e-4 stabilizer under the
+    root (penalty_lib.py:24-33), differentiable again; `x` requires grad."""
+    logits = d_logits_fn(x)
+    replicas = tpu_ops.spatial()
+    shares = 1 if replicas is None else replicas.model_size
+    gradients, = torch.autograd.grad(logits.float().sum() / shares, x,
                                      create_graph=True)
-    slopes = torch.sqrt(1e-4 + gradients.float().square().sum(
-        dim=tuple(range(1, gradients.dim()))))
-    return tpu_ops.batch_mean((slopes - 1.0).square())
+    return torch.sqrt(1e-4 + tpu_ops.image_sum(gradients.float().square()))
+
+
+def _slope_penalty(d_logits_fn, x_perturbed):
+    """mean((||grad_x D(x)||_2 - 1)^2) (penalty_lib.py:24-33)."""
+    slope = slopes(d_logits_fn, x_perturbed.detach().requires_grad_())
+    return tpu_ops.batch_mean((slope - 1.0).square())
 
 
 @gin.configurable("no_penalty")
@@ -52,7 +63,8 @@ def dragan_penalty(d_logits_fn, x, draw):
     x's type before the add, so a bf16 x keeps the penalty's D forward in
     bf16."""
     std = torch.sqrt(tpu_ops.batch_variance(x.float()))
-    noise = draw("dragan_noise", tuple(x.shape)) - 0.5
+    noise = tpu_ops.split_bands(draw("dragan_noise", (
+        x.shape[0], tpu_ops.image_rows(x)) + tuple(x.shape[2:]))) - 0.5
     x_noisy = torch.clamp(x + (std * noise).to(x.dtype), 0.0, 1.0)
     return _slope_penalty(d_logits_fn, x_noisy)
 

@@ -9,9 +9,12 @@ projection <embed(y), h> with the imputed-or-real labels
 (`discriminator_projection`, glorot-normal init). An example counts as
 labeled when its label row sums to more than 0.5. S3GAN applies no penalty.
 
-As in SSGAN, the rotated examples are the last rows of the global batch,
-and in a data-parallel step the losses are each worker's share: the class
-loss divides its worker's sum by the labeled rows of the global batch.
+As in SSGAN, the rotated examples are the last rows of the global batch
+(turned whole and cut into bands in the spatial layout), and in a
+data-parallel step the losses are each worker's share: the class loss
+divides its worker's sum by the labeled rows of every worker (in the
+spatial layout each data rank's counted on each of its model ranks, so
+that the model ranks' shares sum to their data rank's).
 """
 
 from __future__ import annotations
@@ -21,7 +24,6 @@ import torch.nn.functional as F
 
 from compare_gan_torch import config as gin
 from compare_gan_torch import core
-from compare_gan_torch import utils
 from compare_gan_torch.gans import loss_lib, modular_gan, ssgan
 from compare_gan_torch.ops import arch_ops as ops
 from compare_gan_torch.parallel import tpu_ops
@@ -33,7 +35,6 @@ NUM_ROTATIONS = ssgan.NUM_ROTATIONS
                   denylist=["dataset", "parameters", "model_dir", "device"])
 class S3GAN(modular_gan.ModularGAN):
     """S3GAN (s3gan.py:28-238)."""
-    SPATIAL = False
 
     def __init__(self, self_supervision="rotation",
                  rotated_batch_fraction=None, weight_rotation_loss_d=1.0,
@@ -130,10 +131,10 @@ class S3GAN(modular_gan.ModularGAN):
         """The [real, real-rot, fake, fake-rot] batch (s3gan.py:115-133),
         rotating the last `num_rot_examples` rows (perhaps none)."""
         start = real.shape[0] - num_rot_examples
-        real_rotated = utils.rotate_images(real[start:],
-                                           rot90_scalars=(1, 2, 3))
-        fake_rotated = utils.rotate_images(fake[start:],
-                                           rot90_scalars=(1, 2, 3))
+        real_rotated = tpu_ops.rotate_bands(real[start:],
+                                            rot90_scalars=(1, 2, 3))
+        fake_rotated = tpu_ops.rotate_bands(fake[start:],
+                                            rot90_scalars=(1, 2, 3))
         all_features = torch.cat([real, real_rotated, fake, fake_rotated], 0)
         all_labels = None
         if self.conditional:

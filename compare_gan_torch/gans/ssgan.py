@@ -8,10 +8,14 @@ on fakes. `rotated_batch_size` counts the whole batch, as in the JAX
 package.
 
 The rotated examples are the last rows of the global batch (ssgan.py:69-90
-there). In a data-parallel step they lie on the last worker or workers:
+there). In a data-parallel step they lie on the last data rank or ranks:
 each worker rotates those of its rows that are among them (perhaps none),
 so the workers' D batches differ in length, and the rotation losses are
-each worker's share of the mean over the global rotated rows.
+each worker's share of the mean over the global rotated rows. In the
+spatial layout the model ranks of a data rank hold its rows alike, each a
+band of image height: the whole images are turned and cut into bands
+again (`tpu_ops.rotate_bands`), and the head reads D's features whole or
+from the bands (`Linear.of_bands`).
 """
 
 from __future__ import annotations
@@ -20,7 +24,6 @@ import torch
 
 from compare_gan_torch import config as gin
 from compare_gan_torch import core
-from compare_gan_torch import utils
 from compare_gan_torch.gans import loss_lib, modular_gan
 from compare_gan_torch.ops import arch_ops as ops
 from compare_gan_torch.parallel import mesh_utils, tpu_ops
@@ -46,18 +49,19 @@ def rotation_loss(logits, labels, count=None):
 
 def local_rotated_rows(num_rot, bs):
     """(start, n): of the last `num_rot` rows of the global batch, this
-    worker holds rows [start, bs) of its `bs`, n = bs - start of them."""
+    worker holds rows [start, bs) of its `bs` (its data rank's), n = bs -
+    start of them."""
     replicas = mesh_utils.active()
-    rank, world = (0, 1) if replicas is None else (replicas.rank,
-                                                   replicas.world)
-    start = min(max(bs * world - num_rot - rank * bs, 0), bs)
+    rank, ranks = (0, 1) if replicas is None else (replicas.data_rank,
+                                                   replicas.data_size)
+    start = min(max(bs * ranks - num_rot - rank * bs, 0), bs)
     return start, bs - start
 
 
 def global_rows(bs):
     """The rows of the global batch of which this worker holds `bs`."""
     replicas = mesh_utils.active()
-    return bs if replicas is None else bs * replicas.world
+    return bs if replicas is None else bs * replicas.data_size
 
 
 def rotation_head(feature_dim, use_sn, device):
@@ -72,7 +76,6 @@ def rotation_head(feature_dim, use_sn, device):
                   denylist=["dataset", "parameters", "model_dir", "device"])
 class SSGAN(modular_gan.ModularGAN):
     """Self-Supervised GAN (ssgan.py:28-140)."""
-    SPATIAL = False
 
     def __init__(self, self_supervision="rotation_gan",
                  rotated_batch_size=None, weight_rotation_loss_d=1.0,
@@ -102,8 +105,8 @@ class SSGAN(modular_gan.ModularGAN):
         (ssgan.py:46-56)."""
         real_probs, real_scores, final = self.discriminator(
             x, y=y, is_training=is_training)
-        rotation_scores = self.heads.discriminator_rotation.score_classify(
-            final.reshape(x.shape[0], -1))
+        rotation_scores = (self.heads.discriminator_rotation.score_classify
+                           .of_bands(final))
         return real_probs, real_scores, rotation_scores
 
     def create_loss(self, features, labels, is_training=True):
@@ -128,10 +131,10 @@ class SSGAN(modular_gan.ModularGAN):
                 raise ValueError(f"{num_rot} rotated examples per rotation "
                                  f"but a batch of {global_rows(bs)}.")
             start, n_rot = local_rotated_rows(num_rot, bs)
-            images_rotated = utils.rotate_images(images[start:],
-                                                 rot90_scalars=(1, 2, 3))
-            generated_rotated = utils.rotate_images(generated[start:],
-                                                    rot90_scalars=(1, 2, 3))
+            images_rotated = tpu_ops.rotate_bands(images[start:],
+                                                  rot90_scalars=(1, 2, 3))
+            generated_rotated = tpu_ops.rotate_bands(generated[start:],
+                                                     rot90_scalars=(1, 2, 3))
             rotate_labels = rotation_labels(n_rot, images.device)
             all_images = torch.cat(
                 [images, images_rotated, generated, generated_rotated], 0)

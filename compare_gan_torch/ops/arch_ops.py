@@ -22,17 +22,20 @@ Batch norm takes its moments over the global batch: inside a data-parallel
 step (`parallel.mesh_utils.active()`) from one all-reduce across the
 workers, which carries the gradient, so every worker normalizes and updates
 its moving moments alike. EvoNorm-S0 and the weight-norm layers read no
-batch statistics in training, and start no collective.
+batch statistics in training, and start no collective outside the spatial
+layout.
 
 In the spatial layout (`tpu_ops.spatial()`) an activation is this worker's
 band of image rows. The convs pad each band with halo rows of the
 neighbouring bands (`tpu_ops.exchange_halos`), zeros only at the image's
 top and bottom, so every band starts on a stride boundary and its output
 is the band of the whole image's; batch norm's moments run over the
-whole grid as they do over the workers; pooling stays local; the
-non-local block attends from its own rows to the keys of every band. A
-height that does not split so raises, naming the layer. Layer norm and
-EvoNorm, whose moments are per image, raise there.
+whole grid as they do over the workers, and those of `num_batch_groups`
+over each group's rows on the grid; layer norm's and EvoNorm's moments of
+each image sum the bands' parts over the model group
+(`tpu_ops.image_moments`); pooling stays local; the non-local block
+attends from its own rows to the keys of every band. A height that does
+not split so raises, naming the layer.
 """
 
 from __future__ import annotations
@@ -241,12 +244,14 @@ class Linear(_SNLayer):
         return self._finish(x @ self.kernel.to(x.dtype), sigma)
 
     def of_bands(self, x):
-        """self(x.reshape(B, -1)) for NHWC `x`. In the spatial layout `x`
-        is a band, whose flattened features meet one block of the kernel's
-        rows: the partial products are summed over the model group."""
+        """self(x.reshape(B, -1)) for NHWC `x`, or for features every
+        worker holds whole. In the spatial layout a band's flattened
+        features (1 / k of the kernel's rows) meet one block of the
+        kernel's rows: the partial products are summed over the model
+        group."""
         flat = x.reshape(x.shape[0], -1)
         replicas = tpu_ops.spatial()
-        if replicas is None:
+        if replicas is None or flat.shape[1] == self.kernel.shape[0]:
             return self(flat)
         sigma = self._sigma(flat.dtype)
         n = flat.shape[1]
@@ -473,9 +478,10 @@ class StandardizeBatch(core.Module):
     JAX). With `num_batch_groups` G > 1 (arch_ops.py:415-425 there) each
     contiguous G-th of the global batch is normalized by its own moments
     in training, and the moving moments and accumulators take the mean of
-    the G groups' moments. Over W workers a group lies inside one worker
-    when W divides G, and spans W / G workers (a sub-group reduction) when
-    G divides W."""
+    the G groups' moments. Over D data ranks a group lies inside one data
+    rank when D divides G (in the spatial layout its moments sum the
+    bands over the model group), and spans D / G data ranks (a sub-group
+    reduction over their workers) when G divides D."""
 
     def __init__(self, num_channels, decay=0.999, epsilon=1e-3,
                  data_format="NHWC", use_moving_averages=True,
@@ -513,9 +519,6 @@ class StandardizeBatch(core.Module):
         dims = tuple(range(x.dim() - 1))
         replicas = mesh_utils.active()
         group_moments = None
-        if self.num_batch_groups > 1 and tpu_ops.spatial() is not None:
-            raise ValueError(f"{self.scope}: num_batch_groups has no "
-                             f"spatial layout.")
         if self.num_batch_groups > 1:
             mean, variance, group_moments = self._group_moments(x32,
                                                                 replicas)
@@ -554,30 +557,37 @@ class StandardizeBatch(core.Module):
         """(mean, variance) over the groups, and the per-row (mean,
         variance) of each row's group, shaped to broadcast against x."""
         groups = self.num_batch_groups
-        world = 1 if replicas is None else replicas.world
+        world, data, k = ((1, 1, 1) if replicas is None else
+                          (replicas.world, replicas.data_size,
+                           replicas.model_size))
         b, c = x32.shape[0], x32.shape[-1]
-        if groups % world == 0:  # Whole groups on every worker.
-            local = groups // world
+        if groups % data == 0:  # Whole groups on every data rank.
+            local = groups // data
             if b % local:
                 raise ValueError(f"A batch of {b} rows does not split into "
                                  f"{local} groups.")
             xg = x32.reshape((local, b // local) + tuple(x32.shape[1:]))
             axes = tuple(range(1, xg.dim() - 1))
-            mean_g = xg.mean(dim=axes)
-            var_g = (xg * xg).mean(dim=axes) - mean_g * mean_g
+            # Each group's sums over its rows, and over the model group's
+            # bands of them.
+            count = math.prod(xg.shape[a] for a in axes) * k
+            mean_g, mean_sq = tpu_ops.model_sum(torch.stack(
+                [xg.sum(dim=axes), (xg * xg).sum(dim=axes)])) / count
+            var_g = mean_sq - mean_g * mean_g
             shape = (b,) + (1,) * (x32.dim() - 2) + (c,)
             per_row = (mean_g.repeat_interleave(b // local, 0).reshape(shape),
                        var_g.repeat_interleave(b // local, 0).reshape(shape))
-            summed = torch.stack([mean_g.sum(0), var_g.sum(0)])
-        elif world % groups == 0:  # Each group spans world / groups workers.
+            # Each model rank of a data rank holds its groups' moments.
+            summed = torch.stack([mean_g.sum(0), var_g.sum(0)]) / k
+        elif data % groups == 0:  # Each group spans world / groups workers.
             per_row = tpu_ops.cross_replica_moments(
                 x32, replicas, axes=tuple(range(x32.dim() - 1)),
                 group_size=world // groups)
             # Each group's moments sit on world / groups workers.
             summed = torch.stack(per_row) * (groups / world)
         else:
-            raise ValueError(f"num_batch_groups {groups} and {world} "
-                             f"workers: one must divide the other.")
+            raise ValueError(f"num_batch_groups {groups} and {data} data "
+                             f"ranks: one must divide the other.")
         if replicas is not None:
             summed = tpu_ops.all_reduce_sum(summed, replicas)
         mean, variance = summed / groups
@@ -708,12 +718,6 @@ class ConditionalBatchNorm(StandardizeBatch):
         return out
 
 
-def _per_image_moments(layer):
-    if tpu_ops.spatial() is not None:
-        raise ValueError(f"{layer.scope or type(layer).__name__}: moments "
-                         f"of each image have no spatial layout.")
-
-
 class LayerNorm(core.Module):
     """Layer norm over every non-batch axis with per-channel gamma/beta
     (`layer_norm`, arch_ops.py:517-530): f32 moments, var = E[(x - mean)^2],
@@ -727,11 +731,8 @@ class LayerNorm(core.Module):
                                    device)
 
     def forward(self, x):
-        _per_image_moments(self)
         x32 = x.float()
-        dims = tuple(range(1, x.dim()))
-        mean = x32.mean(dim=dims, keepdim=True)
-        var = (x32 - mean).square().mean(dim=dims, keepdim=True)
+        mean, var = tpu_ops.image_moments(x32, range(1, x.dim()))
         out = (x32 - mean) * torch.rsqrt(var + 1e-12)
         return (out * self.gamma + self.beta).to(x.dtype)
 
@@ -741,7 +742,8 @@ class EvoNormS0(core.Module):
     """EvoNorm-S0 (Liu et al. 2020; arch_ops.py:533-559 there): x *
     sigmoid(v * x) / group_std(x) * gamma + beta, in f32, over groups of
     channels: the largest divisor of C that is <= 32. Per example, so it
-    needs no moments of the batch and no collective. Selected by
+    needs no moments of the batch (in the spatial layout each image's
+    moments sum its bands over the model group). Selected by
     `G.batch_norm_fn = @evonorm_s0`."""
 
     def __init__(self, num_channels, device=None):
@@ -753,12 +755,10 @@ class EvoNormS0(core.Module):
         self.groups = max(g for g in range(1, min(32, c) + 1) if c % g == 0)
 
     def forward(self, x, **unused):
-        _per_image_moments(self)
         x32 = x.float()
         b, h, w, c = x32.shape
         xg = x32.reshape(b, h, w, self.groups, c // self.groups)
-        std = torch.sqrt(xg.var(dim=(1, 2, 4), unbiased=False, keepdim=True)
-                         + 1e-5)
+        std = torch.sqrt(tpu_ops.image_moments(xg, (1, 2, 4))[1] + 1e-5)
         std = std.expand_as(xg).reshape(x32.shape)
         num = x32 * torch.sigmoid(self.v * x32)
         return ((num / std) * self.gamma + self.beta).to(x.dtype)

@@ -33,6 +33,11 @@ any order cross the bands:
                     whole; backward: autograd's slice, zeros elsewhere.
   model_sum      -- the sum over the group; backward: the same sum.
 
+Built on them: the whole image's sums and means of a band (`spatial_sum`,
+`spatial_mean`, `image_sum`), each image's moments (`image_moments`,
+layer norm and EvoNorm), and its quarter-turns (`rotate_bands`: a rotated
+band is no band, so the rows are gathered, turned, and cut again).
+
 A loss is computed whole on every model rank of a data rank. Each takes
 `1 / world` of it (`loss_shares`: the grid's size, not the data ranks'),
 so that the model ranks' shares sum to their data rank's, and `model_sum`'s
@@ -50,6 +55,7 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from compare_gan_torch import utils
 from compare_gan_torch.parallel import mesh_utils
 
 
@@ -142,16 +148,21 @@ def batch_mean(x: torch.Tensor, count: Optional[int] = None
     worker's share: its sum over the global element count, `count` or, by
     default, its own count times `loss_shares` (every worker holding as
     many). The shares sum to the global mean, and so do their gradients,
-    which the step sums over the workers."""
+    which the step sums over the workers. In the spatial layout the k
+    model ranks of a data rank hold its rows alike, so a given `count` is
+    counted k times."""
     replicas = mesh_utils.active()
     if replicas is None:
         return x.mean()
     return x.sum() / (x.numel() * loss_shares(replicas) if count is None
-                      else count)
+                      else count * replicas.model_size)
 
 
 def batch_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of `x` over the global batch, on every worker."""
+    """The sum of `x` over every worker, on every worker: the global
+    batch's, each data rank's rows counted once on each of its model ranks
+    in the spatial layout (S3GAN's class loss divides a worker's sum by
+    it, which makes that worker's share)."""
     replicas = mesh_utils.active()
     total = x.sum()
     return total if replicas is None else all_reduce_sum(total, replicas)
@@ -330,3 +341,42 @@ def model_sum(x: torch.Tensor) -> torch.Tensor:
 def spatial_sum(x: torch.Tensor) -> torch.Tensor:
     """x.sum(dim=(1, 2)) of the whole image from a band (NHWC)."""
     return model_sum(x.sum(dim=(1, 2)))
+
+
+def spatial_mean(x: torch.Tensor) -> torch.Tensor:
+    """x.mean(dim=(1, 2)) of the whole image from a band (NHWC)."""
+    return spatial_sum(x) / (image_rows(x) * x.shape[2])
+
+
+def image_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum over every dim but the batch of each whole image from a
+    band: [B]."""
+    return model_sum(x.sum(dim=tuple(range(1, x.dim()))))
+
+
+def image_moments(x: torch.Tensor, dims: Sequence[int]):
+    """(mean, variance) over `dims` of each whole image from a band, kept
+    as dims of size 1; the rows (dim 1) must be among them. Two passes, the
+    variance E[(x - mean)^2]: the group's sum of the bands' sums, then of
+    their squares about the mean."""
+    dims = tuple(dims)
+    replicas = spatial()
+    count = math.prod(x.shape[d] for d in dims) * (
+        1 if replicas is None else replicas.model_size)
+    mean = model_sum(x.sum(dim=dims, keepdim=True)) / count
+    return mean, model_sum((x - mean).square().sum(
+        dim=dims, keepdim=True)) / count
+
+
+def rotate_bands(x: torch.Tensor, rot90_scalars=(0, 1, 2, 3)
+                 ) -> torch.Tensor:
+    """`utils.rotate_images` of the whole square images of a band (NHWC),
+    this worker's band of the result: a quarter-turn sends rows to
+    columns, so the bands are gathered, the whole images turned, and the
+    result cut into bands again."""
+    if spatial() is None:
+        return utils.rotate_images(x, rot90_scalars)
+    if x.shape[0] == 0:  # Every model rank holds the same rows.
+        return x.repeat(len(rot90_scalars), 1, 1, 1)
+    return split_bands(utils.rotate_images(gather_bands(x), rot90_scalars),
+                       "rotate_bands")

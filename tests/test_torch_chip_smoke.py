@@ -349,6 +349,43 @@ def test_spatial_shapes_are_the_main_path_shapes_in_two_bands():
         assert band == (b, n // 2, m, c, cg) == (32, 2048, 1024, c, cg)
 
 
+def test_spatial_shapes_hold_the_zoo_bands():
+    """BigGAN-deep's B8/B2 map (C 32, Cg 128) and S3GAN's D after B1 on
+    its 38 rows, each worker's half of the queries, are band rows too, and
+    every case's attention widths are among the band rows'."""
+    bands = dict(chip_smoke.SPATIAL_SHAPES)
+    deep_b, deep_n, deep_m, c, cg = chip_smoke.DEEP_SHAPE[1]
+    assert bands["G_B8_D_B2_deep_band"] == (deep_b, deep_n // 2, deep_m, c, cg)
+    s3_b, s3_n, s3_m, c, cg = chip_smoke.S3GAN_SHAPE[1]
+    assert bands["D_B1_s3gan_band"] == (s3_b, s3_n // 2, s3_m, c, cg) \
+        == (38, 2048, 1024, 12, 48)
+    widths = {shape[1:] for shape in bands.values()}
+    for case in chip_smoke.SPATIAL_CASES.values():
+        assert case["attention"] <= widths
+    assert {c for case in chip_smoke.SPATIAL_CASES.values()
+            for c in case["controls"]} == set(chip_smoke.SPATIAL_CONTROLS)
+
+
+def test_spatial_zoo_controls_patch_the_band_ops_and_restore_them():
+    import torch
+    from compare_gan_torch.parallel import mesh_utils, tpu_ops
+    right = (tpu_ops.rotate_bands, tpu_ops.image_sum)
+    x = torch.arange(2 * 2 * 4, dtype=torch.float32).reshape(1, 2, 4, 2)
+    with chip_smoke.spatial_control("local_rotation"):
+        with mesh_utils.replica_context(mesh_utils.Replicas(
+                rank=1, world=2, model_size=2)):
+            turned = tpu_ops.rotate_bands(x, rot90_scalars=(1, 2))
+        # Each band turned by itself, read back in the band's shape, with
+        # no collective: a scramble of its own pixels.
+        assert turned.shape == (2, 2, 4, 2)
+        assert sorted(turned[0].flatten().tolist()) == \
+            sorted(x.flatten().tolist())
+    with chip_smoke.spatial_control("band_slope"):
+        assert tpu_ops.image_sum is not right[1]
+        assert tpu_ops.image_sum(x).tolist() == [x.sum().item()]
+    assert (tpu_ops.rotate_bands, tpu_ops.image_sum) == right
+
+
 def test_spatial_controls_patch_the_collectives_and_restore_them():
     import torch
     from compare_gan_torch.parallel import mesh_utils, tpu_ops

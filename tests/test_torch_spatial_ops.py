@@ -10,8 +10,14 @@ transposed SAME conv (also on bands of one row, as DCGAN's first map at
 batch norm and conditional batch norm (moments over the grid), the
 non-local block (the kernels' plain version on the band's queries against
 the keys of both bands), a linear layer on a band's flattened features and
-the sum pooling of BigGAN's D. The workers import torch and the port only
-(`torch_helpers.run_spatial_ops`).
+the sum pooling of BigGAN's D and the mean pooling of the ResNets' Ds,
+layer norm and EvoNorm-S0 (each image's moments over its bands), batch
+norm with num_batch_groups, the quarter-turns of SSGAN and S3GAN
+(`rotate_bands`), the per-image slope of the gradient penalties through a
+conv with halos (its input and parameter gradients are second order), and
+a mean over the global batch with a given count (`batch_mean`), whose
+shares must sum to the mean over the grid. The workers import torch and
+the port only (`torch_helpers.run_spatial_ops`).
 
 Tolerance: f32 on the CPU; both sides compute the same products, the
 bands' with other row counts and the sums over the grid in another order,
@@ -30,9 +36,7 @@ import torch
 
 from tests import torch_helpers as th
 
-from compare_gan_torch import config as gin
-from compare_gan_torch import datasets
-from compare_gan_torch.gans import modular_gan, ssgan
+from compare_gan_torch.architectures import resnet_ops
 from compare_gan_torch.ops import arch_ops
 from compare_gan_torch.parallel import mesh_utils
 
@@ -134,7 +138,6 @@ def test_grid_coordinates_and_bands():
     (lambda: arch_ops.Conv2d(4, 5, 3, 3, 2, 2), (1, 3, 4, 4), "stride-2"),
     # A 5x5 conv's halo of 2 rows on a band of 1 row.
     (lambda: arch_ops.Conv2d(4, 5, 5, 5), (1, 1, 4, 4), "thinner"),
-    (lambda: arch_ops.LayerNorm(4), (1, 2, 4, 4), "each image"),
 ])
 def test_a_band_the_layer_cannot_take_raises(build, shape, match):
     layer = build()
@@ -145,16 +148,9 @@ def test_a_band_the_layer_cannot_take_raises(build, shape, match):
     assert "discriminator/layer" in str(err.value)
 
 
-@pytest.mark.parametrize("cls,architecture,kwargs", [
-    (modular_gan.ModularGAN, "resnet_cifar_arch", {}),
-    (ssgan.SSGAN, "dummy_arch", {"rotated_batch_size": 8}),
-])
-def test_a_gan_without_the_layout_raises(cls, architecture, kwargs):
-    gin.clear_config()
-    datasets.set_fake_dataset(True)
-    gan = cls(dataset=datasets.get_dataset("cifar10"),
-              parameters={"architecture": architecture, "z_dim": 8,
-                          "lambda": 1, "disc_iters": 1},
-              model_dir="unused", **kwargs)
-    with pytest.raises(ValueError, match="no spatial layout"):
-        gan.make_train_step(8, _grid())
+def test_an_odd_band_does_not_pool_in_place():
+    """The ResNets' and BigGAN-deep's average pool on a band of 3 rows: a
+    2x2 cell would straddle two bands."""
+    with mesh_utils.replica_context(_grid()):
+        with pytest.raises(ValueError, match="does not pool 2x2"):
+            resnet_ops.avg_pool_2x2(torch.zeros((1, 3, 4, 4)))

@@ -234,35 +234,8 @@ def test_jax_spatial_dcgan_step_departs_from_its_dp_step(runs):
     assert gap > 1e-4
 
 
-def _arrays(workdir, name, tag):
-    with np.load(os.path.join(workdir, name, tag, "model.ckpt-1.npz")) as d:
-        return {k: d[k] for k in d.files}
-
-
 def _assert_matches_one_process(workdir, name, tag):
-    """A state against the port's one-process step: parameters within
-    PARAM_TOL, the rest as tests/test_torch_dp_step.py holds two workers
-    to one process (Adam's moments 1e-3 plus 1e-4 (mu) or 1e-8 (nu) of
-    their largest; the EMA 1e-6 plus 1e-7; SN u and BN state 1e-4 plus
-    1e-5)."""
-    got, want = _arrays(workdir, name, tag), _arrays(workdir, name,
-                                                     "single")
-    assert got.keys() == want.keys()
-    for k, v in want.items():
-        group = k.split("[")[0]
-        if group.endswith(("_opt.mu", "_opt.nu")):
-            largest = max(float(np.abs(w).max()) for key, w in want.items()
-                          if key.startswith(group + "["))
-            rtol, atol = 1e-3, (1e-8 if group.endswith("nu") else 1e-4) \
-                * largest
-        elif group == ".ema_params":
-            rtol, atol = 1e-6, 1e-7
-        elif group == ".params":
-            rtol, atol = PARAM_TOL[name]
-        else:
-            rtol, atol = 1e-4, 1e-5
-        np.testing.assert_allclose(got[k], v, rtol=rtol, atol=atol,
-                                   err_msg=k)
+    th.assert_matches_one_process(workdir, name, tag, PARAM_TOL[name])
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -273,15 +246,7 @@ def test_grid_matches_one_process(runs, name):
     workdir = runs[0]
     _assert_matches_one_process(workdir, name, "rank0")
     for r in range(WORLD):
-        with np.load(os.path.join(workdir, name, f"rank{r}",
-                                  "metrics.npz")) as d:
-            got = {k: d[k] for k in d.files}
-        with np.load(os.path.join(workdir, name, "single",
-                                  "metrics.npz")) as d:
-            want = {k: d[k] for k in d.files}
-        assert got.keys() == want.keys()
-        for k in want:
-            th.assert_close(got[k], want[k], rtol=1e-4, atol=1e-5, what=k)
+        th.assert_metrics_match_one_process(workdir, name, f"rank{r}")
 
 
 @pytest.mark.parametrize("name,control", [

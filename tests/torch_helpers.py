@@ -5,6 +5,9 @@ xdist workers on one host, and torch's default thread count per worker
 would oversubscribe it.
 """
 
+import contextlib
+import functools
+
 import numpy as np
 import torch
 
@@ -180,9 +183,34 @@ def assert_train_states_close(ts_j, ts_t, metrics_j, metrics_t, lr_steps,
 GAN_CLASSES = ("ModularGAN", "SSGAN", "S3GAN")
 
 
+@contextlib.contextmanager
+def arch_constants(case):
+    """Within the block the architecture modules' constants that a case
+    sets (`constants`: {"resnet30.CH": 8}, a width no constructor argument
+    or gin binding reaches in either package) hold its values."""
+    import importlib
+    saved = []
+    try:
+        for key, value in case.get("constants", {}).items():
+            module, attr = key.rsplit(".", 1)
+            module = importlib.import_module(
+                f"compare_gan_torch.architectures.{module}")
+            saved.append((module, attr, getattr(module, attr)))
+            setattr(module, attr, value)
+        yield
+    finally:
+        for module, attr, value in reversed(saved):
+            setattr(module, attr, value)
+
+
 def port_gan(case, device="cpu"):
     """The port's GAN of a case dict (cls, dataset, parameters, kwargs),
-    with the case's gin config parsed."""
+    with the case's gin config parsed. `arch_kwargs` are the architecture's
+    constructor arguments that no gin binding reaches (ResNet5's `ch`); a
+    `dataset` given as a resolution is a stand-in of 10 classes and 3
+    colors at that size (ResNet-STL's 48 px, which neither package's
+    registry carries)."""
+    from compare_gan_torch import architectures
     from compare_gan_torch import config as tgin
     from compare_gan_torch import datasets
     from compare_gan_torch.gans import modular_gan, s3gan, ssgan
@@ -192,10 +220,28 @@ def port_gan(case, device="cpu"):
     tgin.clear_config()
     tgin.parse_config(case["cfg"])
     datasets.set_fake_dataset(True)
-    return classes[case["cls"]](
-        dataset=datasets.get_dataset(case["dataset"]),
-        parameters=case["parameters"], model_dir="unused", device=device,
-        **case.get("kwargs", {}))
+    if isinstance(case["dataset"], int):
+        dataset = datasets.ImageDatasetV2(
+            name=f"stand_in_{case['dataset']}", tfds_name="stand_in",
+            resolution=case["dataset"], colors=3, num_classes=10,
+            eval_test_samples=100, seed=547)
+    else:
+        dataset = datasets.get_dataset(case["dataset"])
+    gan = classes[case["cls"]](
+        dataset=dataset, parameters=case["parameters"], model_dir="unused",
+        device=device, **case.get("kwargs", {}))
+    if case.get("arch_kwargs"):  # Build G and D with them, now.
+        arch = case["parameters"]["architecture"]
+        for registry, attr in ((architectures.GENERATORS, "generator"),
+                               (architectures.DISCRIMINATORS,
+                                "discriminator")):
+            cls = registry[arch]
+            registry[arch] = functools.partial(cls, **case["arch_kwargs"])
+            try:
+                getattr(gan, attr)
+            finally:
+                registry[arch] = cls
+    return gan
 
 
 def case_inputs(path):
@@ -389,8 +435,9 @@ def _spatial_op_cases():
     """{name: (build() -> module, input shape [B, H, W, C] of the whole
     image, forward(module, x, y) -> (output, whether it is a band))}."""
     from compare_gan_torch.architectures import resnet_ops
+    from compare_gan_torch.gans import penalty_lib
     from compare_gan_torch.ops import arch_ops as ops
-    from compare_gan_torch.parallel import tpu_ops
+    from compare_gan_torch.parallel import mesh_utils, tpu_ops
 
     def band(m, x, y):
         return m(x), True
@@ -406,6 +453,20 @@ def _spatial_op_cases():
 
     def whole(fn):
         return lambda m, x, y: (fn(m, x), False)
+
+    def rotated(m, x, y):  # A band of the quarter-turns of the images.
+        return tpu_ops.rotate_bands(m(x), rot90_scalars=(1, 2, 3)), True
+
+    def slope(m, x):  # Per image, of a D with halos: second order.
+        return penalty_lib.slopes(
+            lambda t: tpu_ops.spatial_sum(torch.tanh(m(t))).sum(1), x)
+
+    def grid_total(m, x):  # The workers' shares of a mean, summed.
+        share = tpu_ops.batch_mean(tpu_ops.spatial_sum(m(x)),
+                                   count=x.shape[0] * 5)
+        reps = mesh_utils.active()
+        total = share if reps is None else tpu_ops.all_reduce_sum(share, reps)
+        return total.reshape(1)
 
     return {
         "conv3x3_sn": (lambda: ops.Conv2d(4, 5, 3, 3, use_sn=True),
@@ -439,7 +500,68 @@ def _spatial_op_cases():
                             (2, 8, 6, 4), whole(lambda m, x: m.of_bands(x))),
         "spatial_sum": (lambda: ops.conv1x1(4, 5), (2, 8, 6, 4),
                         whole(lambda m, x: tpu_ops.spatial_sum(m(x)))),
+        "spatial_mean": (lambda: ops.conv1x1(4, 5), (2, 8, 6, 4),
+                         whole(lambda m, x: tpu_ops.spatial_mean(m(x)))),
+        "layer_norm": (lambda: ops.LayerNorm(4), (2, 8, 6, 4), band),
+        "evonorm_s0": (lambda: ops.EvoNormS0(8), (2, 8, 6, 8), band),
+        "batch_norm_groups": (
+            lambda: ops.StandardizeBatch(4, num_batch_groups=2),
+            (4, 8, 6, 4), bn),
+        "rotate_bands": (lambda: ops.conv1x1(4, 5), (2, 8, 8, 4), rotated),
+        "slope": (lambda: ops.Conv2d(4, 3, 3, 3), (2, 8, 6, 4),
+                  whole(slope)),
+        "batch_mean_count": (lambda: ops.conv1x1(4, 5), (2, 8, 6, 4),
+                             whole(grid_total)),
     }
+
+
+@functools.lru_cache(maxsize=2)
+def step_arrays(workdir, name, tag):
+    """The checkpoint arrays a worker wrote for a case's step (the last two
+    kept: a case's one-process step is read once for its comparisons)."""
+    import os
+    with np.load(os.path.join(workdir, name, tag, "model.ckpt-1.npz")) as d:
+        return {k: d[k] for k in d.files}
+
+
+def assert_matches_one_process(workdir, name, tag, param_tol,
+                               moment_atol=(1e-4, 1e-8)):
+    """A worker's state after a case's step against the port's one-process
+    step: parameters within `param_tol` (rtol, atol), the rest as
+    tests/test_torch_dp_step.py holds two workers to one process (Adam's
+    moments 1e-3 plus `moment_atol` (mu, nu) of their largest; the EMA
+    1e-6 plus 1e-7; SN u and BN state 1e-4 plus 1e-5)."""
+    got, want = (step_arrays(workdir, name, tag),
+                 step_arrays(workdir, name, "single"))
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        group = k.split("[")[0]
+        if group.endswith(("_opt.mu", "_opt.nu")):
+            largest = max(float(np.abs(w).max()) for key, w in want.items()
+                          if key.startswith(group + "["))
+            rtol, atol = 1e-3, moment_atol[group.endswith("nu")] * largest
+        elif group == ".ema_params":
+            rtol, atol = 1e-6, 1e-7
+        elif group == ".params":
+            rtol, atol = param_tol
+        else:
+            rtol, atol = 1e-4, 1e-5
+        np.testing.assert_allclose(got[k], v, rtol=rtol, atol=atol,
+                                   err_msg=k)
+
+
+def assert_metrics_match_one_process(workdir, name, tag):
+    """A worker's step metrics (the global losses) against the
+    one-process step's, as th.assert_train_states_close holds losses."""
+    import os
+    metrics = []
+    for t in (tag, "single"):
+        with np.load(os.path.join(workdir, name, t, "metrics.npz")) as d:
+            metrics.append({k: d[k] for k in d.files})
+    got, want = metrics
+    assert got.keys() == want.keys()
+    for k in want:
+        assert_close(got[k], want[k], rtol=1e-4, atol=1e-5, what=k)
 
 
 def run_spatial_ops(rank, world, port, workdir):
@@ -504,18 +626,25 @@ def run_spatial_ops(rank, world, port, workdir):
 
 
 def run_spatial_cases(rank, world, port, workdir, model_size=2):
-    """One gloo worker of tests/test_torch_spatial_step.py: joins a `world
-    / model_size x model_size` grid at 127.0.0.1:port and, for each case
-    of `workdir/cases.json`, takes one train step of the global batch and
-    draws in `workdir/<case>.npz` from the weights there, in the spatial
-    layout; then, on rank 0's behalf, with each of the case's faulty
-    `controls` (chip_smoke.spatial_control). Writes as `run_dp_cases`
-    does (`<case>/rank<r>`, on rank 0 also `<case>/single` and
+    """One gloo worker of tests/test_torch_spatial_{step,zoo}.py: joins a
+    `world / model_size x model_size` grid at 127.0.0.1:port and, for each
+    case of `workdir/cases.json`, takes one train step of the global batch
+    and draws in `workdir/<case>.npz` from the weights there (from the
+    port's init of seed 0 and its own draws where the file holds none), in
+    the spatial layout; then, on rank 0's behalf, with each of the case's
+    faulty `controls` (chip_smoke.spatial_control). A case with `"grid":
+    [d, m]` runs on the first d * m workers as a `d x m` grid. Then each
+    worker takes the one-process steps of every `world`-th case (a worker
+    outside the last case's grid starts on them while that grid runs).
+    Writes as `run_dp_cases`
+    does (`<case>/rank<r>`, `<case>/single` and, on rank 0,
     `<case>/<control>`), and `hosts<r>.npz`: the step batch exchanged
     between the grid's workers as two hosts."""
     import json
     import os
     import sys
+
+    import torch.distributed as dist
 
     import chip_smoke
     from compare_gan_torch import checkpoint, interop
@@ -526,31 +655,54 @@ def run_spatial_cases(rank, world, port, workdir, model_size=2):
         model_size=model_size)
     with open(os.path.join(workdir, "cases.json")) as f:
         cases = json.load(f)
-    try:
-        for name, case in cases.items():
-            weights, batch, draws = case_inputs(
-                os.path.join(workdir, f"{name}.npz"))
-            runs = [(f"rank{rank}", replicas, None)] + [
-                (control, replicas, control)
-                for control in case.get("controls", ())]
-            if rank == 0:
-                runs.append(("single", None, None))
-            for tag, reps, control in runs:
-                gan = port_gan(case)
-                ts = gan.init_state(seed=1)
+    grids = {}  # Every rank builds every group, in one order.
+    for d, m in sorted({tuple(case["grid"]) for case in cases.values()
+                        if "grid" in case}):
+        group = dist.new_group(list(range(d * m)))
+        model_groups = [dist.new_group(list(range(i * m, (i + 1) * m)))
+                        for i in range(d)] if m > 1 else [None]
+        if rank < d * m:
+            grids[d, m] = mesh_utils.Replicas(
+                rank=rank, world=d * m, group=group, model_size=m,
+                model_group=model_groups[rank // m if m > 1 else 0])
+
+    def run(name, case, tag, reps, control=None):
+        weights, batch, draws = case_inputs(
+            os.path.join(workdir, f"{name}.npz"))
+        with arch_constants(case):
+            gan = port_gan(case)
+            ts = gan.init_state(seed=1 if weights else 0)
+            if weights:
                 interop.load_state_dict(ts, {k: interop.to_port(v)
                                              for k, v in weights.items()})
-                step = gan.make_train_step(case["batch"], reps)
-                with chip_smoke.spatial_control(control):
-                    ts, metrics = step(ts, batch, draws=draws)
-                mesh_utils.assert_replicated(checkpoint.live_tensors(ts),
-                                             reps)
-                if rank and not tag.startswith("rank"):
-                    continue
-                out = os.path.join(workdir, name, tag)
-                checkpoint.write_arrays(out, checkpoint.to_arrays(ts), 1)
-                np.savez(os.path.join(out, "metrics.npz"),
-                         **{k: np32(v) for k, v in metrics.items()})
+            step = gan.make_train_step(case["batch"], reps)
+            with chip_smoke.spatial_control(control):
+                ts, metrics = step(ts, batch, draws=draws or None)
+        mesh_utils.assert_replicated(checkpoint.live_tensors(ts), reps)
+        if tag is None:
+            return
+        out = os.path.join(workdir, name, tag)
+        os.makedirs(out, exist_ok=True)
+        if tag in ("rank0", "single") or tag == control:  # Rank r > 0
+            # equals rank 0 bitwise: its metrics are enough.
+            checkpoint.write_arrays(out, checkpoint.to_arrays(ts), 1)
+        np.savez(os.path.join(out, "metrics.npz"),
+                 **{k: np32(v) for k, v in metrics.items()})
+
+    try:
+        for name, case in cases.items():
+            reps = (grids.get(tuple(case["grid"])) if "grid" in case
+                    else replicas)
+            if reps is None:  # Outside this case's grid.
+                continue
+            run(name, case, f"rank{rank}", reps)
+            for control in case.get("controls", ()):
+                run(name, case, None if rank else control, reps, control)
+        # Last case first, from the last rank: a rank outside the last
+        # case's grid takes its one-process step while that grid runs.
+        for i, (name, case) in enumerate(reversed(cases.items())):
+            if i % world == world - 1 - rank:
+                run(name, case, "single", None)
         # Two hosts of two workers: each host holds its half of a step
         # batch of 3 sub-steps of 8 rows.
         hosts = mesh_utils.Replicas(
