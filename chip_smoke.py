@@ -18,7 +18,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    BigGAN-deep's (G after B8 and D after B2: C = 32, Cg = 128) in both
    types, and BigGAN-deep's eval forward (batch 64, f32); and the
    convergence configurations' f32 shapes (BigGAN-128's G after B4 at its
-   sub-step batch of 16; S3GAN-32's D after B1 on 152 rows of 16x16).
+   sub-step batch of 16; S3GAN-32's D after B1 on 152 rows of 16x16); and
+   the 512 px models' (HIRES_SHAPES): BigGAN-512's G after B4 (48, 192)
+   and BigGAN-deep-512's blocks (64, 256) at batch 32 in both types, the
+   first at the eval batch of 64 forward in f32.
    Prints each
    tensor's max abs and
    relative error with its tolerance; the time per call of the kernel, of
@@ -97,8 +100,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    every conv, moments over the grid, the attention on each band's 2048
    queries against all 1024 keys) take one step of each of SPATIAL_CASES
    at full width with Adam's epsilon at 1e-3: BigGAN-128 with the
-   benchmark options and BigGAN-deep-128 as phase 11 runs it, each in
-   bf16 and in f32; S3GAN-128 as phase 8 runs it (rotations turned whole
+   benchmark options in bf16 and in f32; BigGAN-deep-128 as phase 11 runs
+   it, in f32 (its bf16 step computes in f32 but for the reals' rounding);
+   S3GAN-128 as phase 8 runs it (rotations turned whole
    across the bands, D on 38 rows) and ResNet5 with WGAN-GP as published
    (batch 64, 5 D sub-steps with the penalty's double backward through
    the halos), in f32. Every f32 step (TF32 off, deterministic cuDNN) is
@@ -111,8 +115,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    cuDNN. Ranks bitwise equal, all finite, 5 forward and 4 backward
    launches a worker in each precision (none on ResNet5), every one at N
    2048, M 1024 and the case's C, Cg, held to the plain version on its
-   operands. The launches of each case's phase precision (bf16 on the
-   BigGANs, f32 on S3GAN) count as the main path's.
+   operands. The launches of each case's first precision (bf16 on
+   BigGAN-128, f32 on the others) count as the main path's.
 8. S3GAN main path: 3 steps of S3GAN on BigGAN-128 at full width through
    the CLI with example_configs/s3gan32_polygons_partial.gin on fake
    ImageNet-128: batch 16, rotation (rotated_batch_fraction 4), projection
@@ -149,20 +153,41 @@ Phases, in order; any failure raises and the script exits non-zero:
    BigGAN-128 phases' config and options (batch 16, bf16, joint G forward,
    fake-only G loss, fake ImageNet-128) and options.architecture =
    'resnet_biggan_deep_arch'. G concatenates z to the f32 label embedding,
-   so it runs in f32, as in the JAX package; D runs in bf16. Checks the
+   so it runs in f32, as in the JAX package, and so does D: its batch
+   concatenates the bf16 reals with G's f32 fakes. Checks the
    parameter counts (G 50,244,484, D 34,590,210), finite losses, the
    checkpoint and the attention launches (5 forward and 4 backward a
    step). Then eval_after_train of its checkpoint at the eval phase's cut
    with IS, FID, KID, PRD, MS-SSIM and the fractal dimension: every metric
    finite in the row, 16 + 3 * 2 forward launches, each phase's and each
    task's seconds and peak memory.
-12. G/D-access tasks: eval_after_train of the study zoo's DCGAN-64
+12. The 512 px models (the published recipes: biggan_imagenet128.gin with
+   B512_BINDINGS or DEEP512_BINDINGS and the BigGAN-128 phases' options,
+   batch HIRES_BATCH, fake ImageNet-512). BigGAN-512 at full width (ch 96,
+   z_dim 160, G's attention after B4, D's after B3): 3 steps through the
+   CLI with the parameter counts (G 82,468,068, D 98,801,378), finite
+   losses, and every launch counted by kernel, type and width (per step G
+   2 forwards and 1 backward at (48, 192), D 3 and 3 at (24, 96)); then
+   eval_after_train at the eval phase's cut (IS and FID, the fill of 1,024
+   samples at batch 64, 22 forward launches; seconds and peak memory per
+   phase). BigGAN-deep-512 (ch 128, z_dim 160; G 58,645,316, D 38,301,122):
+   3 steps, 5 forward and 4 backward launches a step at (64, 256), all f32
+   (G's z/label promotion, D's real/fake concatenation); its accumulators
+   filled as the eval fills them (DEEP512_FILL samples), and the filled
+   state exported as a serving program at gen_bs8 and gen_bs16, served by
+   a fresh process and held to eager `load_generator` (images/s of both).
+   Then one f32 step of BigGAN-512 at batch HIRES_STEP_BATCH (TF32 off,
+   deterministic cuDNN, gates at TRAJ_GATE) three
+   ways from one init: its losses and updated weights through the kernels
+   within TRAJ_MARGIN of the hi/lo-rounded plain run's gaps to the plain
+   run (a comparison: its launches are not the main path's).
+13. G/D-access tasks: eval_after_train of the study zoo's DCGAN-64
    checkpoint (dcgan_celeba64.gin as published: unconditional, uniform z)
    with all ten tasks, adding the Jacobian's conditioning, D's accuracy
-   and GILBO at its defaults (2,000 regressor steps at batch 64, its
+   and GILBO at GILBO_STEPS regressor steps (batch 64; its
    artifacts written and checked). Every metric finite; each task's
    seconds.
-13. TF formats: the port reads and writes TensorFlow's files without
+14. TF formats: the port reads and writes TensorFlow's files without
    TensorFlow (it checks that tensorflow, PIL and google.protobuf were never
    loaded). Every committed image fixture (tests/torch_fixtures: JPEG
    4:2:0, 4:4:4, 4:2:2, progressive, grayscale, restart intervals; PNG 8-
@@ -182,7 +207,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    bitwise; prints both times. Then eval_after_train of the re-imported
    model_dir at the eval phase's cut on 100 real validation images (the
    registry's 50,000 cut to 100), with the eval phase's checks.
-14. Convergence tools: the port's convergence-proof tools
+15. Convergence tools: the port's convergence-proof tools
    (compare_gan_torch/tools) on short runs of the two convergence
    configurations as published (f32), on small polygon sets written by
    compare_gan_torch.polygons: BigGAN-128 at full width
@@ -197,7 +222,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    forward launches) and rotation_probe (oriented test accuracy above the
    invariant one). Each run's launches are exact: 6 forward and 4
    backward a BigGAN-128 step, 3 and 3 an S3GAN-32 step.
-15. Kernel trajectory: BigGAN-128 as published
+16. Kernel trajectory: BigGAN-128 as published
    (biggan128_polygons_multiclass.gin: full width, batch 16, f32) with
    TF32 off, deterministic cuDNN, Adam's epsilon at 1e-3 and the
    attention gates opened to TRAJ_GATE, trained TRAJ_STEPS steps four
@@ -213,7 +238,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    exceed that bound. Launches: 6 forward and 4 backward a step through
    the kernels, none in the plain runs (a comparison: not counted as the
    main path's).
-16. Prints the eval shape's forward row, the spatial bands' rows in f32
+17. Prints the eval shape's forward row, the spatial bands' rows in f32
    and bf16 (`spatial_shape {...}`: BigGAN-128's G after B4 and D after
    B1 and BigGAN-deep's B8/B2 at B 32, S3GAN's D after B1 at B 38, all at
    N 2048, M 1024, with the spatial phase's launches), the spatial summary
@@ -225,11 +250,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    summaries, the convergence shapes (`convergence_shape {...}`), the
    convergence tools' summary (`convergence_tools {...}`), the trajectory
    gaps and bound (`kernel_trajectory_gaps {...}`),
+   the 512 px rows (`hires_shape {...}`) and summaries (`biggan512
+   {...}`, `biggan_deep512 {...}`, `hires_kernel_step_gaps {...}`),
    each phase's seconds, then
    one JSON line describing each kernel ("ms",
    "plain_ms", "library_ms", "bound_ms": one call at each bf16 training
    shape of BigGAN-128, G and D at batch 32, summed; "launches": every
-   main-path run together, each counted from 0), then, as the last line,
+   main-path run together, each counted from 0; "rows": every row of the
+   kernels phase), then, as the last line,
    {"ok": true, "device": {...}}.
 """
 
@@ -263,6 +291,35 @@ S3GAN_SHAPE = ("D_B1_s3gan", (S3GAN_D_ROWS, 4096, 1024, 12, 48))
 DEEP_SHAPE = ("deep_B8_B2", (32, 4096, 1024, 32, 128))
 DEEP_EVAL_SHAPE = ("deep_G_B8_eval", (64, 4096, 1024, 32, 128))
 DEEP_PARAMS = (50244484, 34590210)
+# The 512 px models as published, through biggan_imagenet128.gin with the
+# BigGAN-128 phases' options and these bindings (z_dim and attention
+# placement of the reference's resnet_biggan.py:48-62, pinned by
+# tests/test_architectures.py). BigGAN-512 (ch 96): G's block after B4 is
+# the 64x64 map with 384 channels, (C, Cg) = (48, 192); D's after B3 has
+# 192, (24, 96). BigGAN-deep-512 (ch 128): G's and D's blocks have 512
+# channels, (64, 256). Both train at a card's batch of 16 in bf16 (peak
+# 23.99 and 60.04 GiB on an NVIDIA H100 80GB HBM3); so each training row
+# runs at B 32 (the joint G forward over two D sub-steps; D on real and
+# fake), and BigGAN-512's eval forward (f32) at the eval batch of 64.
+B512_BINDINGS = ("dataset.name = 'imagenet_512'", "options.z_dim = 160",
+                 "resnet_biggan.Generator.blocks_with_attention = 'B4'",
+                 "resnet_biggan.Discriminator.blocks_with_attention = 'B3'")
+B512_PARAMS = (82468068, 98801378)
+DEEP512_BINDINGS = ("options.architecture = 'resnet_biggan_deep_arch'",
+                    "dataset.name = 'imagenet_512'", "options.z_dim = 160")
+DEEP512_PARAMS = (58645316, 38301122)
+HIRES_BATCH = 16
+B512_SHAPE = ("G_B4_512", (2 * HIRES_BATCH, 4096, 1024, 48, 192))
+B512_EVAL_SHAPE = ("G_B4_512_eval", (64, 4096, 1024, 48, 192))
+DEEP512_SHAPE = ("deep512_G_D", (2 * HIRES_BATCH, 4096, 1024, 64, 256))
+HIRES_SHAPES = (B512_SHAPE, B512_EVAL_SHAPE, DEEP512_SHAPE)
+# The f32 BigGAN-512 step of the kernel check runs at batch 8 (11.9 s a
+# step at 16 with deterministic cuDNN); BigGAN-deep-512's fill before its
+# serving export takes 2 eval batches (the eval phases keep theirs).
+HIRES_STEP_BATCH = 8
+DEEP512_FILL = 2 * 64
+# The serving program of BigGAN-deep-512 (f32): its batch signatures.
+DEEP512_SERVING_BATCHES = (8, 16)
 # The convergence configurations as published, in f32: BigGAN-128
 # (biggan128_polygons_multiclass.gin) runs G after B4 at its sub-step
 # batch of 16 (D after B1 on 32 rows is SHAPES' f32 row); S3GAN-32
@@ -289,6 +346,10 @@ DEEP_BINDINGS = ("options.architecture = 'resnet_biggan_deep_arch'",
 SESSION_TASKS = ("InceptionScoreTask", "FIDScoreTask", "KIDScoreTask",
                  "PRDTask", "MultiscaleSSIMTask", "FractalDimensionTask")
 GAN_TASKS = ("GeneratorConditionNumberTask", "AccuracyTask", "GILBOTask")
+# GILBO's regressor steps in that phase: its default of 2,000 cut to keep
+# the smoke inside its time limit (24.7 s at 2,000 on an NVIDIA H100 80GB
+# HBM3).
+GILBO_STEPS = 500
 # f32: the same f32 arithmetic summed in another order. bf16: both sides
 # round one f32 result to bf16 (the JAX package's Pallas tests use 2e-2).
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -437,14 +498,19 @@ def bounds_ms(shape, dtype_name):
 
 def issued_fwd_ms(shape, dtype_name):
     """The forward's own tensor-core floor: the bf16 MMAs it issues at its
-    padded widths (csrc/attention.cu: C to CP, Cg to GP) over 989 TFLOP/s.
-    f32 inputs are split into bf16 hi + lo parts, so S = theta.phi^T takes
-    four MMAs per product and O = P.g (P rounded to bf16) two."""
+    padded widths (csrc/attention.cu: C to CP, a multiple of 16; Cg in nz
+    column chunks of at most 128, each to GP = 48, 96 or 128, each chunk
+    recomputing S) over 989 TFLOP/s. f32 inputs are split into bf16 hi +
+    lo parts, so S = theta.phi^T takes four MMAs per product and O = P.g
+    (P rounded to bf16) two."""
+    from compare_gan_torch.ops import fused_attention as fa
     b, n, m, c, cg = shape
-    cp, gp = (16, 48) if c <= 16 and cg <= 48 else (
-        (32, 96) if cg <= 96 else (32, 128))
+    cp = 16 * -(-c // 16)
+    chunk = fa.cg_chunk(cg)
+    nz = -(-cg // chunk)
+    gp = next(w for w in (48, 96, 128) if chunk <= w)
     s_mmas, o_mmas = (4, 2) if dtype_name == "float32" else (1, 1)
-    return 1e3 * 2 * b * n * m * (s_mmas * cp + o_mmas * gp) \
+    return 1e3 * 2 * b * n * m * nz * (s_mmas * cp + o_mmas * gp) \
         / PEAK_FLOPS["bfloat16"]
 
 
@@ -476,26 +542,31 @@ def _cases():
     for shape in SPATIAL_SHAPES:
         for dtype_name in ("float32", "bfloat16"):
             yield shape + (dtype_name, True, False)
+    for shape in (B512_SHAPE, DEEP512_SHAPE):
+        for dtype_name in ("float32", "bfloat16"):
+            yield shape + (dtype_name, True, False)
+    yield B512_EVAL_SHAPE + ("float32", False, False)
 
 
 def compare_kernels(torch, shapes=None):
     """Kernel vs plain version per shape and type (of `shapes`, (name,
     shape) pairs, when given). Returns per kernel its max abs error over
-    every case, and times and bounds summed over the bf16 training
-    shapes; the eval shape's forward row; the S3GAN D
+    every case, times and bounds summed over the bf16 training shapes and
+    every case's row (`rows`); the eval shape's forward row; the S3GAN D
     shape's bf16 row (forward and backward); the BigGAN-deep rows (each
     type's forward and backward at batch 32, the eval forward); the
-    convergence configurations' f32 rows; and the spatial bands' rows in
-    each type."""
+    convergence configurations' f32 rows; the 512 px models' rows
+    (HIRES_SHAPES); and the spatial bands' rows in each type."""
     _phase("kernels")
     from compare_gan_torch.ops import fused_attention as fa
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = torch.device("cuda")
     result = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                  "library_ms": 0.0, "bound_ms": 0.0, "bound_by": ""}
+                  "library_ms": 0.0, "bound_ms": 0.0, "bound_by": "",
+                  "rows": []}
               for k in ("fwd", "bwd")}
     eval_row = s3gan_row = None
-    deep_rows, convergence_rows, spatial_rows = [], [], []
+    deep_rows, convergence_rows, hires_rows, spatial_rows = [], [], [], []
     for name, (b, n, m, c, cg), dtype_name, with_bwd, summed in _cases():
         if shapes is not None and (name, (b, n, m, c, cg)) not in shapes:
             continue
@@ -595,6 +666,9 @@ def compare_kernels(torch, shapes=None):
             "library_ms": times[kern + "_library"],
             "bound_ms": bounds[kern][0], "bound_by": bounds[kern][1]}
             for kern in kerns}
+        for kern, row in rows.items():
+            result[kern]["rows"].append(dict(row, N=n, M=m, C=c, Cg=cg,
+                                             sdpa_backend=backend))
         if (name, shape) == EVAL_SHAPE:
             eval_row = dict(rows["fwd"], issued_mma_ms=issued)
         if (name, shape) == S3GAN_SHAPE and dtype_name == "bfloat16":
@@ -610,10 +684,13 @@ def compare_kernels(torch, shapes=None):
         if (name, shape) in SPATIAL_SHAPES:
             spatial_rows.append(deep_shape_row(name, b, dtype_name, backend,
                                                rows, issued))
+        if (name, shape) in HIRES_SHAPES:
+            hires_rows.append(deep_shape_row(name, b, dtype_name, backend,
+                                             rows, issued))
         del q, k, v, theta, phi, g, dout, out, mx, den, p_mx, p_den
         torch.cuda.empty_cache()
     return (result, eval_row, s3gan_row, deep_rows, convergence_rows,
-            spatial_rows)
+            hires_rows, spatial_rows)
 
 
 def deep_shape_row(name, b, dtype_name, backend, rows, issued):
@@ -1267,12 +1344,14 @@ SPATIAL_CASES = {
         launches=(5, 4), attention={(2048, 1024, 24, 96),
                                     (2048, 1024, 12, 48)},
         image=128, classes=1000, again=True),
-    # BigGAN-deep-128 as phase 11 runs it (ch 128, z_dim 128; G f32 by
-    # the z/label promotion, D bf16 under compute_dtype = bfloat16).
+    # BigGAN-deep-128 as phase 11 runs it (ch 128, z_dim 128), in f32
+    # only: under compute_dtype = bfloat16 its G runs f32 (the z/label
+    # promotion) and so does D (the concatenation of bf16 reals with G's
+    # f32 fakes), so a bf16 step was the f32 step on bf16-rounded reals.
     "biggan_deep128": dict(
         config="biggan_imagenet128.gin",
         bindings=BIGGAN_BINDINGS + DEEP_BINDINGS,
-        precisions=("bfloat16", "float32"),
+        precisions=("float32",),
         controls={"no_halo": _CAUGHT, "k_times": _CAUGHT},
         launches=(5, 4), attention={(2048, 1024, 32, 128)},
         image=128, classes=1000),
@@ -1307,7 +1386,7 @@ def run_spatial(torch, model_dir, cases=tuple(SPATIAL_CASES)):
     launch runs on a band's 2048 queries against 1024 keys at the case's
     widths and is held to the plain version on its operands. Returns (both
     workers' launches in each case's first precision, the one its phase
-    runs: bf16 for BigGAN-128 and BigGAN-deep, f32 for S3GAN; summary)."""
+    runs: bf16 for BigGAN-128, f32 for the others; summary)."""
     _phase("spatial")
     print("-- two gloo workers on cuda:0, a data 1 x model 2 grid, against "
           "one process (gloo copies through the host on one card: its "
@@ -1378,7 +1457,8 @@ def _spatial_worker(rank, port, out, device="cuda", cases=None,
     with every attention launch checked (`_checked_attention`); its state
     against rank 0's bitwise; then the f32 step with each control. Rank 0
     then takes the one-process step of the same batch and draws in each
-    precision, the f32 one again, then each with autotuned cuDNN, and
+    precision, the f32 one again (`again`), then, for a case with a bf16
+    step, each with autotuned cuDNN, and
     writes each run's gaps (`_state_gaps`) to `out` as JSON. (device="cpu"
     and narrower `bindings` make a dry run off the card, with no
     launch.)"""
@@ -1467,7 +1547,7 @@ def _spatial_worker(rank, port, out, device="cuda", cases=None,
                 checkpoint.live_tensors(ts).items()}, seconds
 
     names = list(cases or SPATIAL_CASES)
-    states, gathered, seconds = {}, {}, {}
+    states, gathered, seconds, part_seconds = {}, {}, {}, {}
     try:
         for name in names:
             t0 = time.perf_counter()
@@ -1478,6 +1558,7 @@ def _spatial_worker(rank, port, out, device="cuda", cases=None,
             states[name] = {p: {} for p in case["precisions"]}
             mine = {"launches": {}, "bitwise": {}, "finite": {},
                     "seconds": {}}
+            parts = {"build": time.perf_counter() - t0}
             checked = {"shapes": [], "ratio": 0.0}
             for precision in case["precisions"]:
                 with _checked_attention(torch, fa, checked):
@@ -1495,14 +1576,18 @@ def _spatial_worker(rank, port, out, device="cuda", cases=None,
                     mine["bitwise"][precision] = True
                 except AssertionError:
                     mine["bitwise"][precision] = False
+            parts["steps"] = time.perf_counter() - t0 - parts["build"]
             mine.update(checked)
             gathered[name] = [None, None]
             torch.distributed.all_gather_object(gathered[name], mine)
+            t1 = time.perf_counter()
             for control in case["controls"]:
                 states[name]["float32"][control], _ = step(
                     built["float32"], batch, replicas, control=control)
+            parts["controls"] = time.perf_counter() - t1
             del built
             seconds[name] = time.perf_counter() - t0
+            part_seconds[name] = parts
     finally:
         mesh_utils.destroy_process_group()
     if rank != 0:
@@ -1516,15 +1601,22 @@ def _spatial_worker(rank, port, out, device="cuda", cases=None,
         built = {p: build(options, p) for p in case["precisions"]}
         init = {p: {} for p in case["precisions"]}
         want, single_seconds = {}, {}
+        parts = part_seconds[name]
+        parts["one_process_build"] = time.perf_counter() - t0
         for p in case["precisions"]:
             want[p], single_seconds[p] = step(built[p], batch, None, init[p])
         if case.get("again"):
             states[name]["float32"]["again"], _ = step(built["float32"],
                                                        batch, None)
-        deterministic(False)
-        for precision in case["precisions"]:
-            states[name][precision]["autotuned"], _ = step(
-                built[precision], batch, None)
+        # The one-process step with autotuned cuDNN, the card's own spread
+        # beside a bf16 step's gaps, where the case has one.
+        t1 = time.perf_counter()
+        if "bfloat16" in case["precisions"]:
+            deterministic(False)
+            for precision in case["precisions"]:
+                states[name][precision]["autotuned"], _ = step(
+                    built[precision], batch, None)
+        parts["autotuned"] = time.perf_counter() - t1
         first = gathered[name][0]
         results[name] = {
             "gaps": {p: {run: _state_gaps(state, want[p], init[p],
@@ -1539,7 +1631,10 @@ def _spatial_worker(rank, port, out, device="cuda", cases=None,
             "shapes": sorted({tuple(x[1:]) for g in gathered[name]
                               for x in g["shapes"]}),
             "kernel_err_ratio": max(g["ratio"] for g in gathered[name]),
-            "seconds": seconds[name] + time.perf_counter() - t0}
+            "seconds": seconds[name] + time.perf_counter() - t0,
+            "part_seconds": dict(parts, one_process=time.perf_counter()
+                                 - t0 - parts["one_process_build"]
+                                 - parts["autotuned"])}
         del states[name], want, init, built
         if device.type == "cuda":
             torch.cuda.empty_cache()
@@ -1792,7 +1887,8 @@ def run_biggan_deep(torch, model_dir):
     joint G forward, two D sub-steps and the G sub-step run the attention
     as BigGAN does (5 forward and 4 backward launches a step). G
     concatenates z to the f32 label embedding, so it runs in f32 (as in
-    the JAX package); D runs in bf16."""
+    the JAX package), and so does D on the bf16 reals concatenated with
+    G's f32 fakes."""
     _phase("BigGAN-deep main path")
     _, launches = _train_and_check(
         torch, model_dir, _deep_argv(model_dir, "train"), DEEP_PARAMS,
@@ -1800,14 +1896,138 @@ def run_biggan_deep(torch, model_dir):
     return launches
 
 
+@contextlib.contextmanager
+def _launch_widths(fa, seen):
+    """Within the block, count each attention launch by kernel, type and
+    (C, Cg) in `seen` ({"fwd bfloat16 48x192": n, ...})."""
+    launch_fwd, launch_bwd = fa.attention_fwd, fa.attention_bwd
+
+    def key(kern, theta, g):
+        return (f"{kern} {str(theta.dtype).split('.')[-1]} "
+                f"{theta.shape[2]}x{g.shape[2]}")
+
+    def fwd(theta, phi, g):
+        out = launch_fwd(theta, phi, g)
+        seen[key("fwd", theta, g)] = seen.get(key("fwd", theta, g), 0) + 1
+        return out
+
+    def bwd(theta, phi, g, dout, mx, den):
+        out = launch_bwd(theta, phi, g, dout, mx, den)
+        seen[key("bwd", theta, g)] = seen.get(key("bwd", theta, g), 0) + 1
+        return out
+
+    fa.attention_fwd, fa.attention_bwd = fwd, bwd
+    try:
+        yield
+    finally:
+        fa.attention_fwd, fa.attention_bwd = launch_fwd, launch_bwd
+
+
+def _hires_bindings(bindings):
+    """The BigGAN-128 phases' bindings at batch HIRES_BATCH, then
+    `bindings`."""
+    return BIGGAN_BINDINGS + (f"options.batch_size = {HIRES_BATCH}",) + \
+        tuple(bindings)
+
+
+def _hires_argv(model_dir, schedule, bindings):
+    return _cli_argv(model_dir, "biggan_imagenet128.gin",
+                     _hires_bindings(bindings), schedule)
+
+
+def _train_widths(torch, model_dir, bindings, params, widths):
+    """Train a 512 px model through the CLI (`_train_and_check`) with every
+    launch's width counted; each step's launches must be `widths`
+    ({"fwd bfloat16 48x192": n, ...}). Returns (launches, summary, the
+    CLI's report)."""
+    from compare_gan_torch.ops import fused_attention as fa
+    seen = {}
+    with _launch_widths(fa, seen):
+        report, launches = _train_and_check(
+            torch, model_dir, _hires_argv(model_dir, "train", bindings),
+            params, {"fwd": 5 * STEPS, "bwd": 4 * STEPS})
+    want = {k: v * STEPS for k, v in widths.items()}
+    print(f"launches by width {seen} (expected {want})")
+    if seen != want:
+        raise AssertionError(f"launches by width {seen} != {want}")
+    return launches, {
+        "batch": HIRES_BATCH, "params": list(params),
+        "seconds_per_step": report.seconds_per_step,
+        "peak_memory_GiB": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches_by_width": seen}, report
+
+
+def run_biggan512(torch, model_dir):
+    """BigGAN-512 at full width (ch 96, z_dim 160, G's attention after B4,
+    D's after B3), batch HIRES_BATCH, bf16, joint G forward, fake-only G
+    loss, fake ImageNet-512: 3 steps through the CLI. Per step G's block
+    runs the forward twice (the joint G forward, the G sub-step) and the
+    backward once at (48, 192); D's block runs 3 forwards and 3 backwards
+    at (24, 96)."""
+    _phase("BigGAN-512 main path")
+    launches, summary, _ = _train_widths(
+        torch, model_dir, B512_BINDINGS, B512_PARAMS, {
+            "fwd bfloat16 48x192": 2, "bwd bfloat16 48x192": 1,
+            "fwd bfloat16 24x96": 3, "bwd bfloat16 24x96": 3})
+    return launches, summary
+
+
+def run_biggan_deep512(torch, model_dir):
+    """BigGAN-deep-512 as published (ch 128, z_dim 160), batch HIRES_BATCH,
+    the BigGAN-128 phases' options: 3 steps through the CLI, both blocks at
+    (64, 256). G runs in f32 (the z/label promotion), and so does D: the
+    concatenation of bf16 real and f32 fake images promotes to f32, as
+    `jnp.concatenate` does (so does BigGAN-deep-128's D). Then
+    model.ckpt-3 restored as the eval restores it, its accumulators filled
+    as the eval fills them (`eval_gan_lib._update_bn_accumulators`,
+    DEEP512_FILL samples at the eval batch of 64) and that state served as
+    a program at DEEP512_SERVING_BATCHES (`_serve`)."""
+    _phase("BigGAN-deep-512 main path")
+    from compare_gan_torch import eval_gan_lib
+    from compare_gan_torch.ops import fused_attention as fa
+    launches, summary, report = _train_widths(
+        torch, model_dir, DEEP512_BINDINGS, DEEP512_PARAMS,
+        {"fwd float32 64x256": 5, "bwd float32 64x256": 4})
+    del report
+    torch.cuda.empty_cache()
+    # A TrainState is served with the GAN whose modules it holds: restored
+    # into this one's template, as the eval restores a checkpoint.
+    gan = _gan(model_dir, _hires_bindings(DEEP512_BINDINGS))
+    ts = eval_gan_lib.restored_state(
+        gan, os.path.join(model_dir, f"model.ckpt-{STEPS}.npz"),
+        eval_gan_lib.EvalCache())
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches_fwd = fa.launches_bwd = 0
+    t0 = time.perf_counter()
+    eval_gan_lib._update_bn_accumulators(gan, ts, EVAL_BATCH, DEEP512_FILL)
+    torch.cuda.synchronize()
+    fills = DEEP512_FILL // EVAL_BATCH
+    summary["fill"] = {
+        "samples": DEEP512_FILL, "seconds": time.perf_counter() - t0,
+        "peak_memory_GiB": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches": fa.launches_fwd}
+    print(f"fill {summary['fill']}")
+    if (fa.launches_fwd, fa.launches_bwd) != (fills, 0):
+        raise AssertionError(f"fill launches {fa.launches_fwd} / "
+                             f"{fa.launches_bwd}, not {fills} / 0")
+    launches["fwd"] += fa.launches_fwd
+    served, summary["serving"] = _serve(
+        torch, gan, ts, model_dir, DEEP512_SERVING_BATCHES, cpu=False)
+    summary["serving"].pop("module_dir")
+    launches["fwd"] += served
+    return launches, summary
+
+
 def run_gan_tasks(torch, model_dir):
     """All ten eval tasks on the study zoo's DCGAN-64 checkpoint
     (dcgan_celeba64.gin as published: unconditional, uniform z, z_dim 128),
-    GILBO at its defaults (2,000 regressor steps at batch 64) with its
-    artifacts written to <model_dir>/gilbo."""
+    GILBO at GILBO_STEPS regressor steps at batch 64 with its artifacts
+    written to <model_dir>/gilbo."""
     outdir = os.path.join(model_dir, "gilbo")
     argv = _cli_argv(model_dir, "dcgan_celeba64.gin",
-                     [f"GILBOTask.outdir = '{outdir}'"], "eval_after_train")
+                     [f"GILBOTask.outdir = '{outdir}'",
+                      f"GILBOTask.train_steps = {GILBO_STEPS}"],
+                     "eval_after_train")
     launches, summary = run_eval(torch, model_dir, argv,
                                  SESSION_TASKS + GAN_TASKS, (64, 64, 3),
                                  attention=0, accumulators=False,
@@ -1838,20 +2058,22 @@ SERVING_MODEL_MODULES = ("compare_gan_torch.architectures",
 SERVING_BYTES_RATIO = 1.25
 
 
-def _checked_images(np, images, batch, what):
-    if images.shape != (batch, 128, 128, 3) or not np.isfinite(images).all() \
+def _checked_images(np, images, batch, what, size=128):
+    if images.shape != (batch, size, size, 3) \
+            or not np.isfinite(images).all() \
             or images.min() < 0 or images.max() > 1:
         raise AssertionError(f"{what}: bad images, shape {images.shape}, "
                              f"range [{images.min()}, {images.max()}]")
 
 
-def serving_worker(export_dir):
+def serving_worker(export_dir, cpu=True):
     """The serving phase's fresh process: load the program of `export_dir`
     through `serving.load_serving_program` on the card (TF32 off, as in the
-    parent) and on the CPU; run every signature on the inputs the parent
-    wrote, once checked (one forward launch) and SERVING_CALLS times timed;
-    gen_bs8 on the CPU (no launch). Writes outputs.npz and prints a JSON
-    report as its last line; raises if a model module was imported."""
+    parent) and, with `cpu`, on the CPU; run every signature on the inputs
+    the parent wrote, once checked (one forward launch) and SERVING_CALLS
+    times timed; with `cpu`, gen_bs8 on the CPU (no launch). Writes
+    outputs.npz and prints a JSON report as its last line; raises if a
+    model module was imported."""
     sys.path.insert(0, ROOT)
     import numpy as np
     import torch
@@ -1875,7 +2097,8 @@ def serving_worker(export_dir):
         fa.launches_fwd = 0
         images = signatures[name](z[:batch], labels[:batch])
         outputs[name] = images.cpu().numpy()
-        _checked_images(np, outputs[name], batch, name)
+        _checked_images(np, outputs[name], batch, name,
+                        spec["image_shape"][0])
         if fa.launches_fwd != 1:
             raise AssertionError(f"{name}: {fa.launches_fwd} forward "
                                  f"launches, not 1")
@@ -1891,12 +2114,13 @@ def serving_worker(export_dir):
             raise AssertionError(f"{name}: {fa.launches_fwd} forward "
                                  f"launches in {1 + SERVING_CALLS} calls")
         launches += fa.launches_fwd
-    _, cpu_signatures = serving.load_serving_program(export_dir, "cpu")
-    fa.launches_fwd = 0
-    outputs["cpu_gen_bs8"] = cpu_signatures["gen_bs8"](z[:8],
-                                                       labels[:8]).numpy()
-    if fa.launches_fwd:
-        raise AssertionError("the program on the CPU launched a kernel")
+    if cpu:
+        _, cpu_signatures = serving.load_serving_program(export_dir, "cpu")
+        fa.launches_fwd = 0
+        outputs["cpu_gen_bs8"] = cpu_signatures["gen_bs8"](
+            z[:8], labels[:8]).numpy()
+        if fa.launches_fwd:
+            raise AssertionError("the program on the CPU launched a kernel")
     np.savez(os.path.join(export_dir, "outputs.npz"), **outputs)
     model_modules = sorted(m for m in sys.modules
                            if m.startswith(SERVING_MODEL_MODULES))
@@ -1922,42 +2146,38 @@ def _held(np, got, want, what):
     return err
 
 
-def run_serving(torch, model_dir):
-    """Export the main path's BigGAN-128 G (the eval's accumulator-filled
-    step-3 state, EMA shadows) as a serving program with the four
-    signatures and a module export of the same state; serve the program
-    from a fresh process (`serving_worker`); hold its images to eager
-    `export.load_generator` on the module export and to its own CPU run;
-    run `compare_gan_torch.demo` on the module export. The module export
-    of tfhub/<step> is written before the eval fills the accumulators, so
-    it is not this state: with unfilled accumulators BN divides by
-    sqrt(epsilon). Returns (launches, summary)."""
-    _phase("serving")
-    import numpy as np
+def _gan(model_dir, bindings):
+    """The GAN of biggan_imagenet128.gin with `bindings` on the card, fake
+    data."""
     from compare_gan_torch import config as gin
-    from compare_gan_torch import datasets, demo, eval_gan_lib, export
-    from compare_gan_torch import gans, runner_lib, serving
-    from compare_gan_torch.ops import fused_attention as fa
-    from compare_gan_torch.tf_io import image_codec
+    from compare_gan_torch import datasets, gans, runner_lib
     del gans  # Registers the configurables of the config.
-
     gin.clear_config()
     gin.parse_config_files_and_bindings(
         [os.path.join(ROOT, "example_configs", "biggan_imagenet128.gin")],
-        list(BIGGAN_BINDINGS))
+        list(bindings))
     datasets.set_fake_dataset(True)
     options = runner_lib.get_options_dict()
-    gan = options["gan_class"](dataset=datasets.get_dataset(),
-                               parameters=options, model_dir=model_dir,
-                               device="cuda")
-    ts = eval_gan_lib.restored_state(
-        gan, os.path.join(model_dir, "tfhub", str(STEPS),
-                          f"model.ckpt-{STEPS}.npz"),
-        eval_gan_lib.EvalCache())
+    return options["gan_class"](dataset=datasets.get_dataset(),
+                                parameters=options, model_dir=model_dir,
+                                device="cuda")
+
+
+def _serve(torch, gan, ts, model_dir, batch_sizes, cpu=True):
+    """Export G of the filled state `ts` (EMA shadows) as a serving program
+    at `batch_sizes` and as a module export under `model_dir`; serve the
+    program from a fresh process (`serving_worker`, with `cpu` also
+    gen_bs8 on the CPU); hold its images to eager `export.load_generator`
+    on the module export (and to its CPU run). Returns (forward launches,
+    summary)."""
+    import numpy as np
+    from compare_gan_torch import export, serving
+    from compare_gan_torch.ops import fused_attention as fa
+
     program_dir = os.path.join(model_dir, "serving", "program")
     module_dir = os.path.join(model_dir, "serving", "module")
     t0 = time.perf_counter()
-    export.export_serving_program(gan, ts, program_dir)
+    export.export_serving_program(gan, ts, program_dir, batch_sizes)
     export_seconds = time.perf_counter() - t0
     artifact = os.path.getsize(os.path.join(program_dir,
                                             serving.SERVING_PROGRAM))
@@ -1973,19 +2193,22 @@ def run_serving(torch, model_dir):
     with open(os.path.join(program_dir, serving.SERVING_SPEC)) as f:
         spec = json.load(f)
     print(f"serving spec {spec}")
-    if list(spec["signatures"]) != ["gen_bs8", "gen_bs16", "gen_bs32",
-                                    "gen_bs64"] or spec["dtype"] != "float32":
+    if list(spec["signatures"]) != [f"gen_bs{b}" for b in batch_sizes] or \
+            spec["dtype"] != "float32":
         raise AssertionError(f"serving spec {spec}")
+    size = spec["image_shape"][0]
 
     # z as the config draws it (normal), labels with an unlabeled -1.
     rng = np.random.RandomState(0)
-    z = rng.randn(64, gan.z_dim).astype(np.float32)
-    labels = rng.randint(0, 1000, 64).astype(np.int32)
+    z = rng.randn(max(batch_sizes), gan.z_dim).astype(np.float32)
+    labels = rng.randint(0, 1000, max(batch_sizes)).astype(np.int32)
     labels[0] = -1
     np.savez(os.path.join(program_dir, "inputs.npz"), z=z, labels=labels)
+    torch.cuda.empty_cache()
     proc = subprocess.run(
         [sys.executable, "-c",
-         f"import chip_smoke; chip_smoke.serving_worker({program_dir!r})"],
+         f"import chip_smoke; chip_smoke.serving_worker({program_dir!r}, "
+         f"cpu={cpu!r})"],
         cwd=ROOT, capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
         raise AssertionError(f"the serving process failed (rc "
@@ -2003,7 +2226,7 @@ def run_serving(torch, model_dir):
     for name, batch in spec["signatures"].items():
         fa.launches_fwd = 0
         want = generate(z[:batch], labels[:batch]).float().cpu().numpy()
-        _checked_images(np, want, batch, f"eager {name}")
+        _checked_images(np, want, batch, f"eager {name}", size)
         errors[name] = _held(np, outputs[name], want,
                              f"{name} program vs eager load_generator")
         torch.cuda.synchronize()
@@ -2017,15 +2240,47 @@ def run_serving(torch, model_dir):
             raise AssertionError(f"eager {name}: {fa.launches_fwd} forward "
                                  f"launches in {1 + SERVING_CALLS} calls")
         eager_launches += fa.launches_fwd
-    errors["card_vs_cpu_gen_bs8"] = _held(
-        np, outputs["gen_bs8"], outputs["cpu_gen_bs8"],
-        "gen_bs8 on the card vs the CPU")
+    if cpu:
+        errors["card_vs_cpu_gen_bs8"] = _held(
+            np, outputs["gen_bs8"], outputs["cpu_gen_bs8"],
+            "gen_bs8 on the card vs the CPU")
     rates = {name: {"program": report["images_per_second"][name],
                     "eager": eager_rates[name]}
              for name in spec["signatures"]}
     print("serving_images_per_second " + " ".join(
         f"{k} program {v['program']:.1f} eager {v['eager']:.1f}"
         for k, v in rates.items()))
+    return report["launches"] + eager_launches, {
+        "images_per_second": rates, "max_abs_err": errors,
+        "export_seconds": export_seconds,
+        "load_seconds": report["load_seconds"],
+        "cuda_init_seconds": report["cuda_init_seconds"],
+        "artifact_bytes": artifact, "weight_bytes": weights,
+        "launches": {"program": report["launches"],
+                     "eager": eager_launches}, "module_dir": module_dir}
+
+
+def run_serving(torch, model_dir):
+    """Export the main path's BigGAN-128 G (the eval's accumulator-filled
+    step-3 state, EMA shadows) as a serving program with the four
+    signatures and a module export of the same state, serve and hold them
+    (`_serve`), and run `compare_gan_torch.demo` on the module export. The
+    module export of tfhub/<step> is written before the eval fills the
+    accumulators, so it is not this state: with unfilled accumulators BN
+    divides by sqrt(epsilon). Returns (launches, summary)."""
+    _phase("serving")
+    import numpy as np
+    from compare_gan_torch import demo, eval_gan_lib
+    from compare_gan_torch.ops import fused_attention as fa
+    from compare_gan_torch.tf_io import image_codec
+    gan = _gan(model_dir, BIGGAN_BINDINGS)
+    ts = eval_gan_lib.restored_state(
+        gan, os.path.join(model_dir, "tfhub", str(STEPS),
+                          f"model.ckpt-{STEPS}.npz"),
+        eval_gan_lib.EvalCache())
+    served, summary = _serve(torch, gan, ts, model_dir, (8, 16, 32, 64))
+    del gan, ts
+    module_dir = summary.pop("module_dir")
 
     out_dir = os.path.join(model_dir, "serving", "demo")
     fa.launches_fwd = 0
@@ -2047,16 +2302,9 @@ def run_serving(torch, model_dir):
             not np.isfinite(result["predictions"]).all() or \
             demo_launches != 3:
         raise AssertionError("the demo's outputs or launches are wrong")
-    launches = report["launches"] + eager_launches + demo_launches
-    return {"fwd": launches, "bwd": 0}, {
-        "images_per_second": rates, "max_abs_err": errors,
-        "export_seconds": export_seconds,
-        "load_seconds": report["load_seconds"],
-        "cuda_init_seconds": report["cuda_init_seconds"],
-        "artifact_bytes": artifact,
-        "weight_bytes": weights, "demo_seconds": demo_seconds,
-        "launches": {"program": report["launches"], "eager": eager_launches,
-                     "demo": demo_launches}}
+    summary["demo_seconds"] = demo_seconds
+    summary["launches"]["demo"] = demo_launches
+    return {"fwd": served + demo_launches, "bwd": 0}, summary
 
 
 # The "tf formats" phase: TFRecord data, JPEG/PNG decode and reference
@@ -2555,27 +2803,18 @@ def run_kernel_trajectory(torch, model_dir, steps=TRAJ_STEPS,
     PERF.md reports."""
     _phase("kernel trajectory")
     from compare_gan_torch import config as gin
-    from compare_gan_torch import datasets, interop, polygons, runner_lib
+    from compare_gan_torch import datasets, polygons, runner_lib
     from compare_gan_torch.gans import modular_gan  # noqa: F401
-    from compare_gan_torch.ops import fused_attention as fa
     t0 = time.perf_counter()
     data_dir = os.path.join(model_dir, "data")
     polygons.write_multiclass128_npz_dataset(data_dir, *TRAJ_SIZES,
                                              n_workers=8)
     saved = (datasets.DATA_DIR, torch.backends.cudnn.deterministic,
-             torch.backends.cudnn.benchmark, fa.fused_attention)
+             torch.backends.cudnn.benchmark)
     datasets.DATA_DIR = data_dir
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
-    kernel = fa.fused_attention
-    variants = {
-        "reference": fa.reference_attention,
-        "reference_hilo": _rounded_operands(torch, fa.reference_attention,
-                                            _round_hilo),
-        "kernel": kernel,
-        "kernel_bf16_operands": _rounded_operands(torch, kernel,
-                                                  _round_bf16)}
-    runs = {}
+    variants = _attention_variants(torch)
     try:
         gin.clear_config()
         gin.parse_config_files_and_bindings([os.path.join(
@@ -2585,14 +2824,55 @@ def run_kernel_trajectory(torch, model_dir, steps=TRAJ_STEPS,
         gan = options["gan_class"](
             dataset=datasets.get_dataset(seed=TRAJ_SEED),
             parameters=options, model_dir=model_dir, device="cuda")
-        batch_size = options["batch_size"]
-        init = {k: (torch.full_like(v, gate)
-                    if k.endswith("non_local_block/sigma']") else
-                    v.detach().cpu().clone()) for k, v in
-                interop.state_dict(gan.init_state(TRAJ_SEED)).items()}
-        batches = gan.input_batches(batch_size)
-        batches = [next(batches) for _ in range(steps)]
-        step = gan.make_train_step(batch_size)
+        init, runs = _variant_runs(torch, gan, options["batch_size"],
+                                   steps, gate, variants)
+    finally:
+        (datasets.DATA_DIR, torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+        shutil.rmtree(data_dir, ignore_errors=True)
+    summary = _variant_summary(torch, init, runs, steps, gate, t0)
+    print("kernel_trajectory " + json.dumps(summary))
+    if check:
+        _check_variants(runs, summary, {
+            k: v * steps for k, v in CONV_BIGGAN_LAUNCHES.items()})
+    return summary
+
+
+def _attention_variants(torch, control=True):
+    """The attention three or four ways: plain on the CUDA tensors, plain
+    on operands rounded to the f32 kernels' hi + lo precision, the kernels,
+    and with `control` the kernels on bf16-rounded operands."""
+    from compare_gan_torch.ops import fused_attention as fa
+    kernel = fa.fused_attention
+    variants = {
+        "reference": fa.reference_attention,
+        "reference_hilo": _rounded_operands(torch, fa.reference_attention,
+                                            _round_hilo),
+        "kernel": kernel}
+    if control:
+        variants["kernel_bf16_operands"] = _rounded_operands(
+            torch, kernel, _round_bf16)
+    return variants
+
+
+def _variant_runs(torch, gan, batch_size, steps, gate, variants):
+    """`steps` train steps of `gan` once per attention variant (the
+    dispatch `fa.fused_attention` set to it), each from one init (seed
+    TRAJ_SEED, attention gates at `gate`, fresh optimizer states) on the
+    same batches. Returns (init, {variant: losses, seconds, launches,
+    final params})."""
+    from compare_gan_torch import interop
+    from compare_gan_torch.ops import fused_attention as fa
+    kernel = fa.fused_attention
+    init = {k: (torch.full_like(v, gate)
+                if k.endswith("non_local_block/sigma']") else
+                v.detach().cpu().clone()) for k, v in
+            interop.state_dict(gan.init_state(TRAJ_SEED)).items()}
+    batches = gan.input_batches(batch_size)
+    batches = [next(batches) for _ in range(steps)]
+    step = gan.make_train_step(batch_size)
+    runs = {}
+    try:
         for name, attend in variants.items():
             ts = gan.init_state(TRAJ_SEED)  # Fresh optimizer states.
             interop.load_state_dict(ts, init)
@@ -2611,24 +2891,29 @@ def run_kernel_trajectory(torch, model_dir, steps=TRAJ_STEPS,
                              "bwd": fa.launches_bwd},
                 "params": {k: v.detach().cpu().clone()
                            for k, v in ts.params().items()}}
-            fa.fused_attention = kernel
+            del ts
             print(f"{name}: {steps} steps in {runs[name]['seconds']:.2f}"
                   f" s, launches {runs[name]['launches']}, losses at step "
                   f"{steps} {losses[-1]}")
     finally:
-        (datasets.DATA_DIR, torch.backends.cudnn.deterministic,
-         torch.backends.cudnn.benchmark, fa.fused_attention) = saved
-        shutil.rmtree(data_dir, ignore_errors=True)
+        fa.fused_attention = kernel
+    return init, runs
+
+
+def _variant_summary(torch, init, runs, steps, gate, t0):
+    """Each variant's gaps to the plain run (`_trajectory_gaps`), the
+    bound (TRAJ_MARGIN times the hi/lo run's gaps, plus TRAJ_FLOOR on the
+    losses) and which variants are within it."""
     init = {k[len(".params['"):-2]: v for k, v in init.items()
             if k.startswith(".params")}
     ref = runs["reference"]
     gaps = {name: _trajectory_gaps(torch, runs[name], ref, init)
-            for name in variants if name != "reference"}
+            for name in runs if name != "reference"}
     hilo = gaps["reference_hilo"]
     bound = {"loss_gaps": [TRAJ_MARGIN * g + TRAJ_FLOOR
                            for g in hilo["loss_gaps"]],
              "rms_gap": TRAJ_MARGIN * hilo["rms_gap"]}
-    summary = {
+    return {
         "steps": steps, "gate": gate, "margin": TRAJ_MARGIN,
         "floor": TRAJ_FLOOR, "bound": bound, "gaps": gaps,
         "within": {name: _within(g, bound) for name, g in gaps.items()},
@@ -2636,24 +2921,68 @@ def run_kernel_trajectory(torch, model_dir, steps=TRAJ_STEPS,
         "launches": {k: r["launches"] for k, r in runs.items()},
         "seconds": time.perf_counter() - t0,
         "step_seconds": {k: r["seconds"] / steps for k, r in runs.items()}}
-    print("kernel_trajectory " + json.dumps(summary))
-    if not check:
-        return summary
-    expected = {k: v * steps for k, v in CONV_BIGGAN_LAUNCHES.items()}
-    for name in ("kernel", "kernel_bf16_operands"):
+
+
+def _check_variants(runs, summary, expected):
+    """The kernel runs launched `expected`, the plain ones nothing; the
+    kernels within the bound, the bf16 control (where it ran) outside."""
+    for name in {"kernel", "kernel_bf16_operands"} & set(runs):
         if runs[name]["launches"] != expected:
             raise AssertionError(f"{name}: launches {runs[name]['launches']}"
                                  f" != {expected}")
     for name in ("reference", "reference_hilo"):
         if runs[name]["launches"] != {"fwd": 0, "bwd": 0}:
             raise AssertionError(f"{name} launched a kernel")
+    bound, gaps = summary["bound"], summary["gaps"]
     if not summary["within"]["kernel"]:
         raise AssertionError(f"the kernels part from the reference over "
-                             f"{steps} steps beyond the bound {bound}: "
-                             f"{gaps['kernel']}")
-    if summary["within"]["kernel_bf16_operands"]:
+                             f"{summary['steps']} steps beyond the bound "
+                             f"{bound}: {gaps['kernel']}")
+    if summary["within"].get("kernel_bf16_operands"):
         raise AssertionError(f"the bound {bound} cannot tell bf16 operands "
                              f"apart: {gaps['kernel_bf16_operands']}")
+
+
+def run_hires_kernel_step(torch, model_dir):
+    """One f32 step of BigGAN-512 at full width (batch HIRES_STEP_BATCH,
+    TF32 off, deterministic cuDNN, Adam's epsilon as TRAJ_BINDINGS, fake
+    ImageNet-512, the attention gates at TRAJ_GATE) three ways from one
+    init (`_attention_variants`): the losses and the updated weights of the
+    kernels' run against the plain run's, within TRAJ_MARGIN times the
+    hi/lo-rounded plain run's gaps (`_check_variants`). No bf16 control:
+    after one step its gaps were within that bound too (PERF.md), which
+    takes the trajectory's five steps to tell apart. The config's own
+    options (no joint G forward, as the convergence runs): 6 forward and 4
+    backward launches a step through the kernels."""
+    _phase("BigGAN-512 kernel step")
+    from compare_gan_torch import config as gin
+    from compare_gan_torch import datasets, runner_lib
+    from compare_gan_torch.gans import modular_gan  # noqa: F401
+    t0 = time.perf_counter()
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        gin.clear_config()
+        gin.parse_config_files_and_bindings([os.path.join(
+            ROOT, "example_configs", "biggan_imagenet128.gin")],
+            [f"options.batch_size = {HIRES_STEP_BATCH}"]
+            + list(B512_BINDINGS) + list(TRAJ_BINDINGS))
+        datasets.set_fake_dataset(True)
+        options = runner_lib.get_options_dict()
+        gan = options["gan_class"](
+            dataset=datasets.get_dataset(seed=TRAJ_SEED),
+            parameters=options, model_dir=model_dir, device="cuda")
+        init, runs = _variant_runs(torch, gan, HIRES_STEP_BATCH, 1,
+                                   TRAJ_GATE,
+                                   _attention_variants(torch, control=False))
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+    summary = _variant_summary(torch, init, runs, 1, TRAJ_GATE, t0)
+    print("hires_kernel_step " + json.dumps(summary))
+    _check_variants(runs, summary, CONV_BIGGAN_LAUNCHES)
     return summary
 
 
@@ -2667,7 +2996,7 @@ def main():
     t_start = time.perf_counter()
     check_device(torch)
     build_kernels()
-    (kernels, eval_row, s3gan_row, deep_rows, convergence_rows,
+    (kernels, eval_row, s3gan_row, deep_rows, convergence_rows, hires_rows,
      spatial_rows) = compare_kernels(torch)
     model_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     runs, seconds = {}, {}
@@ -2710,6 +3039,23 @@ def main():
             _deep_argv(deep, "eval_after_train"), SESSION_TASKS,
             (128, 128, 3), attention=1, accumulators=True,
             phase="BigGAN-deep eval")
+        b512 = os.path.join(model_dir, "biggan512")
+        runs["b512_train"], b512_summary = timed(
+            "b512_train", run_biggan512, torch, b512)
+        runs["b512_eval"], b512_summary["eval"] = timed(
+            "b512_eval", run_eval, torch, b512,
+            _hires_argv(b512, "eval_after_train", B512_BINDINGS),
+            SESSION_TASKS[:2], (512, 512, 3), attention=1, accumulators=True,
+            phase="BigGAN-512 eval")
+        shutil.rmtree(b512, ignore_errors=True)  # ~10 GB of checkpoints
+        deep512 = os.path.join(model_dir, "biggan_deep512")
+        runs["deep512"], deep512_summary = timed(
+            "deep512", run_biggan_deep512, torch, deep512)
+        shutil.rmtree(deep512, ignore_errors=True)
+        # A comparison of the kernels with the plain attention: its
+        # launches are not the main path's.
+        hires_step = timed("hires_kernel_step", run_hires_kernel_step, torch,
+                           os.path.join(model_dir, "hires_step"))
         runs["gan_tasks"], gan_tasks = timed("gan_tasks", run_gan_tasks,
                                              torch, dcgan)
         runs["tf_formats"], tf_formats = timed(
@@ -2736,13 +3082,28 @@ def main():
     for kern in ("fwd", "bwd"):
         s3gan_row[kern]["phase_launches"] = runs["s3gan"][kern]
     print("s3gan_shape " + json.dumps(s3gan_row))
-    # BigGAN-deep's training launches (G's in f32, D's in bf16) and its
-    # eval's forwards, all at C = 32, Cg = 128.
+    # BigGAN-deep's training launches (all f32: G's by the z/label
+    # promotion, D's on the f32 concatenation) and its eval's forwards, all
+    # at C = 32, Cg = 128.
     for row in deep_rows:
         row["phase_launches"] = (runs["deep_eval"] if "eval" in row["shape"]
                                  else runs["deep_train"])
         print("biggan_deep_shape " + json.dumps(row))
     print("biggan_deep_eval " + json.dumps(deep_eval))
+    # The 512 px rows with the launches of the phases that ran them (the
+    # counters count calls: BigGAN-512's G launches at (48, 192) are in
+    # its summary's `launches_by_width`).
+    for row in hires_rows:
+        row["phase_launches"] = (
+            runs["deep512"] if row["shape"] == DEEP512_SHAPE[0] else
+            runs["b512_eval"] if "eval" in row["shape"] else
+            runs["b512_train"])
+        print("hires_shape " + json.dumps(row))
+    print("biggan512 " + json.dumps(b512_summary))
+    print("biggan_deep512 " + json.dumps(deep512_summary))
+    print("hires_kernel_step_gaps " + json.dumps(
+        {k: hires_step[k] for k in ("gate", "margin", "floor", "bound",
+                                    "gaps", "within", "step_seconds")}))
     print("gan_tasks " + json.dumps(gan_tasks))
     print("study_zoo " + json.dumps(study_zoo))
     print("data_parallel " + json.dumps(data_parallel))

@@ -7,8 +7,11 @@
 //   attention_bwd_cols_kernel  /  <- _bwd_kernel (via _attention_bwd_pallas)
 //
 // Shapes: theta [B,N,C], phi [B,M,C], g [B,M,Cg], all f32 or all bf16,
-// row-major and contiguous. On the BigGAN-128 main path N = 4096, M = 1024,
-// (C, Cg) = (24, 96) after G's block B4 and (12, 48) after D's block B1.
+// row-major and contiguous, 0 < C <= 64 and any Cg. The non-local block
+// gives (C, Cg) = (channels / 8, channels / 2) at N = 4096, M = 1024 on the
+// 64x64 map: (24, 96) after BigGAN-128's G block B4 and (12, 48) after D's
+// B1; (32, 128) in BigGAN-deep-128; (48, 192) after BigGAN-512's G block
+// B4; (64, 256) in BigGAN-deep-256 and -512.
 //
 // What bounds it on this card. The [B,N,M] score work is 2*N*M*(C + Cg)
 // flops per example in the forward and 2*N*M*(3C + 2Cg) in the backward,
@@ -25,10 +28,30 @@
 //
 // Design (FlashAttention-2/3 on wgmma and mma.sync):
 //  * Every product runs on the tensor cores with bf16 operands and f32
-//    accumulation. C is zero-padded to CP = 16 or 32 (the MMA depth), Cg
-//    to GP (48, 96 or 128). A block is 8 warps, 128 rows, so each staged
-//    tile serves 128 rows; a warp owns 16 rows (or 16 keys in the
-//    backward column pass).
+//    accumulation. C is zero-padded to CP = 16, 32, 48 or 64 (multiples of
+//    the MMA depth). A block is 8 warps, 128 rows, so each staged tile
+//    serves 128 rows; a warp owns 16 rows (or 16 keys in the backward
+//    column pass).
+//  * Cg is cut into nz = ceil(Cg / 128) column chunks of equal width, each
+//    zero-padded to GP = 48, 96 or 128, one chunk per blockIdx.z: a warp's
+//    accumulators and operand fragments of width Cg would outgrow the 255
+//    registers of a thread at Cg = 192 or 256 (the forward's O alone is 64
+//    x GP f32 a warpgroup, the column pass's dg 16 x GP a warp). A chunk's
+//    block recomputes the scores and their exponentials: C / Cg of the
+//    P.g product and one more exponential pass per extra chunk. The
+//    forward's chunks write disjoint columns of out (chunk 0 writes mx and
+//    den). The backward is linear in (dout, g) column chunks given the
+//    whole row term: chunk z's row pass takes dP_z = dout_z.g_z^T and
+//    writes row_z = sum_m P*dP_z and dtheta_z = (P*dP_z).phi - row_z*(P.phi)
+//    as f32 parts, which a third kernel sums in a fixed order (row first,
+//    which the column pass reads); chunk z's column pass writes its own
+//    columns of dg = P^T.dout_z and a part of dphi from
+//    dS_z^T = P^T*(dP_z^T - [z = 0] row), summed likewise. With one chunk
+//    the passes write their outputs directly, as before.
+//  * The staged tiles live in dynamic shared memory (64 KB at most a block,
+//    past the 48 KB of static shared memory at CP = 64, GP = 128).
+//  * The kernels are compiled once per padded C (CGT_CP, one object each,
+//    built in parallel); the entry object dispatches on C and Cg.
 //  * Forward: wgmma m64nNk16 per warpgroup of 4 warps (64 rows), A from
 //    registers, B from shared memory: S = theta.phi^T with N = 64 keys,
 //    then O += P.g with N = GP, the g tile read transposed. The key tiles
@@ -82,9 +105,45 @@
 #include <math.h>
 #include <stdint.h>
 
+typedef __nv_bfloat16 bf16;
+
+namespace cgt {
+
+constexpr int kMaxChunk = 128;  // widest Cg chunk (GP)
+
+struct Args {
+  const void *theta, *phi, *g, *dout;
+  const float *mx_in, *den_in;
+  void *out, *dtheta;
+  float *mx, *den, *row, *dphi, *dg;
+  // The backward's f32 parts when Cg takes more than one chunk: dtheta
+  // [nz, B, N, C] and dphi [nz, B, M, C]; `row` is then [nz, B, N] and its
+  // part 0 the sum.
+  float *dtheta_parts, *dphi_parts;
+  int B, N, M, C, Cg, chunk;
+  bool bf16;
+  cudaStream_t stream;
+  int nz() const { return (Cg + chunk - 1) / chunk; }
+};
+
+enum Kind { kFwd = 0, kRowsPass = 1, kColsPass = 2 };
+
+// Launches `kind` for inputs of type T at C padded to CP (defined in the
+// object compiled with CGT_CP = CP); returns cudaGetLastError().
+template <typename T, int CP>
+int launch_cp(const Args& a, int kind);
+
+}  // namespace cgt
+
+#ifdef CGT_CP
+
+// Dynamic shared memory, carved into each kernel's tiles; 16-byte aligned
+// at least, as cp.async, ldmatrix and wgmma's descriptors need.
+extern __shared__ __align__(128) unsigned char smem[];
+
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using cgt::Args;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
@@ -95,10 +154,10 @@ constexpr float kLog2e = 1.4426950408889634f;
 // Blocks each SM must hold, which caps the registers at 65536 / (256 * 2)
 // = 128 a thread: on an H100, 16 warps an SM at 128 registers ran faster
 // than the compiler's own choice of up to 255 registers (12 warps or
-// fewer). Only the f32 backward at Cg > 48 keeps the compiler's choice,
-// since at 128 registers it spills.
-constexpr int min_blocks(bool split, bool backward, int GP) {
-  return split && backward && GP > 48 ? 1 : 2;
+// fewer). The f32 backward at Cg > 48 and every kernel at C > 32 keep the
+// compiler's choice, since at 128 registers they spill.
+constexpr int min_blocks(bool split, bool backward, int CP, int GP) {
+  return CP > 32 || (split && backward && GP > 48) ? 1 : 2;
 }
 
 template <typename T>
@@ -184,15 +243,16 @@ __device__ __forceinline__ void acc_to_a(const float* c0, const float* c1,
 }
 
 // The A fragment of rows [r0, r0+16) x columns [k0, k0+16) of a row-major
-// [rows, width] matrix in device memory, zero outside it.
+// [rows, width] matrix of row stride ld in device memory, zero outside it.
 template <typename T>
 __device__ __forceinline__ void load_a(const T* src, int r0, int rows,
-                                       int k0, int width, FragA& a) {
+                                       int k0, int width, int ld,
+                                       FragA& a) {
   constexpr bool kSplit = Traits<T>::kSplit;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   auto at = [&](int r, int c) {
     return (r < rows && c < width)
-               ? to_f32(src[static_cast<long>(r) * width + c])
+               ? to_f32(src[static_cast<long>(r) * ld + c])
                : 0.f;
   };
   const int ra = r0 + g, rb = ra + 8, ca = k0 + 2 * t, cb = ca + 8;
@@ -279,18 +339,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
 
-// Stage rows [r0, r0 + kTile) of a row-major [rows, width] matrix into a
-// bf16 tile of row stride S, zero beyond `rows` (and, on the synchronous
-// path, beyond `width` up to W). bf16 with vec > 0: cp.async of vec bytes,
-// consecutive threads on consecutive chunks of the tile's contiguous rows
-// (the padding columns were zeroed once); otherwise plain loads, which
-// also split f32 into hi and lo tiles. A chunk's row comes from a multiply
-// by the reciprocal of the chunks per row, exact while idx < 2^32 / per_row,
-// in place of a division by that run-time count (some twenty instructions)
-// per chunk.
+// Stage rows [r0, r0 + kTile) of a row-major [rows, width] matrix of row
+// stride ld into a bf16 tile of row stride S, zero beyond `rows` (and, on
+// the synchronous path, beyond `width` up to W). bf16 with vec > 0:
+// cp.async of vec bytes, consecutive threads on consecutive chunks of the
+// tile's contiguous rows (the padding columns were zeroed once);
+// otherwise plain loads, which also split f32 into hi and lo tiles. A
+// chunk's row comes from a multiply by the reciprocal of the chunks per
+// row, exact while idx < 2^32 / per_row, in place of a division by that
+// run-time count (some twenty instructions) per chunk.
 template <typename T, int W, int S>
 __device__ __forceinline__ void stage(bf16* hi, bf16* lo, const T* src,
-                                      int r0, int rows, int width, int vec) {
+                                      int r0, int rows, int width, int ld,
+                                      int vec) {
   if (!Traits<T>::kSplit && vec > 0) {
     const int per_row = width * static_cast<int>(sizeof(T)) / vec;
     const unsigned inv = 0xFFFFFFFFu / per_row + 1;  // idx / per_row, exact
@@ -298,7 +359,7 @@ __device__ __forceinline__ void stage(bf16* hi, bf16* lo, const T* src,
       const int r = __umulhi(idx, inv), q = idx - r * per_row;
       const bool ok = r0 + r < rows;
       const char* s = reinterpret_cast<const char*>(
-                          src + static_cast<long>(ok ? r0 + r : 0) * width) +
+                          src + static_cast<long>(ok ? r0 + r : 0) * ld) +
                       q * vec;
       char* d = reinterpret_cast<char*>(hi + r * S) + q * vec;
       if (vec == 16)
@@ -313,7 +374,7 @@ __device__ __forceinline__ void stage(bf16* hi, bf16* lo, const T* src,
   for (int idx = threadIdx.x; idx < kTile * W; idx += kThreads) {
     const int r = idx / W, c = idx - r * W;
     const float v = (r0 + r < rows && c < width)
-                        ? to_f32(src[static_cast<long>(r0 + r) * width + c])
+                        ? to_f32(src[static_cast<long>(r0 + r) * ld + c])
                         : 0.f;
     const bf16 h = __float2bfloat16(v);
     hi[r * S + c] = h;
@@ -493,14 +554,14 @@ __device__ __forceinline__ void wgmma_acc(float* d, const FragA& a,
   wgmma_rs<N, kTransB>(d, a.h, bh, scale_d);
 }
 
-// Stage rows [r0, r0 + kTile) of a row-major [rows, width] matrix into a
-// bf16 tile in the core-matrix layout: byte b of row r at
+// Stage rows [r0, r0 + kTile) of a row-major [rows, width] matrix of row
+// stride ld into a bf16 tile in the core-matrix layout: byte b of row r at
 // (r % 8) * 16 + (b % 16) + (r / 8) * kRowGroup + (b / 16) * kColGroup,
 // zero beyond `rows` (and, on the synchronous path, beyond `width` up to
 // W). As stage(), with cp.async of vec bytes where it can.
 template <typename T, int W, int kRowGroup, int kColGroup>
 __device__ __forceinline__ void stage_cm(bf16* hi, bf16* lo, const T* src,
-                                         int r0, int rows, int width,
+                                         int r0, int rows, int width, int ld,
                                          int vec) {
   auto at = [](bf16* base, int r, int b) {
     return reinterpret_cast<char*>(base) + (r % 8) * 16 + (b % 16) +
@@ -513,7 +574,7 @@ __device__ __forceinline__ void stage_cm(bf16* hi, bf16* lo, const T* src,
       const int r = __umulhi(idx, inv), q = idx - r * per_row;
       const bool ok = r0 + r < rows;
       const char* s = reinterpret_cast<const char*>(
-                          src + static_cast<long>(ok ? r0 + r : 0) * width) +
+                          src + static_cast<long>(ok ? r0 + r : 0) * ld) +
                       q * vec;
       char* d = at(hi, r, q * vec);
       if (vec == 16)
@@ -528,7 +589,7 @@ __device__ __forceinline__ void stage_cm(bf16* hi, bf16* lo, const T* src,
   for (int idx = threadIdx.x; idx < kTile * W; idx += kThreads) {
     const int r = idx / W, c = idx - r * W;
     const float v = (r0 + r < rows && c < width)
-                        ? to_f32(src[static_cast<long>(r0 + r) * width + c])
+                        ? to_f32(src[static_cast<long>(r0 + r) * ld + c])
                         : 0.f;
     const bf16 h = __float2bfloat16(v);
     *reinterpret_cast<bf16*>(at(hi, r, 2 * c)) = h;
@@ -578,35 +639,46 @@ __device__ __forceinline__ void pipeline(int ntiles, Issue issue, Body body) {
 
 template <typename T, int CP, int GP>
 __global__ void
-__launch_bounds__(kThreads, min_blocks(Traits<T>::kSplit, false, GP))
+__launch_bounds__(kThreads, min_blocks(Traits<T>::kSplit, false, CP, GP))
 attention_fwd_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
                      const T* __restrict__ g, T* __restrict__ out,
                      float* __restrict__ mx_out, float* __restrict__ den_out,
-                     int N, int M, int C, int Cg, int vec_c, int vec_g) {
+                     int N, int M, int C, int Cg, int chunk, int vec_c,
+                     int vec_g) {
   using R = Ring<T>;
   constexpr bool kSplit = R::kSplit;
   // phi tiles are B of S = theta.phi^T with K = C contiguous; g tiles are
   // B of O += P.g with N = Cg contiguous. In both, 8-key blocks run along
   // the tile's rows.
   constexpr int kPhiRowGroup = CP / 8 * 128, kGColGroup = kTile / 8 * 128;
-  __shared__ __align__(128) bf16 phi_s[R::kBuf][R::kParts][kTile * CP];
-  __shared__ __align__(128) bf16 g_s[R::kBuf][R::kParts][kTile * GP];
+  constexpr int kPhiTile = kTile * CP, kGTile = kTile * GP;
+  bf16* const phi_s = reinterpret_cast<bf16*>(smem);  // [kBuf][kParts]
+  bf16* const g_s = phi_s + R::kBuf * R::kParts * kPhiTile;
+  auto phi_at = [&](int buf, int part) {
+    return phi_s + (buf * R::kParts + part) * kPhiTile;
+  };
+  auto g_at = [&](int buf, int part) {
+    return g_s + (buf * R::kParts + part) * kGTile;
+  };
 
   const int b = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int t = lane & 3, r0 = blockIdx.x * kRows + warp * 16;
+  // This block's columns [c0, c0 + cw) of g and out.
+  const int c0 = blockIdx.z * chunk;
+  const int cw = Cg - c0 < chunk ? Cg - c0 : chunk;
   const T* phi_b = phi + static_cast<long>(b) * M * C;
-  const T* g_b = g + static_cast<long>(b) * M * Cg;
+  const T* g_b = g + static_cast<long>(b) * M * Cg + c0;
 
   if (!kSplit) {  // padding columns stay zero; cp.async writes the rest
-    zero(&phi_s[0][0][0], static_cast<int>(sizeof(phi_s) / sizeof(bf16)));
-    zero(&g_s[0][0][0], static_cast<int>(sizeof(g_s) / sizeof(bf16)));
+    zero(phi_s, R::kBuf * R::kParts * (kPhiTile + kGTile));
     __syncthreads();
   }
 
   FragA th[CP / 16];
 #pragma unroll
   for (int kc = 0; kc < CP / 16; ++kc)
-    load_a(theta + static_cast<long>(b) * N * C, r0, N, kc * 16, C, th[kc]);
+    load_a(theta + static_cast<long>(b) * N * C, r0, N, kc * 16, C, C,
+           th[kc]);
 
   float o[GP / 8][4];
 #pragma unroll
@@ -615,15 +687,15 @@ attention_fwd_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
   auto issue = [&](int j, int buf) {
-    stage_cm<T, CP, kPhiRowGroup, 128>(phi_s[buf][0],
-                                       phi_s[buf][R::kParts - 1], phi_b,
-                                       j * kTile, M, C, vec_c);
-    stage_cm<T, GP, 128, kGColGroup>(g_s[buf][0], g_s[buf][R::kParts - 1],
-                                     g_b, j * kTile, M, Cg, vec_g);
+    stage_cm<T, CP, kPhiRowGroup, 128>(phi_at(buf, 0),
+                                       phi_at(buf, R::kParts - 1), phi_b,
+                                       j * kTile, M, C, C, vec_c);
+    stage_cm<T, GP, 128, kGColGroup>(g_at(buf, 0), g_at(buf, R::kParts - 1),
+                                     g_b, j * kTile, M, cw, Cg, vec_g);
   };
   auto body = [&](int j, int buf) {
-    const bf16 *ph = phi_s[buf][0], *phl = phi_s[buf][R::kParts - 1];
-    const bf16 *gh = g_s[buf][0], *gl = g_s[buf][R::kParts - 1];
+    const bf16 *ph = phi_at(buf, 0), *phl = phi_at(buf, R::kParts - 1);
+    const bf16 *gh = g_at(buf, 0), *gl = g_at(buf, R::kParts - 1);
     float s[kTile / 8][4];
     wgmma_fence();
 #pragma unroll
@@ -705,14 +777,14 @@ attention_fwd_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
   for (int i = 0; i < 2; ++i) {
     const int row = r0 + (lane >> 2) + 8 * i;
     if (row >= N) continue;
-    const long base = (static_cast<long>(b) * N + row) * Cg;
+    const long base = (static_cast<long>(b) * N + row) * Cg + c0;
 #pragma unroll
     for (int nt = 0; nt < GP / 8; ++nt) {
       const int c = nt * 8 + 2 * t;
-      if (c < Cg) store(out, base + c, o[nt][2 * i] / l[i]);
-      if (c + 1 < Cg) store(out, base + c + 1, o[nt][2 * i + 1] / l[i]);
+      if (c < cw) store(out, base + c, o[nt][2 * i] / l[i]);
+      if (c + 1 < cw) store(out, base + c + 1, o[nt][2 * i + 1] / l[i]);
     }
-    if (t == 0) {
+    if (t == 0 && blockIdx.z == 0) {
       mx_out[static_cast<long>(b) * N + row] = m[i];
       den_out[static_cast<long>(b) * N + row] = l[i];
     }
@@ -721,38 +793,51 @@ attention_fwd_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
 
 template <typename T, int CP, int GP>
 __global__ void
-__launch_bounds__(kThreads, min_blocks(Traits<T>::kSplit, true, GP))
+__launch_bounds__(kThreads, min_blocks(Traits<T>::kSplit, true, CP, GP))
 attention_bwd_rows_kernel(const T* __restrict__ theta,
                           const T* __restrict__ phi, const T* __restrict__ g,
                           const T* __restrict__ dout,
                           const float* __restrict__ mx,
                           const float* __restrict__ den,
-                          T* __restrict__ dtheta, float* __restrict__ row_out,
-                          int N, int M, int C, int Cg, int vec_c, int vec_g) {
+                          T* __restrict__ dtheta,
+                          float* __restrict__ dtheta_parts,
+                          float* __restrict__ row_out, int N, int M, int C,
+                          int Cg, int chunk, int vec_c, int vec_g) {
   using R = Ring<T>;
   constexpr bool kSplit = R::kSplit;
   constexpr int CS = CP + 8, GS = GP + 8;
-  __shared__ __align__(16) bf16 phi_s[R::kBuf][R::kParts][kTile * CS];
-  __shared__ __align__(16) bf16 g_s[R::kBuf][R::kParts][kTile * GS];
+  constexpr int kPhiTile = kTile * CS, kGTile = kTile * GS;
+  bf16* const phi_s = reinterpret_cast<bf16*>(smem);  // [kBuf][kParts]
+  bf16* const g_s = phi_s + R::kBuf * R::kParts * kPhiTile;
+  auto phi_at = [&](int buf, int part) {
+    return phi_s + (buf * R::kParts + part) * kPhiTile;
+  };
+  auto g_at = [&](int buf, int part) {
+    return g_s + (buf * R::kParts + part) * kGTile;
+  };
 
   const int b = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int t = lane & 3, r0 = blockIdx.x * kRows + warp * 16;
+  // This block's columns [c0, c0 + cw) of dout and g.
+  const int c0 = blockIdx.z * chunk;
+  const int cw = Cg - c0 < chunk ? Cg - c0 : chunk;
   const T* phi_b = phi + static_cast<long>(b) * M * C;
-  const T* g_b = g + static_cast<long>(b) * M * Cg;
+  const T* g_b = g + static_cast<long>(b) * M * Cg + c0;
 
   if (!kSplit) {
-    zero(&phi_s[0][0][0], static_cast<int>(sizeof(phi_s) / sizeof(bf16)));
-    zero(&g_s[0][0][0], static_cast<int>(sizeof(g_s) / sizeof(bf16)));
+    zero(phi_s, R::kBuf * R::kParts * (kPhiTile + kGTile));
     __syncthreads();
   }
 
   FragA th[CP / 16], dO[GP / 16];
 #pragma unroll
   for (int kc = 0; kc < CP / 16; ++kc)
-    load_a(theta + static_cast<long>(b) * N * C, r0, N, kc * 16, C, th[kc]);
+    load_a(theta + static_cast<long>(b) * N * C, r0, N, kc * 16, C, C,
+           th[kc]);
 #pragma unroll
   for (int kc = 0; kc < GP / 16; ++kc)
-    load_a(dout + static_cast<long>(b) * N * Cg, r0, N, kc * 16, Cg, dO[kc]);
+    load_a(dout + static_cast<long>(b) * N * Cg + c0, r0, N, kc * 16, cw, Cg,
+           dO[kc]);
   // Rows beyond N: theta is zero there, so s = 0 and P = ex2(0) * 0 = 0.
   float nb[2], inv[2];
 #pragma unroll
@@ -771,14 +856,14 @@ attention_bwd_rows_kernel(const T* __restrict__ theta,
   float rsum[2] = {0.f, 0.f};
 
   auto issue = [&](int j, int buf) {
-    stage<T, CP, CS>(phi_s[buf][0], phi_s[buf][R::kParts - 1], phi_b,
-                     j * kTile, M, C, vec_c);
-    stage<T, GP, GS>(g_s[buf][0], g_s[buf][R::kParts - 1], g_b, j * kTile, M,
-                     Cg, vec_g);
+    stage<T, CP, CS>(phi_at(buf, 0), phi_at(buf, R::kParts - 1), phi_b,
+                     j * kTile, M, C, C, vec_c);
+    stage<T, GP, GS>(g_at(buf, 0), g_at(buf, R::kParts - 1), g_b, j * kTile,
+                     M, cw, Cg, vec_g);
   };
   auto body = [&](int j, int buf) {
-    const bf16 *ph = phi_s[buf][0], *phl = phi_s[buf][R::kParts - 1];
-    const bf16 *gh = g_s[buf][0], *gl = g_s[buf][R::kParts - 1];
+    const bf16 *ph = phi_at(buf, 0), *phl = phi_at(buf, R::kParts - 1);
+    const bf16 *gh = g_at(buf, 0), *gl = g_at(buf, R::kParts - 1);
 #pragma unroll
     for (int ks = 0; ks < kTile; ks += 16) {
       float s[2][4], dp[2][4];
@@ -837,27 +922,35 @@ attention_bwd_rows_kernel(const T* __restrict__ theta,
     rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 1);
     rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 2);
   }
+  // One chunk: dtheta in the input type and row. Several: chunk z's f32
+  // parts at [z, b, row].
+  const bool parts = gridDim.z > 1;
+  const long part = static_cast<long>(blockIdx.z) * gridDim.y * N;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = r0 + (lane >> 2) + 8 * i;
     if (row >= N) continue;
-    const long base = (static_cast<long>(b) * N + row) * C;
+    const long bn = static_cast<long>(b) * N + row;
 #pragma unroll
     for (int nt = 0; nt < CP / 8; ++nt) {
-      const int c = nt * 8 + 2 * t;
-      if (c < C)
-        store(dtheta, base + c, a1[nt][2 * i] - rsum[i] * a2[nt][2 * i]);
-      if (c + 1 < C)
-        store(dtheta, base + c + 1,
-              a1[nt][2 * i + 1] - rsum[i] * a2[nt][2 * i + 1]);
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int c = nt * 8 + 2 * t + q;
+        if (c >= C) continue;
+        const float v = a1[nt][2 * i + q] - rsum[i] * a2[nt][2 * i + q];
+        if (parts)
+          dtheta_parts[(part + bn) * C + c] = v;
+        else
+          store(dtheta, bn * C + c, v);
+      }
     }
-    if (t == 0) row_out[static_cast<long>(b) * N + row] = rsum[i];
+    if (t == 0) row_out[part + bn] = rsum[i];
   }
 }
 
 template <typename T, int CP, int GP>
 __global__ void
-__launch_bounds__(kThreads, min_blocks(Traits<T>::kSplit, true, GP))
+__launch_bounds__(kThreads, min_blocks(Traits<T>::kSplit, true, CP, GP))
 attention_bwd_cols_kernel(const T* __restrict__ theta,
                           const T* __restrict__ phi, const T* __restrict__ g,
                           const T* __restrict__ dout,
@@ -865,23 +958,38 @@ attention_bwd_cols_kernel(const T* __restrict__ theta,
                           const float* __restrict__ den,
                           const float* __restrict__ row,
                           float* __restrict__ dphi, float* __restrict__ dg,
-                          int N, int M, int C, int Cg, int vec_c, int vec_g) {
+                          int N, int M, int C, int Cg, int chunk, int vec_c,
+                          int vec_g) {
   using R = Ring<T>;
   constexpr bool kSplit = R::kSplit;
   constexpr int CS = CP + 8, GS = GP + 8;
-  __shared__ __align__(16) bf16 th_s[R::kBuf][R::kParts][kTile * CS];
-  __shared__ __align__(16) bf16 do_s[R::kBuf][R::kParts][kTile * GS];
-  __shared__ __align__(16) float sc_s[R::kBuf][3][kTile];  // mx, den, row
+  constexpr int kThTile = kTile * CS, kDoTile = kTile * GS;
+  bf16* const th_s = reinterpret_cast<bf16*>(smem);  // [kBuf][kParts]
+  bf16* const do_s = th_s + R::kBuf * R::kParts * kThTile;
+  // mx, den, row: [kBuf][3][kTile]
+  float* const sc_s = reinterpret_cast<float*>(
+      do_s + R::kBuf * R::kParts * kDoTile);
+  auto th_at = [&](int buf, int part) {
+    return th_s + (buf * R::kParts + part) * kThTile;
+  };
+  auto do_at = [&](int buf, int part) {
+    return do_s + (buf * R::kParts + part) * kDoTile;
+  };
+  auto sc_at = [&](int buf, int k) { return sc_s + (buf * 3 + k) * kTile; };
 
   const int b = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int t = lane & 3, k0 = blockIdx.x * kRows + warp * 16;
+  // This block's columns [c0, c0 + cw) of dout, g and dg; chunk 0 alone
+  // subtracts the row term from dP.
+  const int c0 = blockIdx.z * chunk;
+  const int cw = Cg - c0 < chunk ? Cg - c0 : chunk;
+  const bool first = blockIdx.z == 0;
   const long bn = static_cast<long>(b) * N;
   const T* theta_b = theta + bn * C;
-  const T* dout_b = dout + bn * Cg;
+  const T* dout_b = dout + bn * Cg + c0;
 
   if (!kSplit) {
-    zero(&th_s[0][0][0], static_cast<int>(sizeof(th_s) / sizeof(bf16)));
-    zero(&do_s[0][0][0], static_cast<int>(sizeof(do_s) / sizeof(bf16)));
+    zero(th_s, R::kBuf * R::kParts * (kThTile + kDoTile));
     __syncthreads();
   }
 
@@ -889,10 +997,12 @@ attention_bwd_cols_kernel(const T* __restrict__ theta,
   FragA pf[CP / 16], ga[GP / 16];
 #pragma unroll
   for (int kc = 0; kc < CP / 16; ++kc)
-    load_a(phi + static_cast<long>(b) * M * C, k0, M, kc * 16, C, pf[kc]);
+    load_a(phi + static_cast<long>(b) * M * C, k0, M, kc * 16, C, C,
+           pf[kc]);
 #pragma unroll
   for (int kc = 0; kc < GP / 16; ++kc)
-    load_a(g + static_cast<long>(b) * M * Cg, k0, M, kc * 16, Cg, ga[kc]);
+    load_a(g + static_cast<long>(b) * M * Cg + c0, k0, M, kc * 16, cw, Cg,
+           ga[kc]);
 
   float dph[CP / 8][4], dgv[GP / 8][4];
 #pragma unroll
@@ -905,17 +1015,19 @@ attention_bwd_cols_kernel(const T* __restrict__ theta,
     for (int e = 0; e < 4; ++e) dgv[nt][e] = 0.f;
 
   auto issue = [&](int j, int buf) {
-    stage<T, CP, CS>(th_s[buf][0], th_s[buf][R::kParts - 1], theta_b,
-                     j * kTile, N, C, vec_c);
-    stage<T, GP, GS>(do_s[buf][0], do_s[buf][R::kParts - 1], dout_b,
-                     j * kTile, N, Cg, vec_g);
-    stage_scalars(sc_s[buf][0], mx + bn, j * kTile, N);
-    stage_scalars(sc_s[buf][1], den + bn, j * kTile, N);
-    stage_scalars(sc_s[buf][2], row + bn, j * kTile, N);
+    stage<T, CP, CS>(th_at(buf, 0), th_at(buf, R::kParts - 1), theta_b,
+                     j * kTile, N, C, C, vec_c);
+    stage<T, GP, GS>(do_at(buf, 0), do_at(buf, R::kParts - 1), dout_b,
+                     j * kTile, N, cw, Cg, vec_g);
+    stage_scalars(sc_at(buf, 0), mx + bn, j * kTile, N);
+    stage_scalars(sc_at(buf, 1), den + bn, j * kTile, N);
+    stage_scalars(sc_at(buf, 2), row + bn, j * kTile, N);
   };
   auto body = [&](int j, int buf) {
-    const bf16 *thh = th_s[buf][0], *thl = th_s[buf][R::kParts - 1];
-    const bf16 *doh = do_s[buf][0], *dol = do_s[buf][R::kParts - 1];
+    const bf16 *thh = th_at(buf, 0), *thl = th_at(buf, R::kParts - 1);
+    const bf16 *doh = do_at(buf, 0), *dol = do_at(buf, R::kParts - 1);
+    const float *mx_t = sc_at(buf, 0), *den_t = sc_at(buf, 1),
+                *row_t = sc_at(buf, 2);
 #pragma unroll
     for (int rs = 0; rs < kTile; rs += 16) {
       float s[2][4], dp[2][4];
@@ -944,9 +1056,9 @@ attention_bwd_cols_kernel(const T* __restrict__ theta,
         for (int q = 0; q < 2; ++q) {
           const int n = rs + nt * 8 + 2 * t + q;
           const bool ok = j * kTile + n < N;
-          const float nb = -sc_s[buf][0][n] * kLog2e;
-          const float inv = ok ? __frcp_rn(sc_s[buf][1][n]) : 0.f;
-          const float rw = sc_s[buf][2][n];
+          const float nb = -mx_t[n] * kLog2e;
+          const float inv = ok ? __frcp_rn(den_t[n]) : 0.f;
+          const float rw = first ? row_t[n] : 0.f;
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int e = 2 * h + q;
@@ -980,6 +1092,9 @@ attention_bwd_cols_kernel(const T* __restrict__ theta,
   };
   pipeline<T>((N + kTile - 1) / kTile, issue, body);
 
+  // dphi is [nz, B, M, C]: the output itself with one chunk, its f32 parts
+  // with several.
+  const long part = static_cast<long>(blockIdx.z) * gridDim.y * M;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int key = k0 + (lane >> 2) + 8 * i;
@@ -988,90 +1103,158 @@ attention_bwd_cols_kernel(const T* __restrict__ theta,
 #pragma unroll
     for (int nt = 0; nt < CP / 8; ++nt) {
       const int c = nt * 8 + 2 * t;
-      if (c < C) dphi[bm * C + c] = dph[nt][2 * i];
-      if (c + 1 < C) dphi[bm * C + c + 1] = dph[nt][2 * i + 1];
+      if (c < C) dphi[(part + bm) * C + c] = dph[nt][2 * i];
+      if (c + 1 < C) dphi[(part + bm) * C + c + 1] = dph[nt][2 * i + 1];
     }
 #pragma unroll
     for (int nt = 0; nt < GP / 8; ++nt) {
       const int c = nt * 8 + 2 * t;
-      if (c < Cg) dg[bm * Cg + c] = dgv[nt][2 * i];
-      if (c + 1 < Cg) dg[bm * Cg + c + 1] = dgv[nt][2 * i + 1];
+      if (c < cw) dg[bm * Cg + c0 + c] = dgv[nt][2 * i];
+      if (c + 1 < cw) dg[bm * Cg + c0 + c + 1] = dgv[nt][2 * i + 1];
     }
   }
 }
 
-struct Args {
-  const void *theta, *phi, *g, *dout;
-  const float *mx_in, *den_in;
-  void *out, *dtheta;
-  float *mx, *den, *row, *dphi, *dg;
-  int B, N, M, C, Cg;
-  bool bf16;
-  cudaStream_t stream;
-};
-
-// Bytes per cp.async for the rows of a bf16 [*, width] matrix at p; 0 when
-// no size of 16, 8 or 4 bytes divides both (or for f32, which is staged
-// with plain loads).
-int vec_bytes(const void* p, int width, bool is_bf16) {
+// Bytes per cp.async for rows of a bf16 matrix at p of row stride ld, read
+// in column chunks of `chunk` (the last `last` wide): the largest of 16, 8
+// or 4 that divides the address and every row's and chunk's bytes; 0 when
+// none does (or for f32, which is staged with plain loads).
+int vec_bytes(const void* p, int ld, int chunk, int last, bool is_bf16) {
   if (!is_bf16) return 0;
   const uintptr_t a = reinterpret_cast<uintptr_t>(p);
   for (int v = 16; v >= 4; v /= 2)
-    if ((width * 2) % v == 0 && a % v == 0) return v;
+    if ((ld * 2) % v == 0 && (chunk * 2) % v == 0 && (last * 2) % v == 0 &&
+        a % v == 0)
+      return v;
   return 0;
 }
 
-template <typename T, int CP, int GP>
-int launch_fwd(const Args& a) {
-  dim3 grid((a.N + kRows - 1) / kRows, a.B);
-  attention_fwd_kernel<T, CP, GP><<<grid, kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.theta), static_cast<const T*>(a.phi),
-      static_cast<const T*>(a.g), static_cast<T*>(a.out), a.mx, a.den, a.N,
-      a.M, a.C, a.Cg, vec_bytes(a.phi, a.C, a.bf16),
-      vec_bytes(a.g, a.Cg, a.bf16));
-  return static_cast<int>(cudaGetLastError());
+// Opts a kernel into more than the default 48 KB of dynamic shared memory.
+template <typename K>
+int allow_smem(K* kernel, int bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
 template <typename T, int CP, int GP>
-int launch_bwd(const Args& a) {
-  dim3 grid_rows((a.N + kRows - 1) / kRows, a.B);
-  attention_bwd_rows_kernel<T, CP, GP><<<grid_rows, kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.theta), static_cast<const T*>(a.phi),
-      static_cast<const T*>(a.g), static_cast<const T*>(a.dout), a.mx_in,
-      a.den_in, static_cast<T*>(a.dtheta), a.row, a.N, a.M, a.C, a.Cg,
-      vec_bytes(a.phi, a.C, a.bf16), vec_bytes(a.g, a.Cg, a.bf16));
-  int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  dim3 grid_cols((a.M + kRows - 1) / kRows, a.B);
-  attention_bwd_cols_kernel<T, CP, GP><<<grid_cols, kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.theta), static_cast<const T*>(a.phi),
-      static_cast<const T*>(a.g), static_cast<const T*>(a.dout), a.mx_in,
-      a.den_in, a.row, a.dphi, a.dg, a.N, a.M, a.C, a.Cg,
-      vec_bytes(a.theta, a.C, a.bf16), vec_bytes(a.dout, a.Cg, a.bf16));
+int launch(const Args& a, int kind) {
+  constexpr int kParts = Ring<T>::kBuf * Ring<T>::kParts;  // tiles a ring
+  const int nz = a.nz(), last = a.Cg - (nz - 1) * a.chunk;
+  const int vec_g = vec_bytes(kind == cgt::kColsPass ? a.dout : a.g, a.Cg,
+                              a.chunk, last, a.bf16);
+  const int vec_c = vec_bytes(kind == cgt::kColsPass ? a.theta : a.phi, a.C,
+                              a.C, a.C, a.bf16);
+  const dim3 grid_rows((a.N + kRows - 1) / kRows, a.B, nz);
+  if (kind == cgt::kFwd) {
+    constexpr int bytes = kParts * kTile * (CP + GP) * sizeof(bf16);
+    int err = allow_smem(attention_fwd_kernel<T, CP, GP>, bytes);
+    if (err != 0) return err;
+    attention_fwd_kernel<T, CP, GP><<<grid_rows, kThreads, bytes, a.stream>>>(
+        static_cast<const T*>(a.theta), static_cast<const T*>(a.phi),
+        static_cast<const T*>(a.g), static_cast<T*>(a.out), a.mx, a.den, a.N,
+        a.M, a.C, a.Cg, a.chunk, vec_c, vec_g);
+  } else if (kind == cgt::kRowsPass) {
+    constexpr int bytes = kParts * kTile * (CP + GP + 16) * sizeof(bf16);
+    int err = allow_smem(attention_bwd_rows_kernel<T, CP, GP>, bytes);
+    if (err != 0) return err;
+    attention_bwd_rows_kernel<T, CP, GP>
+        <<<grid_rows, kThreads, bytes, a.stream>>>(
+            static_cast<const T*>(a.theta), static_cast<const T*>(a.phi),
+            static_cast<const T*>(a.g), static_cast<const T*>(a.dout),
+            a.mx_in, a.den_in, static_cast<T*>(a.dtheta), a.dtheta_parts,
+            a.row, a.N, a.M, a.C, a.Cg, a.chunk, vec_c, vec_g);
+  } else {
+    constexpr int bytes = kParts * kTile * (CP + GP + 16) * sizeof(bf16) +
+                          Ring<T>::kBuf * 3 * kTile * sizeof(float);
+    int err = allow_smem(attention_bwd_cols_kernel<T, CP, GP>, bytes);
+    if (err != 0) return err;
+    const dim3 grid_cols((a.M + kRows - 1) / kRows, a.B, nz);
+    attention_bwd_cols_kernel<T, CP, GP>
+        <<<grid_cols, kThreads, bytes, a.stream>>>(
+            static_cast<const T*>(a.theta), static_cast<const T*>(a.phi),
+            static_cast<const T*>(a.g), static_cast<const T*>(a.dout),
+            a.mx_in, a.den_in, a.row, nz > 1 ? a.dphi_parts : a.dphi, a.dg,
+            a.N, a.M, a.C, a.Cg, a.chunk, vec_c, vec_g);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Exact padded widths for the two main-path shapes, and a generic
-// instantiation for any C <= 32, Cg <= 128.
-template <typename T, bool kForward>
-int dispatch(const Args& a) {
-  if (a.C <= 16 && a.Cg <= 48)
-    return kForward ? launch_fwd<T, 16, 48>(a) : launch_bwd<T, 16, 48>(a);
-  if (a.C <= 32 && a.Cg <= 96)
-    return kForward ? launch_fwd<T, 32, 96>(a) : launch_bwd<T, 32, 96>(a);
-  if (a.C <= 32 && a.Cg <= 128)
-    return kForward ? launch_fwd<T, 32, 128>(a) : launch_bwd<T, 32, 128>(a);
+}  // namespace
+
+namespace cgt {
+
+// The chunk width pads to the narrowest GP that holds it.
+template <typename T, int CP>
+int launch_cp(const Args& a, int kind) {
+  if (a.chunk <= 48) return launch<T, CP, 48>(a, kind);
+  if (a.chunk <= 96) return launch<T, CP, 96>(a, kind);
+  if (a.chunk <= kMaxChunk) return launch<T, CP, 128>(a, kind);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template int launch_cp<float, CGT_CP>(const Args&, int);
+template int launch_cp<bf16, CGT_CP>(const Args&, int);
+
+}  // namespace cgt
+
+#else  // The entry object: dispatch on C, the sum of the parts, the C API.
+
+namespace {
+
+using cgt::Args;
+
+__device__ __forceinline__ void put(float* p, long i, float v) { p[i] = v; }
+__device__ __forceinline__ void put(bf16* p, long i, float v) {
+  p[i] = __float2bfloat16(v);
+}
+
+// out[i] = sum over z of parts[z * n + i], in z order, in f32, stored in
+// TOut. out may be part 0 itself (each element is read before written).
+template <typename TOut>
+__global__ void sum_parts_kernel(const float* parts, TOut* out, long n,
+                                 int nz) {
+  for (long i = blockIdx.x * static_cast<long>(blockDim.x) + threadIdx.x;
+       i < n; i += static_cast<long>(gridDim.x) * blockDim.x) {
+    float s = parts[i];
+    for (int z = 1; z < nz; ++z) s += parts[z * n + i];
+    put(out, i, s);
+  }
+}
+
+template <typename TOut>
+int sum_parts(const float* parts, TOut* out, long n, int nz,
+              cudaStream_t stream) {
+  const long blocks = (n + 255) / 256;
+  sum_parts_kernel<TOut><<<blocks < 1056 ? blocks : 1056, 256, 0, stream>>>(
+      parts, out, n, nz);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_c(const Args& a, int kind) {
+  if (a.C <= 16) return cgt::launch_cp<T, 16>(a, kind);
+  if (a.C <= 32) return cgt::launch_cp<T, 32>(a, kind);
+  if (a.C <= 48) return cgt::launch_cp<T, 48>(a, kind);
+  if (a.C <= 64) return cgt::launch_cp<T, 64>(a, kind);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int launch(const Args& a, int kind) {
+  if (a.C < 1 || a.Cg < 1 || a.chunk < 1 || a.chunk > cgt::kMaxChunk)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return a.bf16 ? launch_c<bf16>(a, kind) : launch_c<float>(a, kind);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 on success).
+// Returns cudaGetLastError() after the launch (0 on success). `chunk` is
+// the width of Cg's column chunks (at most 128).
 int cgt_attention_fwd(const void* theta, const void* phi, const void* g,
                       void* out, void* mx, void* den, int B, int N, int M,
-                      int C, int Cg, int is_bf16, void* stream) {
+                      int C, int Cg, int chunk, int is_bf16, void* stream) {
   Args a{};
   a.theta = theta;
   a.phi = phi;
@@ -1084,17 +1267,21 @@ int cgt_attention_fwd(const void* theta, const void* phi, const void* g,
   a.M = M;
   a.C = C;
   a.Cg = Cg;
+  a.chunk = chunk;
   a.bf16 = is_bf16 != 0;
   a.stream = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch<bf16, true>(a) : dispatch<float, true>(a);
+  return launch(a, cgt::kFwd);
 }
 
-// Two launches (rows, then columns) on one stream; returns the first
-// non-zero cudaGetLastError().
+// The row pass, with several chunks the sums of its parts, then the column
+// pass and the sum of its dphi parts, on one stream; returns the first
+// non-zero cudaGetLastError(). `row` holds nz = ceil(Cg / chunk) parts of
+// [B, N]; dtheta_parts and dphi_parts are read only when nz > 1.
 int cgt_attention_bwd(const void* theta, const void* phi, const void* g,
                       const void* dout, const void* mx, const void* den,
-                      void* dtheta, void* row, void* dphi, void* dg, int B,
-                      int N, int M, int C, int Cg, int is_bf16,
+                      void* dtheta, void* row, void* dphi, void* dg,
+                      void* dtheta_parts, void* dphi_parts, int B, int N,
+                      int M, int C, int Cg, int chunk, int is_bf16,
                       void* stream) {
   Args a{};
   a.theta = theta;
@@ -1107,14 +1294,33 @@ int cgt_attention_bwd(const void* theta, const void* phi, const void* g,
   a.row = static_cast<float*>(row);
   a.dphi = static_cast<float*>(dphi);
   a.dg = static_cast<float*>(dg);
+  a.dtheta_parts = static_cast<float*>(dtheta_parts);
+  a.dphi_parts = static_cast<float*>(dphi_parts);
   a.B = B;
   a.N = N;
   a.M = M;
   a.C = C;
   a.Cg = Cg;
+  a.chunk = chunk;
   a.bf16 = is_bf16 != 0;
   a.stream = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch<bf16, false>(a) : dispatch<float, false>(a);
+  int err = launch(a, cgt::kRowsPass);
+  if (err != 0) return err;
+  const int nz = a.nz();
+  if (nz > 1) {
+    const long nc = static_cast<long>(B) * N * C;
+    err = a.bf16 ? sum_parts(a.dtheta_parts, static_cast<bf16*>(dtheta), nc,
+                             nz, a.stream)
+                 : sum_parts(a.dtheta_parts, static_cast<float*>(dtheta), nc,
+                             nz, a.stream);
+    if (err != 0) return err;
+    err = sum_parts(a.row, a.row, static_cast<long>(B) * N, nz, a.stream);
+    if (err != 0) return err;
+  }
+  err = launch(a, cgt::kColsPass);
+  if (err != 0 || nz == 1) return err;
+  return sum_parts(a.dphi_parts, a.dphi, static_cast<long>(B) * M * C, nz,
+                   a.stream);
 }
 
 const char* cgt_error_string(int code) {
@@ -1122,3 +1328,5 @@ const char* cgt_error_string(int code) {
 }
 
 }  // extern "C"
+
+#endif  // CGT_CP

@@ -22,8 +22,11 @@ only shapes and types. A program traced by `torch.export`
 so the device is picked, and the operands checked, when the program runs.
 Importing this module registers the operator; it imports no layer code.
 
-theta: [B, N, C]; phi: [B, M, C]; g: [B, M, Cg] -> out [B, N, Cg]. N and M
-are free: in the spatial layout (`ops.arch_ops.NonLocalBlock`) each worker
+theta: [B, N, C]; phi: [B, M, C]; g: [B, M, Cg] -> out [B, N, Cg], with
+0 < C <= MAX_C and any Cg: the kernels cut Cg into column chunks of at most
+CG_CHUNK (`cg_chunk`), so the non-local block runs on them up to 512
+channels (C = channels / 8), BigGAN-deep-512's width. N and M are free: in
+the spatial layout (`ops.arch_ops.NonLocalBlock`) each worker
 passes its band's N / k queries against all M keys, and the key gradients
 it returns are its band's part of theirs.
 Scores, softmax and sums are f32 whatever the input type; `out` and
@@ -44,8 +47,17 @@ from compare_gan_torch.ops import _build
 launches_fwd = 0
 launches_bwd = 0
 
-MAX_C = 32
-MAX_CG = 128
+# The widest C the kernels hold (csrc/attention.cu pads C to 16, 32, 48 or
+# 64), and the widest column chunk of Cg (its GP: 48, 96 or 128).
+MAX_C = 64
+CG_CHUNK = 128
+
+
+def cg_chunk(cg: int) -> int:
+    """The width of the kernels' column chunks of Cg: ceil(Cg / nz) for the
+    fewest chunks nz of at most CG_CHUNK columns, so the chunks are equal
+    but the last; there are ceil(Cg / chunk) of them."""
+    return -(-cg // -(-cg // CG_CHUNK))
 
 
 def reference_attention(theta, phi, g):
@@ -107,10 +119,9 @@ def _check_operands(theta, phi, g):
     for name, t in (("phi", phi), ("g", g)):
         if t.dtype != theta.dtype:
             raise TypeError(f"{name} is {t.dtype}, theta is {theta.dtype}.")
-    if not (0 < c <= MAX_C and 0 < cg <= MAX_CG and n > 0 and m > 0):
+    if not (0 < c <= MAX_C and cg > 0 and n > 0 and m > 0):
         raise ValueError(f"The CUDA attention takes 0 < C <= {MAX_C} and "
-                         f"0 < Cg <= {MAX_CG}; got C={c}, Cg={cg}, N={n}, "
-                         f"M={m}.")
+                         f"Cg, N, M > 0; got C={c}, Cg={cg}, N={n}, M={m}.")
     if b > 65535 or max(b * n * max(c, cg), b * m * max(c, cg)) >= 2 ** 31:
         raise ValueError(f"Operands too large for the kernel's indexing: "
                          f"B={b}, N={n}, M={m}.")
@@ -141,7 +152,7 @@ def attention_fwd(theta, phi, g):
     with torch.cuda.device(theta.device):
         rc = lib.cgt_attention_fwd(
             theta.data_ptr(), phi.data_ptr(), g.data_ptr(), out.data_ptr(),
-            mx.data_ptr(), den.data_ptr(), b, n, m, c, cg,
+            mx.data_ptr(), den.data_ptr(), b, n, m, c, cg, cg_chunk(cg),
             int(theta.dtype == torch.bfloat16), _stream(theta.device))
     _build.check(lib, rc, "attention forward kernel")
     launches_fwd += 1
@@ -190,15 +201,23 @@ def attention_bwd(theta, phi, g, dout, mx, den):
     if _on_cpu(theta):
         return attention_bwd_plain(theta, phi, g, dout, mx, den)
     lib = _build.library()
+    chunk = cg_chunk(cg)
+    nz = -(-cg // chunk)
+    f32 = dict(dtype=torch.float32, device=theta.device)
     dtheta = torch.empty_like(theta)
-    row = torch.empty((b, n), dtype=torch.float32, device=theta.device)
-    dphi = torch.empty((b, m, c), dtype=torch.float32, device=theta.device)
-    dg = torch.empty((b, m, cg), dtype=torch.float32, device=theta.device)
+    # The row term per column chunk (part 0 their sum), and with several
+    # chunks the f32 parts of dtheta and dphi that the kernels sum.
+    row = torch.empty((nz, b, n), **f32)
+    dphi = torch.empty((b, m, c), **f32)
+    dg = torch.empty((b, m, cg), **f32)
+    dtheta_parts = torch.empty((nz, b, n, c) if nz > 1 else (0,), **f32)
+    dphi_parts = torch.empty((nz, b, m, c) if nz > 1 else (0,), **f32)
     with torch.cuda.device(theta.device):
         rc = lib.cgt_attention_bwd(
             theta.data_ptr(), phi.data_ptr(), g.data_ptr(), dout.data_ptr(),
             mx.data_ptr(), den.data_ptr(), dtheta.data_ptr(), row.data_ptr(),
-            dphi.data_ptr(), dg.data_ptr(), b, n, m, c, cg,
+            dphi.data_ptr(), dg.data_ptr(), dtheta_parts.data_ptr(),
+            dphi_parts.data_ptr(), b, n, m, c, cg, chunk,
             int(theta.dtype == torch.bfloat16), _stream(theta.device))
     _build.check(lib, rc, "attention backward kernels")
     launches_bwd += 1

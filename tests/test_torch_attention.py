@@ -124,9 +124,13 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
                          phi, g)
     with pytest.raises(ValueError):
         fa.attention_fwd(theta[:, :, :4], phi, g)
-    with pytest.raises(ValueError):
-        wide = torch.zeros(2, 16, fa.MAX_CG + 1)
-        fa.attention_fwd(theta, phi, wide)
+    with pytest.raises(ValueError):  # past the kernels' 2**31 indexing
+        n = 2 ** 31 // 64
+        fa.attention_fwd(*(torch.empty(1, rows, 64, device="meta")
+                           for rows in (n, 16, 16)))
+    with pytest.raises(ValueError):  # wider than the kernels' C
+        fa.attention_fwd(*(torch.zeros(1, 4, w)
+                           for w in (fa.MAX_C + 1, fa.MAX_C + 1, 8)))
     out, mx, den = fa.attention_fwd(theta, phi, g)
     with pytest.raises(ValueError):
         fa.attention_bwd(theta, phi, g, out, mx.squeeze(-1), den)

@@ -402,3 +402,79 @@ def test_spatial_controls_patch_the_collectives_and_restore_them():
         assert tpu_ops.model_sum is not right[1]
     assert (tpu_ops.exchange_halos, tpu_ops.model_sum,
             tpu_ops.loss_shares) == right
+
+
+def test_hires_shapes_are_the_published_models_blocks():
+    """The 512 px phases' rows are the non-local blocks of the published
+    BigGAN-512 and BigGAN-deep-512 (built on the meta device from
+    chip_smoke's bindings): (channels / 8, channels / 2) on the 64x64 map,
+    at the parameter counts the phases pin (tests/test_architectures.py,
+    tests/test_torch_biggan_deep.py)."""
+    from compare_gan_torch import config as tgin
+    from compare_gan_torch import core
+    from compare_gan_torch import gans  # noqa: F401 (gin)
+    from compare_gan_torch.architectures import (DISCRIMINATORS,
+                                                 GENERATORS)
+
+    def widths(bindings, arch):
+        tgin.clear_config()
+        tgin.parse_config_files_and_bindings(
+            [os.path.join(REPO, "example_configs",
+                          "biggan_imagenet128.gin")], list(bindings))
+        assert "options.z_dim = 160" in bindings
+        out = []
+        for module in (GENERATORS[arch](image_shape=(512, 512, 3),
+                                        z_dim=160, num_classes=1000,
+                                        device="meta"),
+                       DISCRIMINATORS[arch](image_shape=(512, 512, 3),
+                                            num_classes=1000,
+                                            device="meta")):
+            block = module.non_local_block
+            out.append((core.count_params(module), block.attn_ch,
+                        block.g_ch))
+        tgin.clear_config()
+        return out
+
+    (g_count, g_c, g_cg), (d_count, d_c, d_cg) = widths(
+        chip_smoke.B512_BINDINGS, "resnet_biggan_arch")
+    assert (g_count, d_count) == chip_smoke.B512_PARAMS
+    assert (g_c, g_cg) == chip_smoke.B512_SHAPE[1][3:] == (48, 192)
+    assert (d_c, d_cg) == chip_smoke.SHAPES["G_B4"][3:] == (24, 96)
+    deep = widths(chip_smoke.DEEP512_BINDINGS[1:], "resnet_biggan_deep_arch")
+    assert (deep[0][0], deep[1][0]) == chip_smoke.DEEP512_PARAMS
+    assert deep[0][1:] == deep[1][1:] == chip_smoke.DEEP512_SHAPE[1][3:] \
+        == (64, 256)
+    cases = [(name, dtype, bwd) for name, _, dtype, bwd, _
+             in chip_smoke._cases() if name in dict(chip_smoke.HIRES_SHAPES)]
+    assert cases == [("G_B4_512", "float32", True),
+                     ("G_B4_512", "bfloat16", True),
+                     ("deep512_G_D", "float32", True),
+                     ("deep512_G_D", "bfloat16", True),
+                     ("G_B4_512_eval", "float32", False)]
+
+
+@pytest.mark.parametrize("shape,dtype_name,us", [
+    # Two column chunks, each recomputing S: 2*B*N*M*nz*(s*CP + o*GP).
+    ((32, 4096, 1024, 64, 256), "bfloat16", 104.22),
+    ((32, 4096, 1024, 48, 192), "bfloat16", 78.17),
+    ((64, 4096, 1024, 48, 192), "float32", 416.90),
+])
+def test_issued_mma_floor_counts_the_column_chunks(shape, dtype_name, us):
+    assert abs(1e3 * chip_smoke.issued_fwd_ms(shape, dtype_name) - us) < 0.01
+
+
+def test_launch_widths_count_each_launch_and_restore():
+    """`_launch_widths` counts the wrappers' calls by kernel, type and
+    width (here their plain CPU path) and puts the wrappers back."""
+    import torch
+    from compare_gan_torch.ops import fused_attention as fa
+    fwd, bwd = fa.attention_fwd, fa.attention_bwd
+    seen = {}
+    with chip_smoke._launch_widths(fa, seen):
+        for c, cg in ((48, 192), (48, 192), (24, 96)):
+            args = [torch.randn(1, n, w, requires_grad=True)
+                    for n, w in ((8, c), (4, c), (4, cg))]
+            fa.FusedAttention.apply(*args).sum().backward()
+    assert seen == {"fwd float32 48x192": 2, "bwd float32 48x192": 2,
+                    "fwd float32 24x96": 1, "bwd float32 24x96": 1}
+    assert (fa.attention_fwd, fa.attention_bwd) == (fwd, bwd)

@@ -61,12 +61,15 @@ def _gans(arch, dataset, z_dim, cfg=DCGAN):
                                   parameters=parameters, model_dir="unused",
                                   device="cpu")
     ts_t = tgan.init_state(seed=1)
+    # A generator of its own: draws from torch's global one would depend on
+    # what the tests run before in the same process had drawn.
+    gen = torch.Generator().manual_seed(0)
     with torch.no_grad():
         for name, value in ts_t.state().items():
             if name.endswith("moving_mean"):
-                value.uniform_(-0.2, 0.2)
+                value.uniform_(-0.2, 0.2, generator=gen)
             elif name.endswith("moving_variance"):
-                value.uniform_(0.5, 1.5)
+                value.uniform_(0.5, 1.5, generator=gen)
     return jgan, tgan, th.jax_train_state(jgan, ts_t), ts_t
 
 

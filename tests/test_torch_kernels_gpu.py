@@ -21,9 +21,12 @@ torch.set_num_threads(1)
 # (B, N, M, C, Cg): the two main-path shapes at a small batch and at the G
 # sub-step's batch of 16; S3GAN's D batch of 38 (16 real, 16 fake and 3
 # rotations of one example each), not a multiple of 16; a ragged shape that takes the zero-padded
-# instantiation with rows too narrow for cp.async; the widest operands the
-# kernels take (C = 32, Cg = 128, their own instantiation); and one row
-# block over fewer keys than one MMA tile.
+# instantiation with rows too narrow for cp.async; BigGAN-deep-128's width
+# (C = 32, Cg = 128, one column chunk); BigGAN-512's G block (48, 192) and
+# BigGAN-deep-256/512's (64, 256), two column chunks each; a ragged wide
+# shape (C 40 padded to 48, Cg 200 in two chunks of 100) and the widest C
+# with three ragged chunks of Cg (86, 86, 85 columns, rows too odd for
+# cp.async); and one row block over fewer keys than one MMA tile.
 SHAPES = {
     "G_B4": (2, 4096, 1024, 24, 96),
     "D_B1": (2, 4096, 1024, 12, 48),
@@ -32,6 +35,10 @@ SHAPES = {
     "D_B1_s3gan": (38, 4096, 1024, 12, 48),
     "ragged": (3, 200, 70, 7, 20),
     "widest": (2, 300, 130, 32, 128),
+    "G_B4_512": (2, 4096, 1024, 48, 192),
+    "deep_512": (2, 4096, 1024, 64, 256),
+    "ragged_wide": (2, 200, 150, 40, 200),
+    "three_chunks": (2, 300, 130, 64, 257),
     "tiny": (1, 5, 3, 1, 1),
 }
 # f32: the same f32 math summed in another order. bf16: both sides round

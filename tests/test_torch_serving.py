@@ -160,9 +160,13 @@ def test_attention_op_on_the_cpu_is_the_plain_forward(dtype):
         assert a.dtype == b.dtype and torch.equal(a, b)
     assert got[0].dtype == dtype and got[1].dtype == torch.float32
     torch.library.opcheck(ATTENTION_OP, (theta, phi, g))
-    with pytest.raises(ValueError, match="C <= 32"):
-        ATTENTION_OP(torch.zeros(1, 4, 40), torch.zeros(1, 2, 40),
-                     torch.zeros(1, 2, 8))
+    # BigGAN-512's width (C 48, Cg 192) is taken; a C past the kernels'
+    # is refused.
+    wide = [torch.zeros(1, n, w) for n, w in ((4, 48), (2, 48), (2, 192))]
+    assert tuple(ATTENTION_OP(*wide)[0].shape) == (1, 4, 192)
+    with pytest.raises(ValueError, match=f"C <= {fa.MAX_C}"):
+        ATTENTION_OP(torch.zeros(1, 4, fa.MAX_C + 1),
+                     torch.zeros(1, 2, fa.MAX_C + 1), torch.zeros(1, 2, 8))
 
 
 def test_attention_op_fake_shapes_at_a_symbolic_batch():

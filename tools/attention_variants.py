@@ -11,23 +11,27 @@ O += P.g and the column pass's dg += P^T.dout products dropped), no_sync
 (no cp.async wait, proxy fence or barrier around a tile); and one that
 keeps the work, bf16_bwd_uncapped (the bf16 backward at Cg > 96 without
 the 128-register cap of `min_blocks`). nvcc builds all
-variants at once into compare_gan_torch/_build/variants/; each is loaded
+variants at once (`_build.compile_library`) into
+compare_gan_torch/_build/variants/; each is loaded
 with ctypes in place of the port's library, and the bf16 forward, row pass
 and column pass are timed at the two main-path shapes (batch 32), at
-S3GAN's D batch of 38 and at BigGAN-deep's C = 32, Cg = 128 with
+S3GAN's D batch of 38, at BigGAN-deep-128's C = 32, Cg = 128 and at the
+512 px models' (48, 192) and (64, 256) (two column chunks each) with
 torch.profiler's device times. Prints one line per variant and shape.
 Needs a CUDA card.
 """
 
+import concurrent.futures
 import ctypes
 import os
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = {"G_B4": (32, 4096, 1024, 24, 96), "D_B1": (32, 4096, 1024, 12, 48),
           "D_B1_s3gan": (38, 4096, 1024, 12, 48),
-          "deep_B8_B2": (32, 4096, 1024, 32, 128)}
+          "deep_B8_B2": (32, 4096, 1024, 32, 128),
+          "G_B4_512": (32, 4096, 1024, 48, 192),
+          "deep512": (32, 4096, 1024, 64, 256)}
 
 SUBSTITUTIONS = {
     "no_stage": [(
@@ -51,8 +55,9 @@ SUBSTITUTIONS = {
     # <32, 128>) without the 128-register cap, as the f32 backward at
     # Cg > 48 already runs.
     "bf16_bwd_uncapped": [(
-        "  return split && backward && GP > 48 ? 1 : 2;",
-        "  return backward && GP > (split ? 48 : 96) ? 1 : 2;", 1)],
+        "  return CP > 32 || (split && backward && GP > 48) ? 1 : 2;",
+        "  return CP > 32 || (backward && GP > (split ? 48 : 96)) ? 1 : 2;",
+        1)],
     "no_sync": [(
         """      cp_async_wait<1>();
       fence_proxy_async();
@@ -72,16 +77,6 @@ def _variant_source(text, subs):
     return text
 
 
-def _load(path):
-    lib = ctypes.CDLL(path)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.cgt_attention_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
-    lib.cgt_attention_fwd.restype = i32
-    lib.cgt_attention_bwd.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
-    lib.cgt_attention_bwd.restype = i32
-    lib.cgt_error_string.argtypes = [i32]
-    lib.cgt_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def main():
@@ -93,25 +88,23 @@ def main():
     from compare_gan_torch.ops import _build
     from compare_gan_torch.ops import fused_attention as fa
 
-    with open(os.path.join(_build.SRC_DIR, "attention.cu")) as f:
+    with open(_build.SOURCE) as f:
         base = f.read()
     out_dir = os.path.join(_build.BUILD_DIR, "variants")
     os.makedirs(out_dir, exist_ok=True)
-    procs = {}
+    paths = {}
     for name, subs in [("base", [])] + list(SUBSTITUTIONS.items()):
         src = os.path.join(out_dir, f"{name}.cu")
         with open(src, "w") as f:
             f.write(_variant_source(base, subs))
-        lib = os.path.join(out_dir, f"{name}.so")
-        procs[name] = (lib, subprocess.Popen(
-            [_build.nvcc_path(), *_build.FLAGS, "-o", lib, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (lib, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        libs[name] = _load(lib)
+        paths[name] = (src, os.path.join(out_dir, f"{name}.so"))
+    # Every variant's build (one nvcc per object of each) at once.
+    with concurrent.futures.ThreadPoolExecutor(len(paths)) as pool:
+        for _ in pool.map(lambda p: _build.compile_library(*p),
+                          paths.values()):
+            pass
+    libs = {name: _build.bind(ctypes.CDLL(lib))
+            for name, (_, lib) in paths.items()}
 
     print(torch.cuda.get_device_name(0))
     dev = torch.device("cuda")
