@@ -89,9 +89,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    held to the one-process step on the same batch and draws, tensor by
    tensor and by state kind (parameters, Adam moments, BN accumulators, SN
    u, EMA) at the tolerances of DP_TOL. Beside it are printed the gaps of
-   the one-process step run again and with autotuned cuDNN algorithms
-   (the card's own spread), and of a control in which the workers do not
-   sum their gradients, which must fail DP_TOL. Each worker runs 5
+   the one-process step run again (0: deterministic; autotuned cuDNN moves
+   it as far as the workers, measured until that run was cut for time),
+   and of a control in which the workers do not sum their gradients,
+   which must fail DP_TOL. Each worker runs 5
    forward and 4 backward attention launches at 8 rows. Its seconds are
    gloo through the host on one card, no figure for NCCL on several
    cards.
@@ -111,10 +112,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    gradients of what every model rank computes whole summed twice on
    both BigGANs; each band turned by itself on S3GAN; the slope from a
    band's gradient alone on ResNet5) must fail it; the bf16 gaps are
-   printed beside the one-process step's own spread with autotuned
-   cuDNN. Ranks bitwise equal, all finite, 5 forward and 4 backward
-   launches a worker in each precision (none on ResNet5), every one at N
-   2048, M 1024 and the case's C, Cg, held to the plain version on its
+   printed (the one-process step's own spread with autotuned cuDNN was
+   measured beside them in earlier runs: SPATIAL_CASES' comment). Then
+   eight spawned gloo workers as a `data 1 x model 8` grid take one f32
+   step of BigGAN-128 with the benchmark options (bands of 16 rows; G's
+   4-row map and D's last 4-row map whole on every rank, D's 2x2 pool of
+   bands of one row gathered: partial replication), held to the
+   one-process step likewise, with the controls "whole_as_band" (a whole
+   map's sums over the model group, k times) and "no_halo". Ranks bitwise
+   equal, all finite, 5 forward and 4 backward launches a worker in each
+   precision (none on ResNet5), every one at N 2048 (N 512 on eight
+   bands), M 1024 and the case's C, Cg, held to the plain version on its
    operands. The launches of each case's first precision (bf16 on
    BigGAN-128, f32 on the others) count as the main path's.
 8. S3GAN main path: 3 steps of S3GAN on BigGAN-128 at full width through
@@ -264,6 +272,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 import contextlib
 import copy
 import dataclasses
+import hashlib
 import json
 import os
 import shutil
@@ -332,10 +341,14 @@ CONVERGENCE_SHAPES = (("G_B4_b16", (16, 4096, 1024, 24, 96)),
 # 1024 pooled keys. BigGAN-128 at batch 16: G after B4 and D after B1 on 32
 # rows; BigGAN-deep-128: G after B8 and D after B2 on 32 rows; S3GAN-128:
 # D after B1 on its 38 rows.
+# On eight bands (the `1 x 8` grid), BigGAN-128's blocks on 8 of the 64
+# rows each: 512 queries against all 1024 keys.
 SPATIAL_SHAPES = (("G_B4_band", (32, 2048, 1024, 24, 96)),
                   ("D_B1_band", (32, 2048, 1024, 12, 48)),
                   ("G_B8_D_B2_deep_band", (32, 2048, 1024, 32, 128)),
-                  ("D_B1_s3gan_band", (S3GAN_D_ROWS, 2048, 1024, 12, 48)))
+                  ("D_B1_s3gan_band", (S3GAN_D_ROWS, 2048, 1024, 12, 48)),
+                  ("G_B4_band8", (32, 512, 1024, 24, 96)),
+                  ("D_B1_band8", (32, 512, 1024, 12, 48)))
 DEEP_BINDINGS = ("options.architecture = 'resnet_biggan_deep_arch'",
                  "options.z_dim = 128")
 # The eval tasks of the two eval phases that add tasks (class names of
@@ -1104,10 +1117,9 @@ DP_BINDINGS = ("options.batch_size = 16",
                "ModularGAN.experimental_fake_only_g_loss = True",
                "tf.train.AdamOptimizer.epsilon = 1e-3")
 # The runs whose state (b) holds to the one-process step's: the two
-# workers; the one-process step again and with autotuned cuDNN (the card's
-# own spread); and the controls, two workers that do not sum their
-# gradients or that take BN moments of their own rows.
-DP_RUNS = ("two_workers", "again", "autotuned", "unsummed", "local_bn")
+# workers; the one-process step again; and the controls, two workers that
+# do not sum their gradients or that take BN moments of their own rows.
+DP_RUNS = ("two_workers", "again", "unsummed", "local_bn")
 # Tolerance by state kind, (rtol, atol): each tensor passes when
 # rms(got - want) <= rtol * rms(ref) + atol * (the largest rms(ref) of its
 # kind in its network, G or D); ref is a parameter's (and the EMA's)
@@ -1163,9 +1175,8 @@ def _dp_worker(rank, port, out):
     batch 16 (8 here) with DP_BINDINGS, f32 with TF32 off and
     deterministic cuDNN; then its state against rank 0's bitwise, and the
     control step with unsummed gradients. Rank 0 then takes the
-    one-process step of the same batch and draws, again, and with
-    autotuned cuDNN, and writes each run's gaps (`_state_gaps`) to `out`
-    as JSON."""
+    one-process step of the same batch and draws, and again, and writes
+    each run's gaps (`_state_gaps`) to `out` as JSON."""
     sys.path.insert(0, ROOT)
     import numpy as np
     import torch
@@ -1241,9 +1252,6 @@ def _dp_worker(rank, port, out):
     init = {}
     want, _ = step(None, init)
     states["again"], _ = step(None)
-    torch.backends.cudnn.deterministic = False
-    torch.backends.cudnn.benchmark = True
-    states["autotuned"], _ = step(None)
     result = {run: _state_gaps(states[run], want, init) for run in DP_RUNS}
     with open(out, "w") as f:
         json.dump(dict(result, bitwise=bitwise, launches=gathered,
@@ -1253,7 +1261,8 @@ def _dp_worker(rank, port, out):
 # The spatial phase's faulty controls, each a fault of the spatial layout
 # that DP_TOL must catch (tests/test_torch_spatial_{step,zoo}.py hold them
 # to the CPU's tolerances too).
-SPATIAL_CONTROLS = ("no_halo", "k_times", "local_rotation", "band_slope")
+SPATIAL_CONTROLS = ("no_halo", "k_times", "local_rotation", "band_slope",
+                    "whole_as_band")
 
 
 @contextlib.contextmanager
@@ -1268,7 +1277,10 @@ def spatial_control(name):
     "local_rotation": SSGAN's and S3GAN's quarter-turns turn each band by
     itself (its pixels read back in the band's shape), not the whole
     image. "band_slope": the gradient penalties' slope of each image from
-    the band's gradient alone, not summed over the model group."""
+    the band's gradient alone, not summed over the model group.
+    "whole_as_band": the sums and moments over a whole map's rows (one
+    that partial replication holds whole on every model rank) run over the
+    model group as if it were a band, counting its rows k times."""
     if name is None:
         yield
         return
@@ -1301,7 +1313,9 @@ def spatial_control(name):
                           replicas.data_size},
               "local_rotation": {"rotate_bands": local_rotation},
               "band_slope": {"image_sum": lambda x: x.sum(
-                  dim=tuple(range(1, x.dim())))}}[name]
+                  dim=tuple(range(1, x.dim())))},
+              "whole_as_band": {"band_group": lambda x: tpu_ops.spatial()},
+              }[name]
     right = {attr: getattr(tpu_ops, attr) for attr in faults}
     for attr, fault in faults.items():
         setattr(tpu_ops, attr, fault)
@@ -1312,17 +1326,17 @@ def spatial_control(name):
             setattr(tpu_ops, attr, fn)
 
 
-# The spatial phase's cases, each one step on a `data 1 x model 2` grid of
-# two gloo workers on cuda:0 (Adam's epsilon at 1e-3) against the
-# one-process step: the config and the bindings over it; the precisions,
-# f32 (TF32 off, deterministic cuDNN) held to DP_TOL and bf16 printed beside
-# the one-process step's own spread; the faulty controls
-# (`spatial_control`, in f32), each with the state kinds it must fail;
-# the attention launches a worker makes in a step (forward, backward) and
-# the (N, M, C, Cg) of every launch; the images' size and classes (None:
-# unconditional), every third row unlabeled (S3GAN's partial labels), and
-# whether the one-process f32 step runs twice (`again`: 0 shows it
-# deterministic; once, on the first case, to keep the phase's time).
+# The spatial phase's cases, each one step on a `data 1 x model k` grid of
+# k gloo workers on cuda:0 (`model`, 2 by default; Adam's epsilon at 1e-3)
+# against the one-process step: the config and the bindings over it; the
+# precisions, f32 (TF32 off, deterministic cuDNN) held to DP_TOL and bf16
+# printed; the faulty controls (`spatial_control`, in f32), each with the
+# state kinds it must fail; the attention launches a worker makes in a step
+# (forward, backward) and the (N, M, C, Cg) of every launch; the images'
+# size and classes (None: unconditional), every third row unlabeled
+# (S3GAN's partial labels), and whether the one-process f32 step runs
+# twice (`again`: 0 shows it deterministic; once, on the first case, to
+# keep the phase's time).
 #
 # In bf16 each band's sums round otherwise than the whole image's, and the
 # step's gradients carry that through some forty layers of bf16
@@ -1333,7 +1347,9 @@ def spatial_control(name):
 # 700 W the one-process bf16 step of BigGAN-128 with autotuned cuDNN
 # itself lay 10.9-14.1 (parameters) and 34.6-62.7 (Adam's second moment)
 # times DP_TOL from the deterministic one, the grid 18.5 and 146. So the
-# bf16 steps' gaps are printed beside that spread, and DP_TOL holds f32.
+# bf16 steps' gaps are printed (that spread, measured by the phase until
+# the autotuned steps were cut for time, stands beside them in PERF.md),
+# and DP_TOL holds f32.
 _CAUGHT = {"params", "adam_mu", "adam_nu"}
 SPATIAL_CASES = {
     # BigGAN-128 with the benchmark options (PR 13's case).
@@ -1372,35 +1388,51 @@ SPATIAL_CASES = {
         config="resnet_lsun-bedroom128.gin", bindings=(),
         precisions=("float32",), controls={"band_slope": _CAUGHT},
         launches=(0, 0), attention=set(), image=128, classes=None),
+    # BigGAN-128 with the benchmark options on eight bands of 16 rows, f32:
+    # G's 4-row map whole on every rank and split at 8 rows (bands of 1),
+    # D's 2x2 pool of bands of one row gathered, its last 4-row map and
+    # sum whole (partial replication).
+    "biggan128_k8": dict(
+        config="biggan_imagenet128.gin", bindings=BIGGAN_BINDINGS, model=8,
+        precisions=("float32",),
+        controls={"whole_as_band": _CAUGHT, "no_halo": _CAUGHT},
+        launches=(5, 4), attention={(512, 1024, 24, 96),
+                                    (512, 1024, 12, 48)},
+        image=128, classes=1000),
 }
 
 
 def run_spatial(torch, model_dir, cases=tuple(SPATIAL_CASES)):
-    """Two spawned gloo workers on cuda:0 as a `data 1 x model 2` grid take
-    one step of each of `cases` (names of SPATIAL_CASES) at full width in
-    the spatial layout (image height in two bands of 64 rows), in each of
-    its precisions; the f32 step is held to the one-process step by state
-    kind (SPATIAL_TOL) and the case's faulty controls must fail it; a bf16
-    step's gaps are
-    printed beside the one-process step's own spread. Every attention
-    launch runs on a band's 2048 queries against 1024 keys at the case's
-    widths and is held to the plain version on its operands. Returns (both
-    workers' launches in each case's first precision, the one its phase
-    runs: bf16 for BigGAN-128, f32 for the others; summary)."""
+    """k spawned gloo workers on cuda:0 as a `data 1 x model k` grid (each
+    case's `model`; one spawn per k) take one step of each of `cases`
+    (names of SPATIAL_CASES) at full width in the spatial layout (image
+    height in k bands), in each of its precisions; the f32 step is held to
+    the one-process step by state kind (SPATIAL_TOL) and the case's faulty
+    controls must fail it; a bf16 step's gaps are printed. Every attention
+    launch runs on a band's queries (2048 on two bands, 512 on eight)
+    against 1024 keys at the case's widths and is held to the plain
+    version on its operands. Returns (every worker's launches in each
+    case's first precision, the one its phase runs: bf16 for BigGAN-128,
+    f32 for the others; summary)."""
     _phase("spatial")
-    print("-- two gloo workers on cuda:0, a data 1 x model 2 grid, against "
-          "one process (gloo copies through the host on one card: its "
-          "seconds are no rate)")
     os.makedirs(model_dir, exist_ok=True)
-    out = os.path.join(model_dir, "spatial.json")
     from compare_gan_torch.parallel import mesh_utils
     t0 = time.perf_counter()
-    torch.multiprocessing.start_processes(
-        _spatial_worker, args=(mesh_utils.free_port(), out, "cuda",
-                               list(cases)),
-        nprocs=2, join=True, start_method="spawn")
-    with open(out) as f:
-        results = json.load(f)
+    grids = {}
+    for name in cases:
+        grids.setdefault(SPATIAL_CASES[name].get("model", 2), []).append(name)
+    results = {}
+    for world, names in grids.items():
+        print(f"-- {world} gloo workers on cuda:0, a data 1 x model {world} "
+              f"grid, against one process (gloo copies through the host on "
+              f"one card: its seconds are no rate)")
+        out = os.path.join(model_dir, f"spatial{world}.json")
+        torch.multiprocessing.start_processes(
+            _spatial_worker, args=(mesh_utils.free_port(), out, "cuda",
+                                   names, None, world),
+            nprocs=world, join=True, start_method="spawn")
+        with open(out) as f:
+            results.update(json.load(f))
     launches = {"fwd": 0, "bwd": 0}
     failures = []
     for name in cases:
@@ -1427,7 +1459,7 @@ def run_spatial(torch, model_dir, cases=tuple(SPATIAL_CASES)):
         want = {"fwd": case["launches"][0], "bwd": case["launches"][1]}
         if failed or not all(result["bitwise"].values()) \
                 or not all(result["finite"].values()) \
-                or any(per_rank != [want] * 2
+                or any(per_rank != [want] * case.get("model", 2)
                        for per_rank in result["launches"].values()) \
                 or {tuple(x) for x in result["shapes"]} != case["attention"] \
                 or result["kernel_err_ratio"] > 1:
@@ -1449,19 +1481,19 @@ def run_spatial(torch, model_dir, cases=tuple(SPATIAL_CASES)):
 
 
 def _spatial_worker(rank, port, out, device="cuda", cases=None,
-                    bindings=None):
-    """One of two gloo workers on cuda:0 in a `data 1 x model 2` grid: for
-    each case of SPATIAL_CASES (`cases`: their names, all by default), one
-    step of its config (Adam's epsilon at 1e-3, and the case's `bindings`
-    entry) in each of its precisions, TF32 off and deterministic cuDNN,
-    with every attention launch checked (`_checked_attention`); its state
-    against rank 0's bitwise; then the f32 step with each control. Rank 0
+                    bindings=None, world=2):
+    """One of `world` gloo workers on cuda:0 in a `data 1 x model world`
+    grid: for each case of SPATIAL_CASES (`cases`: their names, all by
+    default), one step of its config (Adam's epsilon at 1e-3, and the
+    case's `bindings` entry) in each of its precisions, TF32 off and
+    deterministic cuDNN, with every attention launch checked
+    (`_checked_attention`); its state against rank 0's bitwise; then the
+    f32 step with each control. The grid's states are copied to the host
+    (eight workers share the card), and only rank 0 keeps them. Rank 0
     then takes the one-process step of the same batch and draws in each
-    precision, the f32 one again (`again`), then, for a case with a bf16
-    step, each with autotuned cuDNN, and
-    writes each run's gaps (`_state_gaps`) to `out` as JSON. (device="cpu"
-    and narrower `bindings` make a dry run off the card, with no
-    launch.)"""
+    precision, the f32 one again (`again`), and writes each run's gaps
+    (`_state_gaps`) to `out` as JSON. (device="cpu" and narrower
+    `bindings` make a dry run off the card, with no launch.)"""
     sys.path.insert(0, ROOT)
     import numpy as np
     import torch
@@ -1474,17 +1506,17 @@ def _spatial_worker(rank, port, out, device="cuda", cases=None,
     device = torch.device(device, 0) if device == "cuda" else torch.device(
         device)
     replicas = mesh_utils.init_process_group(
-        rank, 2, "127.0.0.1", port, device, backend="gloo", model_size=2)
+        rank, world, "127.0.0.1", port, device, backend="gloo",
+        model_size=world)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize()
-
-    def deterministic(on):
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cudnn.deterministic = on
-        torch.backends.cudnn.benchmark = not on
 
     def configure(name):
         """Parse the case's config; returns (options, the step batch)."""
@@ -1515,7 +1547,7 @@ def _spatial_worker(rank, port, out, device="cuda", cases=None,
                                        None if precision == "float32"
                                        else precision))
         ts = gan.init_state(seed=0)
-        tensors = {k: v.detach().clone()
+        tensors = {k: v.detach().to("cpu", copy=True)
                    for k, v in checkpoint.live_tensors(ts).items()}
         scalars = [{f.name: copy.deepcopy(getattr(opt, f.name))
                     for f in dataclasses.fields(opt)
@@ -1523,7 +1555,10 @@ def _spatial_worker(rank, port, out, device="cuda", cases=None,
                    for opt in (ts.g_opt, ts.d_opt)]
         return options, gan, ts, tensors, scalars
 
-    def step(built, batch, reps, init=None, control=None):
+    def step(built, batch, reps, init=None, control=None, keep=True):
+        """(the state after one step from the built state: on the host for
+        a grid's step, on the device for the one-process step, None unless
+        `keep`; seconds; whether every floating tensor is finite)."""
         options, gan, ts, tensors, scalars = built
         with torch.no_grad():
             for k, v in checkpoint.live_tensors(ts).items():
@@ -1543,8 +1578,13 @@ def _spatial_worker(rank, port, out, device="cuda", cases=None,
             ts, _ = train_step(ts, batch)
         sync()
         seconds = time.perf_counter() - t0
-        return {k: v.detach().clone() for k, v in
-                checkpoint.live_tensors(ts).items()}, seconds
+        live = checkpoint.live_tensors(ts)
+        finite = bool(torch.stack([torch.isfinite(v).all() for v in
+                                   live.values() if v.is_floating_point()])
+                      .all())
+        where = "cpu" if reps is not None else device
+        return ({k: v.detach().to(where, copy=True) for k, v in live.items()}
+                if keep else None), seconds, finite
 
     names = list(cases or SPATIAL_CASES)
     states, gathered, seconds, part_seconds = {}, {}, {}, {}
@@ -1552,7 +1592,6 @@ def _spatial_worker(rank, port, out, device="cuda", cases=None,
         for name in names:
             t0 = time.perf_counter()
             case = SPATIAL_CASES[name]
-            deterministic(True)
             options, batch = configure(name)
             built = {p: build(options, p) for p in case["precisions"]}
             states[name] = {p: {} for p in case["precisions"]}
@@ -1563,27 +1602,26 @@ def _spatial_worker(rank, port, out, device="cuda", cases=None,
             for precision in case["precisions"]:
                 with _checked_attention(torch, fa, checked):
                     fa.launches_fwd = fa.launches_bwd = 0
-                    state, mine["seconds"][precision] = step(
+                    (state, mine["seconds"][precision],
+                     mine["finite"][precision]) = step(
                         built[precision], batch, replicas)
                     mine["launches"][precision] = {"fwd": fa.launches_fwd,
                                                    "bwd": fa.launches_bwd}
-                states[name][precision]["spatial"] = state
-                mine["finite"][precision] = all(
-                    bool(torch.isfinite(t).all()) for t in state.values()
-                    if t.is_floating_point())
-                try:
-                    mesh_utils.assert_replicated(state, replicas)
-                    mine["bitwise"][precision] = True
-                except AssertionError:
-                    mine["bitwise"][precision] = False
+                if rank == 0:
+                    states[name][precision]["spatial"] = state
+                mine["bitwise"][precision] = _replicated(torch, state)
+                del state
             parts["steps"] = time.perf_counter() - t0 - parts["build"]
             mine.update(checked)
-            gathered[name] = [None, None]
+            gathered[name] = [None] * world
             torch.distributed.all_gather_object(gathered[name], mine)
             t1 = time.perf_counter()
             for control in case["controls"]:
-                states[name]["float32"][control], _ = step(
-                    built["float32"], batch, replicas, control=control)
+                state, _, _ = step(built["float32"], batch, replicas,
+                                   control=control, keep=rank == 0)
+                if rank == 0:
+                    states[name]["float32"][control] = state
+                del state
             parts["controls"] = time.perf_counter() - t1
             del built
             seconds[name] = time.perf_counter() - t0
@@ -1596,7 +1634,6 @@ def _spatial_worker(rank, port, out, device="cuda", cases=None,
     for name in names:
         t0 = time.perf_counter()
         case = SPATIAL_CASES[name]
-        deterministic(True)
         options, batch = configure(name)
         built = {p: build(options, p) for p in case["precisions"]}
         init = {p: {} for p in case["precisions"]}
@@ -1604,19 +1641,11 @@ def _spatial_worker(rank, port, out, device="cuda", cases=None,
         parts = part_seconds[name]
         parts["one_process_build"] = time.perf_counter() - t0
         for p in case["precisions"]:
-            want[p], single_seconds[p] = step(built[p], batch, None, init[p])
+            want[p], single_seconds[p], _ = step(built[p], batch, None,
+                                                 init[p])
         if case.get("again"):
-            states[name]["float32"]["again"], _ = step(built["float32"],
-                                                       batch, None)
-        # The one-process step with autotuned cuDNN, the card's own spread
-        # beside a bf16 step's gaps, where the case has one.
-        t1 = time.perf_counter()
-        if "bfloat16" in case["precisions"]:
-            deterministic(False)
-            for precision in case["precisions"]:
-                states[name][precision]["autotuned"], _ = step(
-                    built[precision], batch, None)
-        parts["autotuned"] = time.perf_counter() - t1
+            states[name]["float32"]["again"], _, _ = step(
+                built["float32"], batch, None)
         first = gathered[name][0]
         results[name] = {
             "gaps": {p: {run: _state_gaps(state, want[p], init[p],
@@ -1633,13 +1662,25 @@ def _spatial_worker(rank, port, out, device="cuda", cases=None,
             "kernel_err_ratio": max(g["ratio"] for g in gathered[name]),
             "seconds": seconds[name] + time.perf_counter() - t0,
             "part_seconds": dict(parts, one_process=time.perf_counter()
-                                 - t0 - parts["one_process_build"]
-                                 - parts["autotuned"])}
+                                 - t0 - parts["one_process_build"])}
         del states[name], want, init, built
         if device.type == "cuda":
             torch.cuda.empty_cache()
     with open(out, "w") as f:
         json.dump(results, f)
+
+
+def _replicated(torch, state):
+    """Whether every worker's `state` (tensors on the host) equals rank
+    0's bitwise: a digest of each tensor's bytes, gathered, where
+    broadcasting the tensors themselves would move the state through gloo
+    once a worker."""
+    digests = {k: hashlib.sha1(memoryview(
+        t.detach().contiguous().reshape(-1).view(torch.uint8).numpy())
+    ).hexdigest() for k, t in state.items()}
+    gathered = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(gathered, digests)
+    return gathered[0] == digests
 
 
 @contextlib.contextmanager
@@ -1691,6 +1732,8 @@ def _state_gaps(got, want, init, tol=DP_TOL):
     refs = {key: (w.detach().double() - init[key].detach().double()
                   if key in init else w.detach().double())
             for key, w in want.items()}
+    # A grid's state may wait on the host: each tensor meets its reference
+    # on the reference's device.
     largest = {}
     for key, ref in refs.items():
         scope = (_state_kind(key), "generator/" in key)
@@ -1699,7 +1742,8 @@ def _state_gaps(got, want, init, tol=DP_TOL):
     for key, ref in refs.items():
         kind = _state_kind(key)
         rtol, atol = tol[kind]
-        diff = got[key].detach().double() - want[key].detach().double()
+        diff = (got[key].detach().to(ref.device).double()
+                - want[key].detach().double())
         gap, bound = rms(diff), (rtol * rms(ref) + atol
                                  * largest[kind, "generator/" in key])
         entry = gaps[kind]
@@ -1978,24 +2022,20 @@ def run_biggan_deep512(torch, model_dir):
     (64, 256). G runs in f32 (the z/label promotion), and so does D: the
     concatenation of bf16 real and f32 fake images promotes to f32, as
     `jnp.concatenate` does (so does BigGAN-deep-128's D). Then
-    model.ckpt-3 restored as the eval restores it, its accumulators filled
-    as the eval fills them (`eval_gan_lib._update_bn_accumulators`,
-    DEEP512_FILL samples at the eval batch of 64) and that state served as
-    a program at DEEP512_SERVING_BATCHES (`_serve`)."""
+    the CLI's step-3 state, its accumulators filled as the eval fills them
+    (`eval_gan_lib._update_bn_accumulators`, DEEP512_FILL samples at the
+    eval batch of 64) and that state served as a program at
+    DEEP512_SERVING_BATCHES (`_serve`) with a GAN object of its own."""
     _phase("BigGAN-deep-512 main path")
     from compare_gan_torch import eval_gan_lib
     from compare_gan_torch.ops import fused_attention as fa
     launches, summary, report = _train_widths(
         torch, model_dir, DEEP512_BINDINGS, DEEP512_PARAMS,
         {"fwd float32 64x256": 5, "bwd float32 64x256": 4})
+    ts = report.state
     del report
     torch.cuda.empty_cache()
-    # A TrainState is served with the GAN whose modules it holds: restored
-    # into this one's template, as the eval restores a checkpoint.
     gan = _gan(model_dir, _hires_bindings(DEEP512_BINDINGS))
-    ts = eval_gan_lib.restored_state(
-        gan, os.path.join(model_dir, f"model.ckpt-{STEPS}.npz"),
-        eval_gan_lib.EvalCache())
     torch.cuda.reset_peak_memory_stats()
     fa.launches_fwd = fa.launches_bwd = 0
     t0 = time.perf_counter()
@@ -3107,9 +3147,15 @@ def main():
     print("gan_tasks " + json.dumps(gan_tasks))
     print("study_zoo " + json.dumps(study_zoo))
     print("data_parallel " + json.dumps(data_parallel))
-    # The bands' rows, with both workers' launches of the spatial step.
+    # The bands' rows, with the workers' launches of the spatial steps that
+    # ran them: eight bands' rows the `1 x 8` grid's, the others the rest.
+    k8 = {kern: sum(rank[kern] for rank in
+                    spatial["biggan128_k8"]["launches"]["float32"])
+          for kern in ("fwd", "bwd")}
     for row in spatial_rows:
-        row["phase_launches"] = runs["spatial"]
+        row["phase_launches"] = (
+            k8 if row["shape"].endswith("_band8") else
+            {kern: runs["spatial"][kern] - k8[kern] for kern in k8})
         print("spatial_shape " + json.dumps(row))
     print("spatial " + json.dumps(spatial))
     print("tf_formats " + json.dumps(tf_formats))

@@ -31,21 +31,31 @@ def fusion_options(fused_scale_convs=True):
 def unpool(value):
     """Zero-interleaved 2x upsampling of NHWC: value[b, i, j, c] ->
     out[b, 2i, 2j, c], zeros at the other three cell positions
-    (resnet_ops.py:31-39)."""
+    (resnet_ops.py:31-39). In the spatial layout a band's output is the
+    band of the whole map's, and a whole map's goes back to bands where
+    its height splits."""
+    band = tpu_ops.is_band(value, "unpool")
+    value = tpu_ops.plain(value)
     b, h, w, c = value.shape
     out = value.new_zeros((b, 2 * h, 2 * w, c))
     out[:, ::2, ::2] = value
-    return out
+    return tpu_ops.as_band(out) if band else tpu_ops.split_bands(out,
+                                                                 "unpool")
 
 
 def avg_pool_2x2(x):
-    """2x2 average pooling of NHWC `x`; in the spatial layout of the band,
-    which must hold whole pairs of rows."""
+    """2x2 average pooling of NHWC `x`. In the spatial layout a band of an
+    even row count pools in place; one of an odd row count, whose 2x2
+    cells would straddle two bands, is gathered and pooled whole, and the
+    whole map goes back to bands where its height splits."""
+    band = tpu_ops.is_band(x, "avg_pool_2x2")
+    if band and x.shape[1] % 2:
+        x, band = tpu_ops.gather_bands(x), False
     b, h, w, c = x.shape
-    if h % 2 and tpu_ops.spatial() is not None:
-        raise ValueError(f"avg_pool_2x2: a band of {h} rows does not pool "
-                         f"2x2 in place; use fewer model ranks.")
-    return x.reshape(b, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4))
+    out = tpu_ops.plain(x).reshape(b, h // 2, 2, w // 2, 2, c).mean(
+        dim=(2, 4))
+    return tpu_ops.as_band(out) if band else tpu_ops.split_bands(
+        out, "avg_pool_2x2")
 
 
 class UnpoolConv2d(ops.Conv2d):

@@ -225,13 +225,14 @@ def load_discriminator(export_dir: str, device="cuda"
 # ---------------------------------------------------------------------------
 
 class _ServingGenerator(torch.nn.Module):
-    """(z [B, z_dim] f32, labels [B] int32) -> images [B, H, W, C]: G in
-    eval mode on the one-hot of the labels; an unconditional G takes the
-    labels and ignores them, as the JAX signature does."""
+    """(z [B, z_dim] f32, labels [B] int32) -> images [B, H, W, C]: the G
+    of `ts` in eval mode on the one-hot of the labels (any state of the
+    GAN's config, as `ModularGAN.sample` takes it); an unconditional G
+    takes the labels and ignores them, as the JAX signature does."""
 
-    def __init__(self, gan):
+    def __init__(self, gan, ts):
         super().__init__()
-        self.generator = gan.generator
+        self.generator = ts.generator
         self._gan = gan
 
     def forward(self, z, labels):
@@ -248,9 +249,11 @@ def export_serving_program(gan, ts, export_dir: str,
     (the reference's TF-Hub batch tags, modular_gan.py:289-306); it
     writes no TF SavedModel.
 
-    The program computes `gan.generator(z, y=one_hot(labels),
+    The program computes `ts.generator(z, y=one_hot(labels),
     is_training=False)` on `gan._inference_params(ts)` (G's EMA shadows)
-    and the state of `ts`, committing no state, under the live gin config.
+    and the state of `ts`, committing no state, under the live gin config:
+    `ts` may come from another GAN object of the same config, as JAX's
+    functional export applies `gan.generator` to any state's variables.
     `torch.export` traces it once with a dynamic batch dimension, so the
     weights are stored once (as the JAX export keeps them in shared
     variables, not once per signature); `serving.load_serving_program`
@@ -271,7 +274,7 @@ def export_serving_program(gan, ts, export_dir: str,
     with torch.no_grad(), core.no_state_updates(), \
             gan._inference_weights(ts):
         program = torch.export.export(
-            _ServingGenerator(gan), example,
+            _ServingGenerator(gan, ts), example,
             dynamic_shapes={"z": {0: batch}, "labels": {0: batch}})
         # Inside the swap: the copy to the CPU takes the EMA shadows.
         program = move_to_device_pass(program, "cpu")

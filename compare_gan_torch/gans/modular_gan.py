@@ -49,9 +49,9 @@ the z, labels and draws whole. The architecture's layers exchange the
 rows they read across bands; the losses are computed whole on every model
 rank, each taking 1 / world of them (`tpu_ops.loss_shares`), and the
 gradients are summed over the whole grid. Every architecture, GAN class,
-penalty and normalization runs in it; a layer whose band cannot be cut
-as the layout needs (thinner than its halo, not on a stride row, an odd
-band to pool) raises, naming the layer.
+penalty and normalization runs in it, at any k that divides the image
+height: a map whose height does not split into k bands the next layer
+can run on is held whole on every model rank (`parallel.tpu_ops`).
 
 `sample` and `discriminate` are the inference surface (the reference's hub
 "gen" and "disc" tags): G runs with its EMA shadows swapped in for its
@@ -75,7 +75,7 @@ from compare_gan_torch import utils
 from compare_gan_torch.gans import loss_lib, optimizers, penalty_lib
 from compare_gan_torch.gans.abstract_gan import AbstractGAN
 from compare_gan_torch.ops import rng
-from compare_gan_torch.parallel import mesh_utils
+from compare_gan_torch.parallel import mesh_utils, tpu_ops
 
 Tensor = torch.Tensor
 
@@ -526,8 +526,9 @@ class ModularGAN(AbstractGAN):
             features = [self._features(d, ts.seed, ts.step, i, replicas)
                         for i, d in enumerate(draws)]
             with mesh_utils.replica_context(replicas):
-                metrics = self._step(ts, images_s, labels_s, features, g_tx,
-                                     d_tx, replicas)
+                metrics = self._step(
+                    ts, [tpu_ops.as_band(x) for x in images_s], labels_s,
+                    features, g_tx, d_tx, replicas)
             if replicas is not None:  # Every worker's share, summed.
                 names = sorted(metrics)
                 stacked = torch.stack([metrics[k].float() for k in names])

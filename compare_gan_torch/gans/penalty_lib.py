@@ -16,7 +16,9 @@ replicated weights, its 1 / world part.
 In the spatial layout the perturbed images are bands of image height and
 D's logits are whole on every model rank. The backward of D's sums over
 the model group adds the k ranks' seeds, so each rank seeds 1 / k of the
-logits' sum: the gradient is then the band of the whole image's. The
+logits' sum: the gradient is then the band of the whole image's (images
+held whole, which no input height that splits gives, seed all of it and
+sum their own squares). The
 slope sums the bands' squares over the group (`tpu_ops.image_sum`), and
 the penalty's double backward runs the collectives' adjoints, the same
 calls in the same order on every rank. DRAGAN's noise is drawn in the
@@ -38,8 +40,8 @@ def slopes(d_logits_fn, x):
     """||grad_x D(x)||_2 of each image, with the 1e-4 stabilizer under the
     root (penalty_lib.py:24-33), differentiable again; `x` requires grad."""
     logits = d_logits_fn(x)
-    replicas = tpu_ops.spatial()
-    shares = 1 if replicas is None else replicas.model_size
+    shares = (tpu_ops.spatial().model_size if tpu_ops.is_band(x, "slopes")
+              else 1)
     gradients, = torch.autograd.grad(logits.float().sum() / shares, x,
                                      create_graph=True)
     return torch.sqrt(1e-4 + tpu_ops.image_sum(gradients.float().square()))

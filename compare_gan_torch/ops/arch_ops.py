@@ -26,16 +26,20 @@ batch statistics in training, and start no collective outside the spatial
 layout.
 
 In the spatial layout (`tpu_ops.spatial()`) an activation is this worker's
-band of image rows. The convs pad each band with halo rows of the
+band of image rows (`tpu_ops.Band`) or, where the map's height does not
+split into equal bands, the whole map on every model rank
+(`tpu_ops.Whole`). The convs pad each band with halo rows of the
 neighbouring bands (`tpu_ops.exchange_halos`), zeros only at the image's
-top and bottom, so every band starts on a stride boundary and its output
-is the band of the whole image's; batch norm's moments run over the
-whole grid as they do over the workers, and those of `num_batch_groups`
-over each group's rows on the grid; layer norm's and EvoNorm's moments of
-each image sum the bands' parts over the model group
-(`tpu_ops.image_moments`); pooling stays local; the non-local block
-attends from its own rows to the keys of every band. A height that does
-not split so raises, naming the layer.
+top and bottom, so a band that starts on a stride boundary gives the band
+of the whole image's output; a band that does not (or is thinner than the
+halo) is gathered and the layer runs on the whole map, whose output goes
+back to bands where its height splits (`tpu_ops.split_bands`). Batch
+norm's moments run over the whole grid as they do over the workers (a
+whole map's k copies count in both the sums and the count), and those of
+`num_batch_groups` over each group's rows on the grid; layer norm's and
+EvoNorm's moments of each image sum a band's parts over the model group
+(`tpu_ops.image_moments`); the non-local block attends from its own rows
+to the keys of every band.
 """
 
 from __future__ import annotations
@@ -244,14 +248,24 @@ class Linear(_SNLayer):
         return self._finish(x @ self.kernel.to(x.dtype), sigma)
 
     def of_bands(self, x):
-        """self(x.reshape(B, -1)) for NHWC `x`, or for features every
-        worker holds whole. In the spatial layout a band's flattened
-        features (1 / k of the kernel's rows) meet one block of the
-        kernel's rows: the partial products are summed over the model
-        group."""
-        flat = x.reshape(x.shape[0], -1)
+        """self(x.reshape(B, -1)) for NHWC `x`, or for flattened features.
+        In the spatial layout a band's flattened features (1 / k of the
+        kernel's rows) meet one block of the kernel's rows: the partial
+        products are summed over the model group. A whole map's features
+        meet the whole kernel; a map's kind and its feature count must
+        agree, and flattened features are a band's by their count."""
+        flat = tpu_ops.plain(x).reshape(x.shape[0], -1)
         replicas = tpu_ops.spatial()
-        if replicas is None or flat.shape[1] == self.kernel.shape[0]:
+        rows = self.kernel.shape[0]
+        if replicas is None:
+            return self(flat)
+        band = (tpu_ops.is_band(x, self.scope) if x.dim() == 4
+                else flat.shape[1] != rows)
+        if flat.shape[1] * (replicas.model_size if band else 1) != rows:
+            raise ValueError(f"{self.scope}: {flat.shape[1]} features of a "
+                             f"{'band' if band else 'whole map'} do not "
+                             f"meet a kernel of {rows} rows.")
+        if not band:
             return self(flat)
         sigma = self._sigma(flat.dtype)
         n = flat.shape[1]
@@ -281,28 +295,36 @@ def _conv_rows(x, w, strides, pads_h, pads_w, what):
     right) zero pads, NHWC out. In the spatial layout the band's pads in
     height are halo rows of its neighbours: with a band that starts on a
     stride boundary and the whole image's SAME pads as halo widths, the
-    output is the band of the whole image's output."""
+    output is the band of the whole image's output. A band that does not,
+    or is thinner than its halo, is gathered and the conv runs on the
+    whole map."""
     (t, b), (l, r) = pads_h, pads_w
-    if tpu_ops.spatial() is not None:
-        if x.shape[1] % strides[0]:
-            raise ValueError(f"{what}: a band of {x.shape[1]} rows does not "
-                             f"start every band on a stride-{strides[0]} "
-                             f"row.")
-        x = tpu_ops.exchange_halos(x, t, b, what)
+    band = tpu_ops.is_band(x, what)
+    if band and (x.shape[1] % strides[0] or max(t, b) > x.shape[1]):
+        x, band = tpu_ops.gather_bands(x), False
+    if band:
+        x = tpu_ops.exchange_halos(tpu_ops.plain(x), t, b, what)
         t = b = 0
-    xc = _nchw(x)
+    xc = _nchw(tpu_ops.plain(x))
     if (t, l) == (b, r):
         out = F.conv2d(xc, w, stride=strides, padding=(t, l))
     else:
         out = F.conv2d(F.pad(xc, (l, r, t, b)), w, stride=strides)
-    return _nhwc(out)
+    return _as_layout(_nhwc(out), band, what)
+
+
+def _as_layout(out, band, what):
+    """A layer's output map: a band from a band, else the whole map, back
+    to bands where its height splits."""
+    return tpu_ops.as_band(out) if band else tpu_ops.split_bands(out, what)
 
 
 def _conv2d_same(x, w, strides, what="conv2d"):
     """TF "SAME" conv of NHWC `x` with an OIHW kernel, NHWC out."""
     k_h, k_w = w.shape[2:]
     return _conv_rows(x, w, strides,
-                      _same_pads(tpu_ops.image_rows(x), k_h, strides[0]),
+                      _same_pads(tpu_ops.image_rows(x, what), k_h,
+                                 strides[0]),
                       _same_pads(x.shape[2], k_w, strides[1]), what)
 
 
@@ -315,25 +337,30 @@ def _transposed_rows(x, w, strides, padding, output_padding, out_size,
     (k - 1 - padding[0]) // stride above the band and (padding[0] - 1) //
     stride + 1 below, and is cut from the output of the band with those
     halos, uncropped and extended by stride - 1 rows (a 1x1 kernel's last
-    row, which no input row reaches)."""
-    replicas = tpu_ops.spatial()
-    if replicas is None:
-        out = F.conv_transpose2d(_nchw(x), w, stride=strides,
+    row, which no input row reaches). Where the output does not split into
+    bands of stride x the input band's rows, or the band is thinner than
+    its halo, the band is gathered and the layer runs on the whole map."""
+    k, s, t = w.shape[2], strides[0], padding[0]
+    lo, hi = (k - 1 - t) // s, (t - 1) // s + 1
+    band = tpu_ops.is_band(x, what)
+    if band:
+        h, groups = x.shape[1], tpu_ops.spatial().model_size
+        if out_size[0] % groups or out_size[0] // groups != h * s \
+                or max(lo, hi) > h:
+            x, band = tpu_ops.gather_bands(x), False
+    if not band:
+        out = F.conv_transpose2d(_nchw(tpu_ops.plain(x)), w, stride=strides,
                                  padding=padding,
                                  output_padding=output_padding)
-        return _nhwc(out[:, :, :out_size[0], :out_size[1]])
-    k, s, t = w.shape[2], strides[0], padding[0]
-    h, band = x.shape[1], out_size[0] // replicas.model_size
-    if out_size[0] % replicas.model_size or band != h * s:
-        raise ValueError(f"{what}: an output of {out_size[0]} rows does not "
-                         f"split into bands of {s} x the input band's {h}.")
-    lo = (k - 1 - t) // s
-    x = tpu_ops.exchange_halos(x, lo, (t - 1) // s + 1, what)
+        return _as_layout(_nhwc(out[:, :, :out_size[0], :out_size[1]]),
+                          False, what)
+    x = tpu_ops.exchange_halos(tpu_ops.plain(x), lo, hi, what)
     out = F.conv_transpose2d(_nchw(x), w, stride=strides,
                              padding=(0, padding[1]),
                              output_padding=(s - 1, output_padding[1]))
-    start = lo * s + t
-    return _nhwc(out[:, :, start:start + band, :out_size[1]])
+    start, rows = lo * s + t, h * s
+    return tpu_ops.as_band(_nhwc(out[:, :, start:start + rows,
+                                     :out_size[1]]))
 
 
 class Conv2d(_SNLayer):
@@ -378,7 +405,8 @@ class UpConv2d(Conv2d):
         out = _transposed_rows(
             x, w, (2, 2), (k_h - 1 - pl_h, k_w - 1 - pl_w),
             (k_h - 2 * pl_h, k_w - 2 * pl_w),
-            (2 * tpu_ops.image_rows(x), 2 * x.shape[2]), self.scope)
+            (2 * tpu_ops.image_rows(x, self.scope), 2 * x.shape[2]),
+            self.scope)
         return self._finish(out, sigma)
 
 
@@ -414,7 +442,8 @@ def _deconv2d_same(x, w, strides, output_size, what="deconv2d"):
     """tf.nn.conv2d_transpose(padding="SAME") of NHWC `x` with an IOHW
     kernel to an NHWC result of `output_size` (H, W) (the whole image's)."""
     lo, extra = [], []
-    for in_size, out_size, k, s in zip((tpu_ops.image_rows(x), x.shape[2]),
+    for in_size, out_size, k, s in zip((tpu_ops.image_rows(x, what),
+                                        x.shape[2]),
                                        output_size, w.shape[2:], strides):
         if -(-out_size // s) != in_size:
             raise ValueError(
@@ -566,13 +595,18 @@ class StandardizeBatch(core.Module):
             if b % local:
                 raise ValueError(f"A batch of {b} rows does not split into "
                                  f"{local} groups.")
-            xg = x32.reshape((local, b // local) + tuple(x32.shape[1:]))
+            xg = tpu_ops.plain(x32).reshape(
+                (local, b // local) + tuple(x32.shape[1:]))
             axes = tuple(range(1, xg.dim() - 1))
             # Each group's sums over its rows, and over the model group's
-            # bands of them.
-            count = math.prod(xg.shape[a] for a in axes) * k
-            mean_g, mean_sq = tpu_ops.model_sum(torch.stack(
-                [xg.sum(dim=axes), (xg * xg).sum(dim=axes)])) / count
+            # bands of them (a whole map's are its own).
+            bands = tpu_ops.band_group(x32)
+            sums = torch.stack([xg.sum(dim=axes), (xg * xg).sum(dim=axes)])
+            if bands is not None:
+                sums = tpu_ops.model_sum(sums)
+            count = math.prod(xg.shape[a] for a in axes) * (
+                1 if bands is None else k)
+            mean_g, mean_sq = sums / count
             var_g = mean_sq - mean_g * mean_g
             shape = (b,) + (1,) * (x32.dim() - 2) + (c,)
             per_row = (mean_g.repeat_interleave(b // local, 0).reshape(shape),
@@ -755,13 +789,15 @@ class EvoNormS0(core.Module):
         self.groups = max(g for g in range(1, min(32, c) + 1) if c % g == 0)
 
     def forward(self, x, **unused):
-        x32 = x.float()
+        x32 = tpu_ops.plain(x).float()
         b, h, w, c = x32.shape
         xg = x32.reshape(b, h, w, self.groups, c // self.groups)
-        std = torch.sqrt(tpu_ops.image_moments(xg, (1, 2, 4))[1] + 1e-5)
+        std = torch.sqrt(tpu_ops.image_moments(xg, (1, 2, 4), of=x)[1]
+                         + 1e-5)
         std = std.expand_as(xg).reshape(x32.shape)
         num = x32 * torch.sigmoid(self.v * x32)
-        return ((num / std) * self.gamma + self.beta).to(x.dtype)
+        return tpu_ops.like(((num / std) * self.gamma + self.beta).to(
+            x.dtype), x)
 
 
 # ---------------------------------------------------------------------------
@@ -861,7 +897,8 @@ class WeightNormDeconv2d(_WeightNorm):
     def forward(self, x, init=False):
         v_normed = self.V * torch.rsqrt(
             self.V.square().sum(dim=(0, 2, 3), keepdim=True))
-        size = (x.shape[1] * self.strides[0], x.shape[2] * self.strides[1])
+        size = (tpu_ops.image_rows(x) * self.strides[0],
+                x.shape[2] * self.strides[1])
         if init:
             self._data_init(_deconv2d_same(x, v_normed.to(x.dtype),
                                            self.strides, size))
@@ -887,13 +924,16 @@ class NonLocalBlock(core.Module):
 
     In the spatial layout theta keeps the band's own query rows; phi and g
     are pooled in the band, then gathered over the model group in band
-    order, the whole image's keys in their global order. The kernels run
-    on the band's N / k queries against all M keys, and the keys'
-    gradients come back as partial sums that the gather's backward sums to
-    their owners. That computes what the JAX package's partitioning rule
-    computes (pallas_attention.py:33-75, :240-244), but the rule declares
-    the query dim replicated, so XLA gathers the whole map and every model
-    rank runs the whole attention; here each runs 1 / k of it."""
+    order, the whole image's keys in their global order (a band of an odd
+    row count, whose 2x2 cells would straddle two bands, gathers phi and g
+    first and pools them whole). The kernels run on the band's N / k
+    queries against all M keys, and the keys' gradients come back as
+    partial sums that the gather's backward sums to their owners. That
+    computes what the JAX package's partitioning rule computes
+    (pallas_attention.py:33-75, :240-244), but the rule declares the query
+    dim replicated, so XLA gathers the whole map and every model rank runs
+    the whole attention; here each runs 1 / k of it. On a whole map every
+    model rank runs the whole attention."""
 
     def __init__(self, num_channels, use_sn, device=None):
         super().__init__()
@@ -911,16 +951,17 @@ class NonLocalBlock(core.Module):
 
     def forward(self, x):
         b, h, w, _ = x.shape
-        if h % 2 and tpu_ops.spatial() is not None:
-            raise ValueError(f"{self.scope}: a band of {h} rows does not "
-                             f"pool 2x2 in place.")
-        theta = self.conv2d_theta(x).reshape(b, h * w, self.attn_ch)
-        phi = tpu_ops.gather_bands(_max_pool_2x2(self.conv2d_phi(x)).reshape(
-            b, (h // 2) * (w // 2), self.attn_ch))
-        g = tpu_ops.gather_bands(_max_pool_2x2(self.conv2d_g(x)).reshape(
-            b, (h // 2) * (w // 2), self.g_ch))
+        band = tpu_ops.is_band(x, self.scope)
+        theta = tpu_ops.plain(self.conv2d_theta(x)).reshape(
+            b, h * w, self.attn_ch)
+        keys = [self.conv2d_phi(x), self.conv2d_g(x)]
+        if band and h % 2:
+            keys, band = [tpu_ops.gather_bands(k) for k in keys], False
+        keys = [_max_pool_2x2(tpu_ops.plain(k)) for k in keys]
+        phi, g = [tpu_ops.gather_bands(k.reshape(b, -1, k.shape[-1]))
+                  if band else k.reshape(b, -1, k.shape[-1]) for k in keys]
         attn_g = attention_lib.fused_attention(
             theta.contiguous(), phi.contiguous(), g.contiguous())
         attn_g = attn_g.reshape(b, h, w, self.g_ch).to(x.dtype)
-        attn_g = self.conv2d_attn_g(attn_g)
+        attn_g = self.conv2d_attn_g(tpu_ops.like(attn_g, x))
         return x + self.sigma.to(x.dtype) * attn_g

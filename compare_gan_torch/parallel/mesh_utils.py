@@ -39,7 +39,10 @@ derives every halo, moment and gradient sum of that layout from the
 sharding; here `tpu_ops` holds them as collectives of the model group
 (`model_group`), and the layers call them where they read rows of other
 bands (`ops.arch_ops`, the architectures that support the layout).
-Moments and gradients are summed over the whole grid.
+Moments and gradients are summed over the whole grid. As in JAX, only
+the input height must split into the k bands (`Replicas.band`): an
+interior map that does not is held whole on every model rank (partial
+replication, `tpu_ops.split_bands`).
 """
 
 from __future__ import annotations
@@ -97,7 +100,8 @@ class Replicas:
 
     def band(self, x):
         """This worker's band of rows of image height (dim 1) of a whole
-        image batch."""
+        image batch, whose height must split into the model size's bands
+        (JAX's rule for the input sharding)."""
         if self.model_size == 1:
             return x
         h = x.shape[1]

@@ -29,14 +29,29 @@ any order cross the bands:
                     backward: each halo row's gradient added to its owner.
   gather_bands   -- the bands of every model rank, in band order; backward:
                     the gradient summed over the group, this band's part.
-  split_bands    -- this worker's band of a tensor every model rank holds
-                    whole; backward: autograd's slice, zeros elsewhere.
+  split_bands    -- this worker's band of a map every model rank holds
+                    whole, or the map itself, whole, where its height
+                    does not split; backward: autograd's slice, zeros
+                    elsewhere.
   model_sum      -- the sum over the group; backward: the same sum.
 
 Built on them: the whole image's sums and means of a band (`spatial_sum`,
 `spatial_mean`, `image_sum`), each image's moments (`image_moments`,
 layer norm and EvoNorm), and its quarter-turns (`rotate_bands`: a rotated
 band is no band, so the rows are gathered, turned, and cut again).
+
+Partial replication, as XLA partitions a map whose height does not split:
+a map is held as bands where its height splits into k equal bands and the
+next layer can run on them, and whole on every model rank of the group
+otherwise. A layer that cannot run on its bands (a stride or a 2x2 pool
+that a band's odd row count would straddle, a transposed conv whose
+output does not split, a band thinner than a halo) gathers them and runs
+on the whole map; a whole map whose height splits goes back to bands
+(`split_bands`). So a map's kind is part of it: the tensor types `Band`
+and `Whole` (`as_band`, `like`, `is_band`), which every op on maps
+carries to its results, and a band meeting a whole map raises. The sums
+over a whole map's rows are each model rank's own (`band_group`): over
+the group they would count them k times.
 
 A loss is computed whole on every model rank of a data rank. Each takes
 `1 / world` of it (`loss_shares`: the grid's size, not the data ranks'),
@@ -198,10 +213,102 @@ def spatial():
     return replicas
 
 
-def image_rows(x: torch.Tensor) -> int:
-    """The whole image's height of a band (NHWC) of the active layout."""
+class _Map(torch.Tensor):
+    """A map (NHWC activation) of the spatial layout, its type the way the
+    model group holds it: `Band`, this worker's band of the rows, or
+    `Whole`, every row alike on every model rank. An op on maps returns
+    its rank-4 results as maps of their kind, and raises where a band meets
+    a whole map, or a rank-4 tensor of more than one row that is neither
+    (a map whose kind was lost): a band cannot be told from a whole map by
+    its shape."""
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        with torch._C.DisableTorchFunctionSubclass():
+            out = func(*args, **kwargs)
+        return _as_kind(out, _kind_of(func, (*args, *kwargs.values())))
+
+
+class Band(_Map):
+    """This worker's band of a map's rows."""
+
+
+class Whole(_Map):
+    """A map every model rank holds whole."""
+
+
+def _kind_of(func, args):
+    kinds, loose = set(), False
+    for arg in args:
+        for t in arg if isinstance(arg, (list, tuple)) else (arg,):
+            if isinstance(t, _Map):
+                kinds.add(type(t))
+            elif isinstance(t, torch.Tensor) and t.dim() == 4 \
+                    and t.shape[1] > 1:
+                loose = True
+    if len(kinds) > 1 or loose:
+        name = getattr(func, "__name__", func)
+        raise ValueError(f"{name}: a band meets a whole map" if len(kinds) > 1
+                         else f"{name}: a map of the spatial layout meets a "
+                         f"rank-4 tensor that is neither a band nor a whole "
+                         f"map")
+    return kinds.pop() if kinds else None
+
+
+def _as_kind(out, kind):
+    if isinstance(out, torch.Tensor):
+        if kind is None or out.dim() != 4 or type(out) is kind:
+            return out
+        return out.as_subclass(kind)
+    if type(out) in (list, tuple):
+        return type(out)(_as_kind(o, kind) for o in out)
+    return out
+
+
+def plain(x: torch.Tensor) -> torch.Tensor:
+    """`x` as a plain tensor (the same data and graph), its kind dropped."""
+    return x.as_subclass(torch.Tensor) if isinstance(x, _Map) else x
+
+
+def as_band(x: torch.Tensor) -> torch.Tensor:
+    """`x`, this worker's band of a map's rows, marked as a band (the
+    identity outside the spatial layout)."""
+    return x if spatial() is None else plain(x).as_subclass(Band)
+
+
+def like(x: torch.Tensor, of: torch.Tensor) -> torch.Tensor:
+    """`x`, a map computed from the map `of` through tensors of other ranks,
+    marked as the kind of `of`."""
+    if spatial() is None:
+        return x
+    return plain(x).as_subclass(Band if is_band(of) else Whole)
+
+
+def is_band(x: torch.Tensor, what: str = "a layer") -> bool:
+    """Whether the map `x` is this worker's band (True) or held whole on
+    every model rank (False; so is everything outside the spatial layout,
+    and a tensor of rank 2 or less: features). Raises for a tensor of
+    higher rank that is neither, naming `what`."""
+    if spatial() is None or x.dim() <= 2 or isinstance(x, Whole):
+        return False
+    if isinstance(x, Band):
+        return True
+    raise ValueError(f"{what}: a map of shape {tuple(x.shape)} is neither a "
+                     f"band nor a whole map of the spatial layout.")
+
+
+def band_group(x: torch.Tensor):
+    """The Replicas over whose model group a sum over the rows of the map
+    `x` runs: the active layout's for a band; None for a whole map, whose
+    every row each model rank holds (its own sum is the whole map's)."""
+    return spatial() if is_band(x) else None
+
+
+def image_rows(x: torch.Tensor, what: str = "a layer") -> int:
+    """The whole map's height of the map (NHWC) `x`."""
     replicas = spatial()
-    return x.shape[1] * (1 if replicas is None else replicas.model_size)
+    return x.shape[1] * (replicas.model_size if is_band(x, what) else 1)
 
 
 def _stack(x, replicas):
@@ -264,16 +371,20 @@ def exchange_halos(x: torch.Tensor, lo: int, hi: int,
                    what: str = "a layer") -> torch.Tensor:
     """This worker's band (NHWC, rows in dim 1) with `lo` halo rows above
     and `hi` below from the neighbouring bands of the model group, zeros
-    past the image's top and bottom: what a SAME conv reads. `what` names
-    the layer in the error raised for a band thinner than its halo."""
+    past the image's top and bottom: what a SAME conv reads; a plain
+    tensor. `what` names the layer in the error raised for a whole map or
+    a band thinner than its halo (the layers gather such a band first)."""
     replicas = spatial()
-    if replicas is None or lo == hi == 0:
+    if replicas is None:
         return x
+    if isinstance(x, Whole):
+        raise ValueError(f"{what}: a whole map has no halo rows.")
     if max(lo, hi) > x.shape[1]:
         raise ValueError(f"{what}: a band of {x.shape[1]} rows is thinner "
-                         f"than its halo ({lo} above, {hi} below); use "
-                         f"fewer model ranks.")
-    return _HaloExchange.apply(x, replicas, lo, hi)
+                         f"than its halo ({lo} above, {hi} below).")
+    if lo == hi == 0:
+        return plain(x)
+    return _HaloExchange.apply(plain(x), replicas, lo, hi)
 
 
 class _GatherBands(torch.autograd.Function):
@@ -309,24 +420,39 @@ class _ReduceBands(torch.autograd.Function):
 
 def gather_bands(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
     """The whole tensor from every model rank's band along `dim` (the
-    identity outside the spatial layout)."""
-    replicas = spatial()
-    return x if replicas is None else _GatherBands.apply(x, replicas, dim)
-
-
-def split_bands(x: torch.Tensor, what: str = "a layer") -> torch.Tensor:
-    """This worker's band of rows (dim 1) of a tensor every model rank
-    holds whole, as G's first linear layer gives it (the identity outside
-    the spatial layout). Its gradient is autograd's: zeros outside the
-    band, so each model rank's whole-computed layer gets its band's part,
-    and the sum over the grid the whole."""
+    identity outside the spatial layout): a band of a map (NHWC) becomes
+    the whole map, and a tensor of another rank is taken as a band along
+    `dim`. Its backward sums the gradients of every model rank's whole
+    tensor, this band's part of them: a whole map used alike on every rank
+    gives each band its whole gradient k times over 1 / k of the loss."""
     replicas = spatial()
     if replicas is None:
         return x
+    if x.dim() == 4 and not is_band(x, "gather_bands"):
+        raise ValueError("gather_bands: the map is whole already.")
+    out = _GatherBands.apply(plain(x), replicas, dim)
+    return out.as_subclass(Whole) if x.dim() == 4 else out
+
+
+def split_bands(x: torch.Tensor, what: str = "a layer") -> torch.Tensor:
+    """A map (NHWC) every model rank holds whole, as G's first linear layer
+    gives it or a layer that ran on a whole map: this worker's band of its
+    rows where they split into k equal bands, else the map itself, held
+    whole (partial replication; the identity outside the spatial layout).
+    Its gradient is autograd's: zeros outside the band, so each model
+    rank's whole-computed layer gets its band's part, and the sum over the
+    grid the whole."""
+    replicas = spatial()
+    if replicas is None:
+        return x
+    if isinstance(x, Band):
+        raise ValueError(f"{what}: a band is not split again.")
     h, k = x.shape[1], replicas.model_size
+    x = plain(x)
     if h % k:
-        raise ValueError(f"{what}: {h} rows do not split into {k} bands.")
-    return x.narrow(1, replicas.model_rank * (h // k), h // k)
+        return x.as_subclass(Whole)
+    return x.narrow(1, replicas.model_rank * (h // k), h // k).as_subclass(
+        Band)
 
 
 def model_sum(x: torch.Tensor) -> torch.Tensor:
@@ -335,37 +461,54 @@ def model_sum(x: torch.Tensor) -> torch.Tensor:
     replicas = spatial()
     if replicas is None:
         return x
-    return _AllReduceSum.apply(x.float(), replicas.model_group).to(x.dtype)
+    return _AllReduceSum.apply(plain(x).float(), replicas.model_group).to(
+        x.dtype)
+
+
+def _row_sum(x, of, dims):
+    """The sum of `x` over `dims` (the rows among them), over the model
+    group when the map `of` is a band."""
+    total = plain(x).sum(dim=dims)
+    return total if band_group(of) is None else model_sum(total)
 
 
 def spatial_sum(x: torch.Tensor) -> torch.Tensor:
-    """x.sum(dim=(1, 2)) of the whole image from a band (NHWC)."""
-    return model_sum(x.sum(dim=(1, 2)))
+    """x.sum(dim=(1, 2)) of the whole map from a band or a whole map
+    (NHWC)."""
+    return _row_sum(x, x, (1, 2))
 
 
 def spatial_mean(x: torch.Tensor) -> torch.Tensor:
-    """x.mean(dim=(1, 2)) of the whole image from a band (NHWC)."""
+    """x.mean(dim=(1, 2)) of the whole map from a band or a whole map
+    (NHWC)."""
     return spatial_sum(x) / (image_rows(x) * x.shape[2])
 
 
 def image_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum over every dim but the batch of each whole image from a
-    band: [B]."""
-    return model_sum(x.sum(dim=tuple(range(1, x.dim()))))
+    """The sum over every dim but the batch of each whole image, from a
+    band or a whole map: [B]."""
+    return _row_sum(x, x, tuple(range(1, x.dim())))
 
 
-def image_moments(x: torch.Tensor, dims: Sequence[int]):
-    """(mean, variance) over `dims` of each whole image from a band, kept
-    as dims of size 1; the rows (dim 1) must be among them. Two passes, the
-    variance E[(x - mean)^2]: the group's sum of the bands' sums, then of
-    their squares about the mean."""
+def image_moments(x: torch.Tensor, dims: Sequence[int], of=None):
+    """(mean, variance) over `dims` of each whole image of the map `of`
+    (default `x`; `x` may be a reshape of it), kept as dims of size 1; the
+    rows (dim 1) must be among them. Two passes, the variance E[(x -
+    mean)^2]: the group's sum of the bands' sums, then of their squares
+    about the mean; a whole map's own sums."""
     dims = tuple(dims)
-    replicas = spatial()
+    of = x if of is None else of
+    replicas = band_group(of)
+    x = plain(x)
     count = math.prod(x.shape[d] for d in dims) * (
         1 if replicas is None else replicas.model_size)
-    mean = model_sum(x.sum(dim=dims, keepdim=True)) / count
-    return mean, model_sum((x - mean).square().sum(
-        dim=dims, keepdim=True)) / count
+
+    def total(t):
+        t = t.sum(dim=dims, keepdim=True)
+        return t if replicas is None else model_sum(t)
+
+    mean = total(x) / count
+    return mean, total((x - mean).square()) / count
 
 
 def rotate_bands(x: torch.Tensor, rot90_scalars=(0, 1, 2, 3)
@@ -373,10 +516,10 @@ def rotate_bands(x: torch.Tensor, rot90_scalars=(0, 1, 2, 3)
     """`utils.rotate_images` of the whole square images of a band (NHWC),
     this worker's band of the result: a quarter-turn sends rows to
     columns, so the bands are gathered, the whole images turned, and the
-    result cut into bands again."""
-    if spatial() is None:
+    result cut into bands again. Whole images turn where they are."""
+    if spatial() is None or not is_band(x, "rotate_bands"):
         return utils.rotate_images(x, rot90_scalars)
     if x.shape[0] == 0:  # Every model rank holds the same rows.
         return x.repeat(len(rot90_scalars), 1, 1, 1)
-    return split_bands(utils.rotate_images(gather_bands(x), rot90_scalars),
-                       "rotate_bands")
+    return split_bands(utils.rotate_images(plain(gather_bands(x)),
+                                           rot90_scalars), "rotate_bands")

@@ -349,6 +349,21 @@ def test_spatial_shapes_are_the_main_path_shapes_in_two_bands():
         assert band == (b, n // 2, m, c, cg) == (32, 2048, 1024, c, cg)
 
 
+def test_eight_band_shapes_are_the_main_path_shapes_in_eight_bands():
+    """Each worker of the `1 x 8` grid holds 8 of the 64 rows of the 64x64
+    map: an eighth of the queries, all the pooled keys; the case's
+    launches run at those widths."""
+    bands = dict(chip_smoke.SPATIAL_SHAPES)
+    for name, (b, n, m, c, cg) in chip_smoke.SHAPES.items():
+        assert bands[name + "_band8"] == (b, n // 8, m, c, cg) == (
+            32, 512, 1024, c, cg)
+    case = chip_smoke.SPATIAL_CASES["biggan128_k8"]
+    assert case["model"] == 8 and 128 % case["model"] == 0
+    assert case["attention"] == {shape[1:] for name, shape in bands.items()
+                                 if name.endswith("_band8")}
+    assert set(case["controls"]) == {"whole_as_band", "no_halo"}
+
+
 def test_spatial_shapes_hold_the_zoo_bands():
     """BigGAN-deep's B8/B2 map (C 32, Cg 128) and S3GAN's D after B1 on
     its 38 rows, each worker's half of the queries, are band rows too, and
@@ -402,6 +417,15 @@ def test_spatial_controls_patch_the_collectives_and_restore_them():
         assert tpu_ops.model_sum is not right[1]
     assert (tpu_ops.exchange_halos, tpu_ops.model_sum,
             tpu_ops.loss_shares) == right
+    # A whole map's sums run over the model group as a band's would.
+    right_group = tpu_ops.band_group
+    with mesh_utils.replica_context(grid):
+        whole = tpu_ops.split_bands(torch.ones(1, 3, 2, 1))
+        assert isinstance(whole, tpu_ops.Whole)
+        assert tpu_ops.band_group(whole) is None
+        with chip_smoke.spatial_control("whole_as_band"):
+            assert tpu_ops.band_group(whole) is grid
+    assert tpu_ops.band_group is right_group
 
 
 def test_hires_shapes_are_the_published_models_blocks():

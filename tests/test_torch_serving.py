@@ -275,6 +275,39 @@ def test_spec_and_cuda_without_a_card(served, monkeypatch):
         serving.load_serving_program(served["dir"], device="cuda")
 
 
+def test_a_state_of_another_gan_object_serves_its_own_weights(tmp_path):
+    """The program serves the G of the state it is given, also when that
+    state was built by a second GAN object of the same config (as the
+    CLI's in-memory state is, or a checkpoint restored elsewhere): its
+    images equal `gan.sample(ts, ...)`, not those of the exporting GAN's
+    own modules."""
+    datasets.set_fake_dataset(True)
+    tgin.clear_config()
+    try:
+        tgin.parse_config("ModularGAN.conditional = True\n"
+                          "ModularGAN.g_use_ema = True\n")
+        parameters = {"architecture": "dummy_arch", "z_dim": 8, "lambda": 1}
+        gans = [modular_gan.ModularGAN(
+            dataset=datasets.get_dataset("cifar10"), parameters=parameters,
+            model_dir="unused", device="cpu") for _ in range(2)]
+        gans[0].init_state(seed=1)
+        ts = gans[1].init_state(seed=2)
+        ts.ema_params = {k: v * 0.5 for k, v in ts.ema_params.items()}
+        export.export_serving_program(gans[0], ts, str(tmp_path), (8,))
+        z = th.randn((8, 8), 3)
+        labels = LABELS[:8]
+        want = th.np32(gans[0].sample(ts, z, labels))
+        own = th.np32(gans[0].sample(gans[0].init_state(seed=1), z, labels))
+    finally:
+        datasets.set_fake_dataset(False)
+        tgin.clear_config()
+    _, signatures = serving.load_serving_program(str(tmp_path), "cpu")
+    got = th.np32(signatures["gen_bs8"](z, labels))
+    assert not np.allclose(want, own, atol=1e-3)
+    # One f32 linear layer and a sigmoid, traced and eager.
+    th.assert_close(got, want, rtol=0, atol=1e-6)
+
+
 # -- against the JAX package's jax2tf SavedModel ----------------------------
 
 def test_program_matches_the_jax_saved_model_gen_bs8(tmp_path):

@@ -1,22 +1,35 @@
 """The spatial layout for the whole zoo: every architecture, GAN class,
 gradient penalty and normalization of the port in one train step on a
-`2 x 2` data x model grid of four gloo workers on the CPU (image height in
-two bands), against the port's own one-process step in the full
-TrainState; SSGAN and WGAN-GP on DCGAN also against the JAX package's
-data-parallel step on 4 devices.
+`2 x 2` data x model grid of the first four of eight gloo workers on the
+CPU (image height in two bands), and the partial replication of maps
+whose height does not split on `1 x 4` and `1 x 8` grids, against the
+port's own one-process step in the full TrainState; SSGAN and WGAN-GP on
+DCGAN also against the JAX package's data-parallel step on 4 devices.
+
+Partial replication: a map whose height splits into the k bands is held
+as bands where the next layer can run on them, any other map whole on
+every model rank; a layer that cannot run on its bands (a stride or a 2x2
+pool that an odd band would straddle, a transposed conv whose output does
+not split) gathers them and runs on the whole map, and a whole map whose
+height splits goes back to bands.
 
 The cases, each at the smallest width its architecture takes:
+BigGAN-32 at ch 16 on a `1 x 8` grid of all eight workers (G's 4-row map
+whole on every rank, D's 2x2 pool of bands of one row gathered, its last
+4-row map and sum whole: the card's eight-band case in small);
 BigGAN-deep at 64 px with its non-local block (G's, at 64x64; ch 16);
-ResNet-CIFAR; ResNet-STL at 48 px, on the first three workers as a
-`1 x 3` grid (its D halves a 6-row map to 3 rows, which no two equal
-bands hold; three bands of 2 rows halve to bands of 1); ResNet30 at
-128 px; ResNet5 at 128 px and ch 4 (at 64 px its D's last block would
-halve bands of one row); SNDCGAN and InfoGAN at 32 px; SSGAN on DCGAN (the
-rotated rows lie on data rank 1 only, turned whole and cut into bands
-again); S3GAN on BigGAN-32 at ch 16 (rotation, soft predictor, projection,
-unlabeled rows); WGAN-GP and DRAGAN on DCGAN (the slope's double backward
-through the halos); BigGAN-32's D with layer norm; EvoNorm-S0 in DCGAN's
-G; batch norm with num_batch_groups 2 in DCGAN.
+ResNet-CIFAR; ResNet-STL at 48 px (its D halves a 6-row map to bands of
+3 rows and pools them whole); ResNet30 at 128 px; ResNet5 at 128 px and
+ch 4; SNDCGAN and InfoGAN at 32 px; SSGAN on DCGAN (the rotated rows lie
+on data rank 1 only, turned whole and cut into bands again); S3GAN on
+BigGAN-32 at ch 16 (rotation, soft predictor, projection, unlabeled rows);
+WGAN-GP and DRAGAN on DCGAN (the slope's double backward through the
+halos); BigGAN-32's D with layer norm; EvoNorm-S0 in DCGAN's G; batch norm
+with num_batch_groups 2 in DCGAN; DCGAN-28 as dcgan_polygons28.gin
+publishes it (batch 4) on a `1 x 4` grid: D's stride-2 convs from bands
+of 7 rows and on whole maps of 14 and 7 rows, G's transposed convs from
+bands of 1 row to a whole map of 7 rows and from whole maps of 7 and 14
+rows, its batch norm on whole maps.
 
 Every case starts from one port init (carried by interop.py to JAX where
 JAX takes the step), takes one global batch from a numpy seed and the
@@ -28,10 +41,12 @@ the two JAX cases are held to its data-parallel step; the penalty case's
 D has no batch norm: XLA's jitted f32 penalty through DCGAN's BN'd D is
 wrong on the reference side (ROADMAP).
 
-Four faulty controls (`chip_smoke.spatial_control`) must fail the
+Five faulty controls (`chip_smoke.spatial_control`) must fail the
 comparisons the layout passes: "k_times" and "no_halo" on ResNet5,
-"local_rotation" (each band turned by itself) on SSGAN and "band_slope"
-(the slope from a band's gradient alone) on WGAN-GP.
+"local_rotation" (each band turned by itself) on SSGAN, "band_slope"
+(the slope from a band's gradient alone) on WGAN-GP and "whole_as_band"
+(a whole map's sums over the model group, k times) on BigGAN-32's `1 x 8`
+grid.
 
 The workers run every case in one spawn (torch and the port only;
 `torch_helpers.run_spatial_cases`) while this process runs the JAX side.
@@ -59,7 +74,9 @@ from compare_gan_torch import checkpoint, interop
 from compare_gan_torch.parallel import mesh_utils
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WORLD, MODEL = 4, 2
+WORLD = 8
+# The devices of JAX's data-parallel step: the `2 x 2` grid's workers.
+JAX_DEVICES = 4
 LINEAR_ADAM = """
 ModularGAN.g_optimizer_fn = @AdamOptimizer
 ModularGAN.d_optimizer_fn = @AdamOptimizer
@@ -143,13 +160,28 @@ resnet_biggan.Discriminator.blocks_with_attention = ""
     "batch_groups": dict(cls="ModularGAN", dataset="cifar10", batch=8,
                          cfg=G_BN + "standardize_batch.num_batch_groups = 2\n",
                          parameters=_params("dcgan_arch")),
-    # Last: the worker outside its grid starts on the one-process steps.
-    "resnet_stl": dict(cls="ModularGAN", dataset=48, batch=1, grid=[1, 3],
-                       cfg=G_BN, parameters=_params("resnet_stl_arch")),
+    "resnet_stl": dict(cls="ModularGAN", dataset=48, batch=2, cfg=G_BN,
+                       parameters=_params("resnet_stl_arch")),
+    # Partial replication (the last two: each case's batch comes from its
+    # place in this list).
+    "biggan32_k8": dict(
+        cls="ModularGAN", dataset="cifar10", batch=4, grid=[1, 8],
+        cfg=BIGGAN32 + """
+resnet_biggan.Generator.ch = 16
+resnet_biggan.Discriminator.ch = 16
+""", parameters=_params("resnet_biggan_arch", 120),
+        kwargs={"conditional": True}, controls=["whole_as_band"]),
+    "dcgan28": dict(cls="ModularGAN", dataset="convex_polygons", batch=4,
+                    grid=[1, 4], cfg=G_BN + """
+loss.fn = @non_saturating
+standardize_batch.decay = 0.9
+standardize_batch.epsilon = 1e-5
+""", parameters=_params("dcgan_arch", 128)),
 }
 for _case in CASES.values():
     _case["cfg"] = LINEAR_ADAM + _case["cfg"]
-# The cases JAX's data-parallel step on WORLD devices takes too.
+    _case.setdefault("grid", [2, 2])
+# The cases JAX's data-parallel step on JAX_DEVICES devices takes too.
 JAX_CLASSES = {"ssgan_dcgan": jssgan.SSGAN,
                "wgangp_dcgan": jmodular.ModularGAN}
 # The parameters' (rtol, atol): JAX's (tests/test_parallel.py:146-149),
@@ -177,21 +209,23 @@ CONTROLS = [(name, control) for name, case in CASES.items()
 
 
 def _grid_ranks(name):
-    return math.prod(CASES[name].get("grid", [WORLD // MODEL, MODEL]))
+    return math.prod(CASES[name]["grid"])
 
 
 def _batch(name, seed):
     case = CASES[name]
-    size = case["dataset"] if isinstance(case["dataset"], int) else {
-        "imagenet_64": 64, "celeb_a_hq_128": 128}.get(case["dataset"], 32)
+    size, colors = (case["dataset"], 3) if isinstance(
+        case["dataset"], int) else {
+        "imagenet_64": (64, 3), "celeb_a_hq_128": (128, 3),
+        "convex_polygons": (28, 1)}.get(case["dataset"], (32, 3))
     classes = 1000 if case["dataset"] == "imagenet_64" else 10
     rng = np.random.RandomState(seed)
     total = case["batch"] * (case["parameters"]["disc_iters"] + 1)
     labels = rng.randint(0, classes, total).astype(np.int32)
     if case["cls"] == "S3GAN":
         labels[::3] = -1  # Unlabeled rows: the class loss skips them.
-    return {"images": rng.rand(total, size, size, 3).astype(np.float32),
-            "labels": labels}
+    return {"images": rng.rand(total, size, size, colors).astype(
+        np.float32), "labels": labels}
 
 
 def _jax_gan(name):
@@ -253,7 +287,7 @@ def runs(tmp_path_factory):
         results = {}
         for name, (ts, batch) in started.items():
             jgan = _jax_gan(name)
-            mesh = jmesh.make_mesh(num_devices=WORLD)
+            mesh = jmesh.make_mesh(num_devices=JAX_DEVICES)
             step, shard_batch, ts = jmesh.compile_train_step(
                 jgan, jax.tree_util.tree_map(np.array, ts), mesh,
                 CASES[name]["batch"])

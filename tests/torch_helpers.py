@@ -7,6 +7,7 @@ would oversubscribe it.
 
 import contextlib
 import functools
+import math
 
 import numpy as np
 import torch
@@ -433,29 +434,36 @@ def run_dp_ops(rank, world, port, workdir):
 
 def _spatial_op_cases():
     """{name: (build() -> module, input shape [B, H, W, C] of the whole
-    image, forward(module, x, y) -> (output, whether it is a band))}."""
+    image, forward(module, x, y) -> output, options)}: options "ranks",
+    the model group (a `1 x ranks` grid of the first workers; 2 by
+    default), and "whole", whether every worker takes the whole input (a
+    map whose height does not split into the bands, as G's first map) and
+    not its band. Whether the output is a band comes from its kind."""
     from compare_gan_torch.architectures import resnet_ops
     from compare_gan_torch.gans import penalty_lib
     from compare_gan_torch.ops import arch_ops as ops
     from compare_gan_torch.parallel import mesh_utils, tpu_ops
 
     def band(m, x, y):
-        return m(x), True
+        return m(x)
 
     def bn(m, x, y):
-        return m(x, is_training=True), True
+        return m(x, is_training=True)
 
     def cbn(m, x, y):
-        return m(x, is_training=True, y=y), True
+        return m(x, is_training=True, y=y)
 
     def deconv(m, x, y):  # To twice the whole image's size.
-        return m(x, (2 * tpu_ops.image_rows(x), 2 * x.shape[2])), True
+        return m(x, (2 * tpu_ops.image_rows(x), 2 * x.shape[2]))
+
+    def deconv_to(rows):  # To `rows` rows of twice the image's width.
+        return lambda m, x, y: m(x, (rows, 2 * x.shape[2]))
 
     def whole(fn):
-        return lambda m, x, y: (fn(m, x), False)
+        return lambda m, x, y: fn(m, x)
 
     def rotated(m, x, y):  # A band of the quarter-turns of the images.
-        return tpu_ops.rotate_bands(m(x), rot90_scalars=(1, 2, 3)), True
+        return tpu_ops.rotate_bands(m(x), rot90_scalars=(1, 2, 3))
 
     def slope(m, x):  # Per image, of a D with halos: second order.
         return penalty_lib.slopes(
@@ -468,50 +476,101 @@ def _spatial_op_cases():
         total = share if reps is None else tpu_ops.all_reduce_sum(share, reps)
         return total.reshape(1)
 
+    four, held = {"ranks": 4}, {"whole": True}
     return {
         "conv3x3_sn": (lambda: ops.Conv2d(4, 5, 3, 3, use_sn=True),
-                       (2, 8, 6, 4), band),
+                       (2, 8, 6, 4), band, {}),
         "conv5x5_stride2": (lambda: ops.Conv2d(4, 5, 5, 5, 2, 2),
-                            (2, 16, 8, 4), band),
-        "conv1x1": (lambda: ops.conv1x1(4, 5), (2, 8, 6, 4), band),
+                            (2, 16, 8, 4), band, {}),
+        "conv1x1": (lambda: ops.conv1x1(4, 5), (2, 8, 6, 4), band, {}),
         "deconv5x5_stride2": (lambda: ops.Deconv2d(4, 5, 5, 5, 2, 2,
                                                    use_sn=True),
-                              (2, 4, 4, 4), deconv),
+                              (2, 4, 4, 4), deconv, {}),
         "deconv5x5_stride2_one_row": (
-            lambda: ops.Deconv2d(4, 5, 5, 5, 2, 2), (2, 2, 2, 4), deconv),
+            lambda: ops.Deconv2d(4, 5, 5, 5, 2, 2), (2, 2, 2, 4), deconv,
+            {}),
         "up_conv3x3": (lambda: ops.UpConv2d(4, 5, 3, 3, use_sn=True),
-                       (2, 4, 4, 4), band),
-        "up_conv1x1": (lambda: ops.UpConv2d(4, 5, 1, 1), (2, 4, 4, 4), band),
+                       (2, 4, 4, 4), band, {}),
+        "up_conv1x1": (lambda: ops.UpConv2d(4, 5, 1, 1), (2, 4, 4, 4), band,
+                       {}),
         "down_conv3x3": (lambda: ops.DownConv2d(4, 5, 3, 3, use_sn=True),
-                         (2, 8, 8, 4), band),
+                         (2, 8, 8, 4), band, {}),
         "down_conv1x1": (lambda: ops.DownConv2d(4, 5, 1, 1), (2, 8, 8, 4),
-                         band),
+                         band, {}),
         "unpool_conv3x3": (lambda: resnet_ops.UnpoolConv2d(4, 5, 3, 3),
-                           (2, 4, 4, 4), band),
+                           (2, 4, 4, 4), band, {}),
         "conv3x3_avg_pool": (lambda: resnet_ops.ConvAvgPool2d(4, 5, 3, 3),
-                             (2, 8, 8, 4), band),
-        "batch_norm": (lambda: ops.BatchNorm(4), (3, 8, 6, 4), bn),
+                             (2, 8, 8, 4), band, {}),
+        "batch_norm": (lambda: ops.BatchNorm(4), (3, 8, 6, 4), bn, {}),
         "conditional_batch_norm": (
             lambda: ops.ConditionalBatchNorm(4, 3, use_sn=True),
-            (3, 8, 6, 4), cbn),
+            (3, 8, 6, 4), cbn, {}),
         "non_local_block": (lambda: ops.NonLocalBlock(16, use_sn=True),
-                            (2, 8, 8, 16), band),
+                            (2, 8, 8, 16), band, {}),
         "linear_of_bands": (lambda: ops.Linear(8 * 6 * 4, 3, use_sn=True),
-                            (2, 8, 6, 4), whole(lambda m, x: m.of_bands(x))),
+                            (2, 8, 6, 4), whole(lambda m, x: m.of_bands(x)),
+                            {}),
         "spatial_sum": (lambda: ops.conv1x1(4, 5), (2, 8, 6, 4),
-                        whole(lambda m, x: tpu_ops.spatial_sum(m(x)))),
+                        whole(lambda m, x: tpu_ops.spatial_sum(m(x))), {}),
         "spatial_mean": (lambda: ops.conv1x1(4, 5), (2, 8, 6, 4),
-                         whole(lambda m, x: tpu_ops.spatial_mean(m(x)))),
-        "layer_norm": (lambda: ops.LayerNorm(4), (2, 8, 6, 4), band),
-        "evonorm_s0": (lambda: ops.EvoNormS0(8), (2, 8, 6, 8), band),
+                         whole(lambda m, x: tpu_ops.spatial_mean(m(x))), {}),
+        "layer_norm": (lambda: ops.LayerNorm(4), (2, 8, 6, 4), band, {}),
+        "evonorm_s0": (lambda: ops.EvoNormS0(8), (2, 8, 6, 8), band, {}),
         "batch_norm_groups": (
             lambda: ops.StandardizeBatch(4, num_batch_groups=2),
-            (4, 8, 6, 4), bn),
-        "rotate_bands": (lambda: ops.conv1x1(4, 5), (2, 8, 8, 4), rotated),
-        "slope": (lambda: ops.Conv2d(4, 3, 3, 3), (2, 8, 6, 4),
-                  whole(slope)),
+            (4, 8, 6, 4), bn, {}),
+        "rotate_bands": (lambda: ops.conv1x1(4, 5), (2, 8, 8, 4), rotated,
+                         {}),
+        "slope": (lambda: ops.Conv2d(4, 3, 3, 3), (2, 8, 6, 4), whole(slope),
+                  {}),
         "batch_mean_count": (lambda: ops.conv1x1(4, 5), (2, 8, 6, 4),
-                             whole(grid_total)),
+                             whole(grid_total), {}),
+        # Partial replication: each layer that cannot run on its bands
+        # gathers them and runs on the whole map; a whole map stays whole
+        # where its height does not split, and goes back to bands where it
+        # does.
+        # A whole input of 6 rows on 4 ranks stays whole (`split_bands`).
+        "conv3x3_whole": (lambda: ops.Conv2d(4, 5, 3, 3, use_sn=True),
+                          (2, 6, 4, 4), band, dict(four, **held)),
+        # A stride-2 conv on bands of 3 rows, and the fused down conv.
+        "conv3x3_stride2_odd_band": (lambda: ops.Conv2d(4, 5, 3, 3, 2, 2),
+                                     (2, 6, 4, 4), band, {}),
+        "down_conv3x3_odd_band": (lambda: ops.DownConv2d(4, 5, 3, 3),
+                                  (2, 6, 4, 4), band, {}),
+        # A transposed conv from bands of 1 row to 7 rows (DCGAN-28's G),
+        # and from a whole map of 7 rows to bands of 7.
+        "deconv5x5_to_odd_rows": (lambda: ops.Deconv2d(4, 5, 5, 5, 2, 2),
+                                  (2, 4, 4, 4), deconv_to(7), four),
+        "deconv5x5_whole_to_bands": (lambda: ops.Deconv2d(4, 5, 5, 5, 2, 2),
+                                     (2, 7, 4, 4), deconv, held),
+        # The 2x2 average pool of bands of 3 rows, then the sum of its
+        # whole map (each rank's own).
+        "conv3x3_avg_pool_odd_band": (
+            lambda: resnet_ops.ConvAvgPool2d(4, 5, 3, 3), (2, 6, 4, 4), band,
+            {}),
+        "spatial_sum_of_whole": (
+            lambda: resnet_ops.ConvAvgPool2d(4, 5, 3, 3), (2, 6, 4, 4),
+            whole(lambda m, x: tpu_ops.spatial_sum(m(x))), {}),
+        # The non-local block on bands of 3 rows: phi and g pooled whole.
+        "non_local_block_odd_band": (
+            lambda: ops.NonLocalBlock(16, use_sn=True), (2, 12, 8, 16), band,
+            four),
+        # Per-image and batch moments and a flattening linear layer on a
+        # whole map.
+        "layer_norm_whole": (lambda: ops.LayerNorm(4), (2, 7, 6, 4), band,
+                             held),
+        "batch_norm_groups_whole": (
+            lambda: ops.StandardizeBatch(4, num_batch_groups=2),
+            (4, 7, 6, 4), bn, held),
+        "linear_of_whole": (lambda: ops.Linear(7 * 6 * 4, 3, use_sn=True),
+                            (2, 7, 6, 4), whole(lambda m, x: m.of_bands(x)),
+                            held),
+        # Whole images (6 rows on four ranks) turn where they are, and
+        # their slope is each rank's own, seeded and summed once.
+        "rotate_whole": (lambda: ops.conv1x1(4, 5), (2, 6, 6, 4), rotated,
+                         dict(four, **held)),
+        "slope_of_whole": (lambda: ops.Conv2d(4, 3, 3, 3), (2, 6, 6, 4),
+                           whole(slope), dict(four, **held)),
     }
 
 
@@ -565,32 +624,44 @@ def assert_metrics_match_one_process(workdir, name, tag):
 
 
 def run_spatial_ops(rank, world, port, workdir):
-    """One gloo worker of tests/test_torch_spatial_ops.py: a `1 x world`
-    grid (every worker one band of image height). For each op of
-    `_spatial_op_cases`, from weights of one seed: its output on this
-    worker's band of `workdir/inputs.npz`'s whole input (`<op>/x`, and
-    `<op>/y` for the conditional one), and the gradients of sum(output *
-    r) (r: normal draws of seed 1 in the whole output's shape; this
-    worker's band of it, or all of it over `world` for an output every
-    worker holds whole) with respect to the band and to each parameter;
-    also each state buffer after the forward. Writes
-    `workdir/rank<r>.npz`; rank 0 also writes the one-process results
-    under `single/`."""
+    """One gloo worker of tests/test_torch_spatial_ops.py. For each op of
+    `_spatial_op_cases`, on a `1 x ranks` grid of the first workers (every
+    worker one band of image height), from weights of one seed: its output
+    on this worker's band of `workdir/inputs.npz`'s whole input (`<op>/x`,
+    and `<op>/y` for the conditional one; the whole input for an op whose
+    options say "whole"), and the gradients of sum(output * r) (r: normal
+    draws of seed 1 in the whole output's shape; this worker's band of it
+    for a band, or all of it over `ranks` for an output every worker holds
+    whole) with respect to the input (`dx` of a band, `d:x` of a whole
+    input) and to each parameter; also each state buffer after the
+    forward. Writes `workdir/rank<r>.npz`; rank 0 also writes the
+    one-process results under `single/`."""
     import os
 
+    import torch.distributed as dist
+
     from compare_gan_torch import core
-    from compare_gan_torch.parallel import mesh_utils
+    from compare_gan_torch.parallel import mesh_utils, tpu_ops
 
     replicas = mesh_utils.init_process_group(
         rank, world, "127.0.0.1", port, torch.device("cpu"),
         model_size=world)
+    pair = dist.new_group([0, 1])  # Every rank builds every group.
+    grids = {world: replicas}
+    if rank < 2:
+        grids[2] = mesh_utils.Replicas(rank=rank, world=2, group=pair,
+                                       model_size=2, model_group=pair)
     with np.load(os.path.join(workdir, "inputs.npz")) as d:
         inputs = {k: torch.from_numpy(d[k]) for k in d.files}
     out = {}
     try:
-        runs = [("", replicas)] + ([("single/", None)] if rank == 0 else [])
-        for name, (build, _, forward) in _spatial_op_cases().items():
+        for name, (build, _, forward, opts) in _spatial_op_cases().items():
+            ranks = opts.get("ranks", 2)
+            runs = [("", grids.get(ranks))] + (
+                [("single/", None)] if rank == 0 else [])
             for prefix, reps in runs:
+                if prefix == "" and reps is None:
+                    continue  # Outside this op's grid.
                 module = build()
                 core.assign_scopes(module, name)
                 core.initialize(module, name, 0)
@@ -599,22 +670,27 @@ def run_spatial_ops(rank, world, port, workdir):
                         module.sigma.fill_(0.5)  # Open the attention gate.
                 x = inputs[f"{name}/x"]
                 y = inputs.get(f"{name}/y")
-                if reps is not None:
+                if reps is not None and not opts.get("whole"):
                     x = reps.band(x)
                 x = x.clone().requires_grad_()
                 params = [p for _, p in sorted(module.named_parameters())]
                 with mesh_utils.replica_context(reps):
-                    got, banded = forward(module, x, y)
+                    got = forward(module, tpu_ops.split_bands(x, name)
+                                  if opts.get("whole")
+                                  else tpu_ops.as_band(x), y)
+                    banded = isinstance(got, tpu_ops.Band)
+                got = tpu_ops.plain(got)
                 shape = list(got.shape)
-                if reps is not None and banded:
-                    shape[1] *= world
+                if banded:
+                    shape[1] *= ranks
                 r = torch.from_numpy(randn(shape, seed=1))
                 if reps is not None:
-                    r = reps.band(r) if banded else r / world
+                    r = reps.band(r) if banded else r / ranks
                 grads = torch.autograd.grad((got * r).sum(), [x] + params)
                 key = f"{prefix}{name}"
                 out[f"{key}/out"] = np32(got)
-                out[f"{key}/dx"] = np32(grads[0])
+                out[f"{key}/{'d:x' if opts.get('whole') else 'dx'}"] = np32(
+                    grads[0])
                 for (pname, _), g in zip(sorted(module.named_parameters()),
                                          grads[1:]):
                     out[f"{key}/d:{pname}"] = np32(g)
@@ -633,7 +709,8 @@ def run_spatial_cases(rank, world, port, workdir, model_size=2):
     port's init of seed 0 and its own draws where the file holds none), in
     the spatial layout; then, on rank 0's behalf, with each of the case's
     faulty `controls` (chip_smoke.spatial_control). A case with `"grid":
-    [d, m]` runs on the first d * m workers as a `d x m` grid. Then each
+    [d, m]` runs on the first d * m workers as a `d x m` grid, the widest
+    grids first. Then each
     worker takes the one-process steps of every `world`-th case (a worker
     outside the last case's grid starts on them while that grid runs).
     Writes as `run_dp_cases`
@@ -689,8 +766,10 @@ def run_spatial_cases(rank, world, port, workdir, model_size=2):
         np.savez(os.path.join(out, "metrics.npz"),
                  **{k: np32(v) for k, v in metrics.items()})
 
-    try:
-        for name, case in cases.items():
+    try:  # The widest grids first: a worker outside the narrower ones
+        # starts on the one-process steps while they run.
+        for name, case in sorted(cases.items(), key=lambda item: -math.prod(
+                item[1].get("grid", (world // model_size, model_size)))):
             reps = (grids.get(tuple(case["grid"])) if "grid" in case
                     else replicas)
             if reps is None:  # Outside this case's grid.

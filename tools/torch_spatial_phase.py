@@ -2,10 +2,11 @@
 """The spatial layout on the card, alone: chip_smoke.py's kernel rows of
 the spatial bands (SPATIAL_SHAPES, f32 and bf16, against the plain version
 and SDPA, with their bounds) and its "spatial" phase (every case of
-SPATIAL_CASES on a `data 1 x model 2` grid of two gloo workers on cuda:0,
-held to the one-process step, with the faulty controls).
+SPATIAL_CASES on its `data 1 x model k` grid of k gloo workers on cuda:0,
+k = 2, or 8 for BigGAN-128 on eight bands, held to the one-process step,
+with the faulty controls).
 
-    python3 tools/torch_spatial_phase.py [--cases biggan_deep128,s3gan128]
+    python3 tools/torch_spatial_phase.py [--cases biggan128,biggan128_k8]
         [--out_dir chiprun_out/spatial]
 
 Prints what the two phases of chip_smoke.py print, then one JSON line,
