@@ -21,7 +21,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    sub-step batch of 16; S3GAN-32's D after B1 on 152 rows of 16x16); and
    the 512 px models' (HIRES_SHAPES): BigGAN-512's G after B4 (48, 192)
    and BigGAN-deep-512's blocks (64, 256) at batch 32 in both types, the
-   first at the eval batch of 64 forward in f32.
+   first at the eval batch of 64 forward in f32; and past C 64
+   (FEAT8_SHAPES, B 32, both types): BigGAN-128's G after B1 (192, 768)
+   and D after B4 (96, 384) on the 8x8 maps, G after B2 (96, 384) on the
+   16x16 map; and, held to plain without times (CHECK_ONLY_SHAPES), a
+   ragged C 72 and C 256.
    Prints each
    tensor's max abs and
    relative error with its tolerance; the time per call of the kernel, of
@@ -178,7 +182,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    2 forwards and 1 backward at (48, 192), D 3 and 3 at (24, 96)); then
    eval_after_train at the eval phase's cut (IS and FID, the fill of 1,024
    samples at batch 64, 22 forward launches; seconds and peak memory per
-   phase). BigGAN-deep-512 (ch 128, z_dim 160; G 58,645,316, D 38,301,122):
+   phase). Then BigGAN-128 at full width with the attention on the 8x8
+   maps (FEAT8_BINDINGS, the SAGAN paper's feat8 placement: G's after B1,
+   D's after B4), batch 16: 3 steps through the CLI with the JAX
+   package's parameter counts at those bindings (G 73,337,028, D
+   88,708,130), finite losses, every launch counted by width (per step G
+   2 forwards and 1 backward at (192, 768), D 3 and 3 at (96, 384): C past
+   64, the kernels that loop over chunks of C), and G's samples finite in
+   [0, 1]. BigGAN-deep-512 (ch 128, z_dim 160; G 58,645,316, D 38,301,122):
    3 steps, 5 forward and 4 backward launches a step at (64, 256), all f32
    (G's z/label promotion, D's real/fake concatenation); its accumulators
    filled as the eval fills them (DEEP512_FILL samples), and the filled
@@ -259,7 +270,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    convergence tools' summary (`convergence_tools {...}`), the trajectory
    gaps and bound (`kernel_trajectory_gaps {...}`),
    the 512 px rows (`hires_shape {...}`) and summaries (`biggan512
-   {...}`, `biggan_deep512 {...}`, `hires_kernel_step_gaps {...}`),
+   {...}`, `biggan_deep512 {...}`, `hires_kernel_step_gaps {...}`), the
+   rows past C 64 (`feat8_shape {...}`, with the feat8 phase's launches at
+   each row's type and width) and its summary (`feat8 {...}`),
    each phase's seconds, then
    one JSON line describing each kernel ("ms",
    "plain_ms", "library_ms", "bound_ms": one call at each bf16 training
@@ -322,6 +335,25 @@ B512_SHAPE = ("G_B4_512", (2 * HIRES_BATCH, 4096, 1024, 48, 192))
 B512_EVAL_SHAPE = ("G_B4_512_eval", (64, 4096, 1024, 48, 192))
 DEEP512_SHAPE = ("deep512_G_D", (2 * HIRES_BATCH, 4096, 1024, 64, 256))
 HIRES_SHAPES = (B512_SHAPE, B512_EVAL_SHAPE, DEEP512_SHAPE)
+# BigGAN-128 with the attention on the 8x8 maps (the SAGAN paper's "feat8"
+# placement, arXiv:1805.08318 Table 1), through biggan_imagenet128.gin
+# with the BigGAN-128 phases' options and these bindings: G's block after
+# B1 has 1,536 channels, (C, Cg) = (192, 768); D's after B4 has 768,
+# (96, 384); both at N 64 queries against M 16 pooled keys, past the 64
+# columns of C the kernels hold in one piece. The parameter counts are the
+# JAX package's at these bindings (tests/test_torch_chip_smoke.py). The
+# training rows run at B 32, as the 128 px rows do; the feat16 placement
+# (the 16x16 maps) gives G's B2 (96, 384) at N 256, M 64, timed beside
+# them; two more shapes are held to plain only: a ragged C 72 (two chunks
+# of C, the last 8 columns wide, over partial tiles) and C 256 (four).
+FEAT8_BINDINGS = ("resnet_biggan.Generator.blocks_with_attention = 'B1'",
+                  "resnet_biggan.Discriminator.blocks_with_attention = 'B4'")
+FEAT8_PARAMS = (73337028, 88708130)
+FEAT8_SHAPES = (("G_B1_feat8", (32, 64, 16, 192, 768)),
+                ("D_B4_feat8", (32, 64, 16, 96, 384)),
+                ("G_B2_feat16", (32, 256, 64, 96, 384)))
+CHECK_ONLY_SHAPES = (("ragged_c72", (2, 200, 150, 72, 200)),
+                     ("c256", (2, 64, 16, 256, 1024)))
 # The f32 BigGAN-512 step of the kernel check runs at batch 8 (11.9 s a
 # step at 16 with deterministic cuDNN); BigGAN-deep-512's fill before its
 # serving export takes 2 eval batches (the eval phases keep theirs).
@@ -425,18 +457,21 @@ def check_device(torch):
 def ptxas_report(log):
     """[(kernel, registers, spill store bytes, spill load bytes)] of each
     entry function in nvcc's `-Xptxas -v` output, the kernel named as
-    `attention_bwd_cols_kernel<bf16, 32, 128>` from its mangled name."""
+    `attention_bwd_cols_kernel<bf16, 32, 128>` (or, for the kernels at
+    C > 64, `attention_bwd_cols_wide_kernel<bf16, 128>`) from its mangled
+    name."""
     import re
     out, name, spills = [], None, (0, 0)
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             name, spills = m.group(1), (0, 0)
-            k = re.search(r"(attention_(?:fwd|bwd_rows|bwd_cols)_kernel)I"
-                          r"(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", name)
+            k = re.search(r"(attention_(?:fwd|bwd_rows|bwd_cols)(?:_wide)?"
+                          r"_kernel)I(f|13__nv_bfloat16)((?:Li\d+E)+)", name)
             if k:
                 dtype = "f32" if k.group(2) == "f" else "bf16"
-                name = f"{k.group(1)}<{dtype}, {k.group(3)}, {k.group(4)}>"
+                widths = re.findall(r"Li(\d+)E", k.group(3))
+                name = f"{k.group(1)}<{', '.join([dtype] + widths)}>"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -511,9 +546,10 @@ def bounds_ms(shape, dtype_name):
 
 def issued_fwd_ms(shape, dtype_name):
     """The forward's own tensor-core floor: the bf16 MMAs it issues at its
-    padded widths (csrc/attention.cu: C to CP, a multiple of 16; Cg in nz
-    column chunks of at most 128, each to GP = 48, 96 or 128, each chunk
-    recomputing S) over 989 TFLOP/s. f32 inputs are split into bf16 hi +
+    padded widths (csrc/attention.cu: C to CP, a multiple of 16, or past
+    64 in chunks of 64 whose last is padded to 16, so again C rounded up
+    to 16; Cg in nz column chunks of at most 128, each to GP = 48, 96 or
+    128, each chunk recomputing S) over 989 TFLOP/s. f32 inputs are split into bf16 hi +
     lo parts, so S = theta.phi^T takes four MMAs per product and O = P.g
     (P rounded to bf16) two."""
     from compare_gan_torch.ops import fused_attention as fa
@@ -559,17 +595,22 @@ def _cases():
         for dtype_name in ("float32", "bfloat16"):
             yield shape + (dtype_name, True, False)
     yield B512_EVAL_SHAPE + ("float32", False, False)
+    for shape in FEAT8_SHAPES + CHECK_ONLY_SHAPES:
+        for dtype_name in ("float32", "bfloat16"):
+            yield shape + (dtype_name, True, False)
 
 
 def compare_kernels(torch, shapes=None):
     """Kernel vs plain version per shape and type (of `shapes`, (name,
     shape) pairs, when given). Returns per kernel its max abs error over
     every case, times and bounds summed over the bf16 training shapes and
-    every case's row (`rows`); the eval shape's forward row; the S3GAN D
-    shape's bf16 row (forward and backward); the BigGAN-deep rows (each
-    type's forward and backward at batch 32, the eval forward); the
+    every timed case's row (`rows`); the eval shape's forward row; the
+    S3GAN D shape's bf16 row (forward and backward); the BigGAN-deep rows
+    (each type's forward and backward at batch 32, the eval forward); the
     convergence configurations' f32 rows; the 512 px models' rows
-    (HIRES_SHAPES); and the spatial bands' rows in each type."""
+    (HIRES_SHAPES); the rows at C > 64 (FEAT8_SHAPES timed,
+    CHECK_ONLY_SHAPES with their errors only); and the spatial bands' rows
+    in each type."""
     _phase("kernels")
     from compare_gan_torch.ops import fused_attention as fa
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -580,6 +621,7 @@ def compare_kernels(torch, shapes=None):
               for k in ("fwd", "bwd")}
     eval_row = s3gan_row = None
     deep_rows, convergence_rows, hires_rows, spatial_rows = [], [], [], []
+    feat8_rows = []
     for name, (b, n, m, c, cg), dtype_name, with_bwd, summed in _cases():
         if shapes is not None and (name, (b, n, m, c, cg)) not in shapes:
             continue
@@ -605,6 +647,7 @@ def compare_kernels(torch, shapes=None):
         result["fwd"]["max_abs_err"] = max(result["fwd"]["max_abs_err"],
                                            fwd_err)
         del p_out
+        timed = (name, (b, n, m, c, cg)) not in CHECK_ONLY_SHAPES
 
         bwd_err = 0.0
         if with_bwd:
@@ -624,6 +667,16 @@ def compare_kernels(torch, shapes=None):
                                                err)
             bwd_err = err
             del plain, auto, leaves
+        if not timed:
+            feat8_rows.append({
+                "shape": name, "B": b, "N": n, "M": m, "C": c, "Cg": cg,
+                "dtype": dtype_name, "tol": TOL[dtype_name],
+                "mx_den_tol": 1e-4, "timed": False,
+                "fwd": {"max_abs_err": fwd_err},
+                "bwd": {"max_abs_err": bwd_err}})
+            del theta, phi, g, dout, out, mx, den, p_mx, p_den
+            torch.cuda.empty_cache()
+            continue
 
         # The library call: one head, scale 1, value width Cg != C.
         q, k, v = (x.unsqueeze(1) for x in (theta, phi, g))
@@ -700,10 +753,14 @@ def compare_kernels(torch, shapes=None):
         if (name, shape) in HIRES_SHAPES:
             hires_rows.append(deep_shape_row(name, b, dtype_name, backend,
                                              rows, issued))
+        if (name, shape) in FEAT8_SHAPES:
+            feat8_rows.append(dict(deep_shape_row(name, b, dtype_name,
+                                                  backend, rows, issued),
+                                   N=n, M=m, C=c, Cg=cg, timed=True))
         del q, k, v, theta, phi, g, dout, out, mx, den, p_mx, p_den
         torch.cuda.empty_cache()
     return (result, eval_row, s3gan_row, deep_rows, convergence_rows,
-            hires_rows, spatial_rows)
+            hires_rows, feat8_rows, spatial_rows)
 
 
 def deep_shape_row(name, b, dtype_name, backend, rows, issued):
@@ -817,7 +874,6 @@ def _train_and_check(torch, model_dir, argv, params, expected_launches,
 
 def run_main_path(torch, model_dir):
     _phase("main path")
-    from compare_gan_torch import core
     # Per step: the joint G forward (1 fwd); two D sub-steps on
     # concat(real, fake) (1 fwd + 1 bwd each); the G sub-step's G and D
     # forwards and their backward (2 fwd + 2 bwd).
@@ -825,7 +881,15 @@ def run_main_path(torch, model_dir):
         torch, model_dir, _argv(model_dir, "train"), (G_PARAMS, D_PARAMS),
         {"fwd": 5 * STEPS, "bwd": 4 * STEPS})
     run_main_path.seconds_per_step = report.seconds_per_step
-    ts = report.state
+    _check_samples(torch, report.state)
+    return launches
+
+
+def _check_samples(torch, ts):
+    """G's samples of 4 labels in training mode (bf16 z, as the phases'
+    compute type) must be finite 128x128 images in [0, 1]; returns their
+    range."""
+    from compare_gan_torch import core
     with torch.no_grad(), core.no_state_updates():
         z = torch.randn(4, 120, device="cuda").to(torch.bfloat16)
         y = torch.nn.functional.one_hot(torch.arange(4, device="cuda"),
@@ -838,7 +902,7 @@ def run_main_path(torch, model_dir):
                              f"range [{images.min()}, {images.max()}]")
     print(f"samples {tuple(images.shape)} in [{images.min().item():.3f}, "
           f"{images.max().item():.3f}]")
-    return launches
+    return [images.min().item(), images.max().item()]
 
 
 def run_s3gan(torch, model_dir):
@@ -1980,10 +2044,11 @@ def _hires_argv(model_dir, schedule, bindings):
 
 
 def _train_widths(torch, model_dir, bindings, params, widths):
-    """Train a 512 px model through the CLI (`_train_and_check`) with every
-    launch's width counted; each step's launches must be `widths`
-    ({"fwd bfloat16 48x192": n, ...}). Returns (launches, summary, the
-    CLI's report)."""
+    """Train the BigGAN-128 config with `bindings` (a 512 px model, or
+    another attention placement) through the CLI (`_train_and_check`)
+    with every launch's width counted; each step's launches must be
+    `widths` ({"fwd bfloat16 48x192": n, ...}). Returns (launches,
+    summary, the CLI's report)."""
     from compare_gan_torch.ops import fused_attention as fa
     seen = {}
     with _launch_widths(fa, seen):
@@ -2013,6 +2078,22 @@ def run_biggan512(torch, model_dir):
         torch, model_dir, B512_BINDINGS, B512_PARAMS, {
             "fwd bfloat16 48x192": 2, "bwd bfloat16 48x192": 1,
             "fwd bfloat16 24x96": 3, "bwd bfloat16 24x96": 3})
+    return launches, summary
+
+
+def run_feat8(torch, model_dir):
+    """BigGAN-128 at full width with the attention on the 8x8 maps
+    (FEAT8_BINDINGS), batch 16, bf16, joint G forward, fake-only G loss,
+    fake ImageNet-128: 3 steps through the CLI. Per step G's block runs
+    the forward twice (the joint G forward, the G sub-step) and the
+    backward once at (192, 768); D's block runs 3 forwards and 3 backwards
+    at (96, 384). Then G's samples (`_check_samples`)."""
+    _phase("BigGAN-128 feat8 main path")
+    launches, summary, report = _train_widths(
+        torch, model_dir, FEAT8_BINDINGS, FEAT8_PARAMS, {
+            "fwd bfloat16 192x768": 2, "bwd bfloat16 192x768": 1,
+            "fwd bfloat16 96x384": 3, "bwd bfloat16 96x384": 3})
+    summary["samples_range"] = _check_samples(torch, report.state)
     return launches, summary
 
 
@@ -3037,7 +3118,7 @@ def main():
     check_device(torch)
     build_kernels()
     (kernels, eval_row, s3gan_row, deep_rows, convergence_rows, hires_rows,
-     spatial_rows) = compare_kernels(torch)
+     feat8_rows, spatial_rows) = compare_kernels(torch)
     model_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     runs, seconds = {}, {}
 
@@ -3088,6 +3169,10 @@ def main():
             SESSION_TASKS[:2], (512, 512, 3), attention=1, accumulators=True,
             phase="BigGAN-512 eval")
         shutil.rmtree(b512, ignore_errors=True)  # ~10 GB of checkpoints
+        feat8 = os.path.join(model_dir, "feat8")
+        runs["feat8"], feat8_summary = timed("feat8", run_feat8, torch,
+                                             feat8)
+        shutil.rmtree(feat8, ignore_errors=True)
         deep512 = os.path.join(model_dir, "biggan_deep512")
         runs["deep512"], deep512_summary = timed(
             "deep512", run_biggan_deep512, torch, deep512)
@@ -3140,6 +3225,17 @@ def main():
             runs["b512_train"])
         print("hires_shape " + json.dumps(row))
     print("biggan512 " + json.dumps(b512_summary))
+    # The feat8 rows with the feat8 phase's launches at their type and
+    # width; the feat16 row (D's width, at N 256) runs in no phase.
+    feat8_phase = dict(FEAT8_SHAPES[:2])
+    for row in feat8_rows:
+        row["phase_launches"] = {
+            kern: feat8_summary["launches_by_width"].get(
+                f"{kern} {row['dtype']} {row['C']}x{row['Cg']}", 0)
+            if row["shape"] in feat8_phase else 0
+            for kern in ("fwd", "bwd")} if row["timed"] else None
+        print("feat8_shape " + json.dumps(row))
+    print("feat8 " + json.dumps(feat8_summary))
     print("biggan_deep512 " + json.dumps(deep512_summary))
     print("hires_kernel_step_gaps " + json.dumps(
         {k: hires_step[k] for k in ("gate", "margin", "floor", "bound",

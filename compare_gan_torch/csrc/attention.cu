@@ -7,11 +7,13 @@
 //   attention_bwd_cols_kernel  /  <- _bwd_kernel (via _attention_bwd_pallas)
 //
 // Shapes: theta [B,N,C], phi [B,M,C], g [B,M,Cg], all f32 or all bf16,
-// row-major and contiguous, 0 < C <= 64 and any Cg. The non-local block
-// gives (C, Cg) = (channels / 8, channels / 2) at N = 4096, M = 1024 on the
+// row-major and contiguous, any C and Cg. The non-local block gives
+// (C, Cg) = (channels / 8, channels / 2) at N = 4096, M = 1024 on the
 // 64x64 map: (24, 96) after BigGAN-128's G block B4 and (12, 48) after D's
 // B1; (32, 128) in BigGAN-deep-128; (48, 192) after BigGAN-512's G block
-// B4; (64, 256) in BigGAN-deep-256 and -512.
+// B4; (64, 256) in BigGAN-deep-256 and -512. With the attention on the
+// 8x8 maps (the SAGAN paper's "feat8" placement), BigGAN-128 gives
+// (192, 768) after G's B1 and (96, 384) after D's B4 at N = 64, M = 16.
 //
 // What bounds it on this card. The [B,N,M] score work is 2*N*M*(C + Cg)
 // flops per example in the forward and 2*N*M*(3C + 2Cg) in the backward,
@@ -29,9 +31,10 @@
 // Design (FlashAttention-2/3 on wgmma and mma.sync):
 //  * Every product runs on the tensor cores with bf16 operands and f32
 //    accumulation. C is zero-padded to CP = 16, 32, 48 or 64 (multiples of
-//    the MMA depth). A block is 8 warps, 128 rows, so each staged tile
-//    serves 128 rows; a warp owns 16 rows (or 16 keys in the backward
-//    column pass).
+//    the MMA depth); a C > 64 is cut into chunks of 64, the last padded to
+//    16, by the wide kernels (see there). A block is 8 warps, 128 rows, so
+//    each staged tile serves 128 rows; a warp owns 16 rows (or 16 keys in
+//    the backward column pass).
 //  * Cg is cut into nz = ceil(Cg / 128) column chunks of equal width, each
 //    zero-padded to GP = 48, 96 or 128, one chunk per blockIdx.z: a warp's
 //    accumulators and operand fragments of width Cg would outgrow the 255
@@ -50,8 +53,9 @@
 //    the passes write their outputs directly, as before.
 //  * The staged tiles live in dynamic shared memory (64 KB at most a block,
 //    past the 48 KB of static shared memory at CP = 64, GP = 128).
-//  * The kernels are compiled once per padded C (CGT_CP, one object each,
-//    built in parallel); the entry object dispatches on C and Cg.
+//  * The kernels are compiled once per padded C (CGT_CP, one object each)
+//    and once for C > 64 (CGT_WIDE), the objects built in parallel; the
+//    entry object dispatches on C and Cg.
 //  * Forward: wgmma m64nNk16 per warpgroup of 4 warps (64 rows), A from
 //    registers, B from shared memory: S = theta.phi^T with N = 64 keys,
 //    then O += P.g with N = GP, the g tile read transposed. The key tiles
@@ -133,9 +137,13 @@ enum Kind { kFwd = 0, kRowsPass = 1, kColsPass = 2 };
 template <typename T, int CP>
 int launch_cp(const Args& a, int kind);
 
+// The same at C > 64, in chunks of 64 (the object compiled with CGT_WIDE).
+template <typename T>
+int launch_wide(const Args& a, int kind);
+
 }  // namespace cgt
 
-#ifdef CGT_CP
+#if defined(CGT_CP) || defined(CGT_WIDE)
 
 // Dynamic shared memory, carved into each kernel's tiles; 16-byte aligned
 // at least, as cp.async, ldmatrix and wgmma's descriptors need.
@@ -343,24 +351,29 @@ __device__ __forceinline__ void cp_async_wait() {
 // stride ld into a bf16 tile of row stride S, zero beyond `rows` (and, on
 // the synchronous path, beyond `width` up to W). bf16 with vec > 0:
 // cp.async of vec bytes, consecutive threads on consecutive chunks of the
-// tile's contiguous rows (the padding columns were zeroed once);
-// otherwise plain loads, which also split f32 into hi and lo tiles. A
-// chunk's row comes from a multiply by the reciprocal of the chunks per
-// row, exact while idx < 2^32 / per_row, in place of a division by that
-// run-time count (some twenty instructions) per chunk.
-template <typename T, int W, int S>
+// tile's contiguous rows (the padding columns were zeroed once; with
+// kFill, into the first `fill` >= width columns, those past `width`
+// zero-filled by the copy: the wide kernels' last C chunk, padded to 16 in
+// a tile that held a full chunk before); otherwise plain loads, which
+// also split f32 into hi and lo tiles. A chunk's row comes from a multiply
+// by the reciprocal of the chunks per row, exact while idx < 2^32 /
+// per_row, in place of a division by that run-time count (some twenty
+// instructions) per chunk.
+template <typename T, int W, int S, bool kFill = false>
 __device__ __forceinline__ void stage(bf16* hi, bf16* lo, const T* src,
                                       int r0, int rows, int width, int ld,
-                                      int vec) {
+                                      int vec, int fill = 0) {
   if (!Traits<T>::kSplit && vec > 0) {
-    const int per_row = width * static_cast<int>(sizeof(T)) / vec;
+    const int bytes = width * static_cast<int>(sizeof(T));
+    const int per_row = (kFill ? fill : width) * static_cast<int>(sizeof(T))
+                        / vec;
     const unsigned inv = 0xFFFFFFFFu / per_row + 1;  // idx / per_row, exact
     for (int idx = threadIdx.x; idx < kTile * per_row; idx += kThreads) {
       const int r = __umulhi(idx, inv), q = idx - r * per_row;
-      const bool ok = r0 + r < rows;
+      const bool ok = r0 + r < rows && (!kFill || q * vec < bytes);
       const char* s = reinterpret_cast<const char*>(
                           src + static_cast<long>(ok ? r0 + r : 0) * ld) +
-                      q * vec;
+                      (kFill && !ok ? 0 : q * vec);
       char* d = reinterpret_cast<char*>(hi + r * S) + q * vec;
       if (vec == 16)
         cp_async<16>(d, s, ok);
@@ -558,24 +571,27 @@ __device__ __forceinline__ void wgmma_acc(float* d, const FragA& a,
 // stride ld into a bf16 tile in the core-matrix layout: byte b of row r at
 // (r % 8) * 16 + (b % 16) + (r / 8) * kRowGroup + (b / 16) * kColGroup,
 // zero beyond `rows` (and, on the synchronous path, beyond `width` up to
-// W). As stage(), with cp.async of vec bytes where it can.
-template <typename T, int W, int kRowGroup, int kColGroup>
+// W). As stage(), with cp.async of vec bytes where it can (with kFill,
+// into `fill` columns).
+template <typename T, int W, int kRowGroup, int kColGroup, bool kFill = false>
 __device__ __forceinline__ void stage_cm(bf16* hi, bf16* lo, const T* src,
                                          int r0, int rows, int width, int ld,
-                                         int vec) {
+                                         int vec, int fill = 0) {
   auto at = [](bf16* base, int r, int b) {
     return reinterpret_cast<char*>(base) + (r % 8) * 16 + (b % 16) +
            (r / 8) * kRowGroup + (b / 16) * kColGroup;
   };
   if (!Traits<T>::kSplit && vec > 0) {
-    const int per_row = width * static_cast<int>(sizeof(T)) / vec;
+    const int bytes = width * static_cast<int>(sizeof(T));
+    const int per_row = (kFill ? fill : width) * static_cast<int>(sizeof(T))
+                        / vec;
     const unsigned inv = 0xFFFFFFFFu / per_row + 1;  // idx / per_row, exact
     for (int idx = threadIdx.x; idx < kTile * per_row; idx += kThreads) {
       const int r = __umulhi(idx, inv), q = idx - r * per_row;
-      const bool ok = r0 + r < rows;
+      const bool ok = r0 + r < rows && (!kFill || q * vec < bytes);
       const char* s = reinterpret_cast<const char*>(
                           src + static_cast<long>(ok ? r0 + r : 0) * ld) +
-                      q * vec;
+                      (kFill && !ok ? 0 : q * vec);
       char* d = at(hi, r, q * vec);
       if (vec == 16)
         cp_async<16>(d, s, ok);
@@ -637,6 +653,112 @@ __device__ __forceinline__ void pipeline(int ntiles, Issue issue, Body body) {
   }
 }
 
+// One key tile of the forward, from the scores s = theta.phi^T of keys
+// [key0, key0 + kTile) (the warpgroup's wgmma accumulator): the online
+// softmax update of the row maxima m and sums l (this thread's two rows),
+// and O += P.g with the tile's g staged at gh (gl: its lo part).
+template <bool kSplit, int GP>
+__device__ __forceinline__ void fwd_tile(float (&s)[kTile / 8][4],
+                                         float (&o)[GP / 8][4],
+                                         float (&m)[2], float (&l)[2],
+                                         const bf16* gh, const bf16* gl,
+                                         int key0, int M) {
+  constexpr int kGColGroup = kTile / 8 * 128;
+  const int t = threadIdx.x & 3;
+  if (key0 + kTile > M) {
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (key0 + nt * 8 + 2 * t + (e & 1) >= M) s[nt][e] = -INFINITY;
+  }
+  // Key key0 is valid, so each row's new max is finite; on the first
+  // tile ex2(-inf) = 0 rescales the (zero) accumulators.
+  float alpha[2], nb[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mt = m[i];
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt)
+      mt = fmaxf(mt, fmaxf(s[nt][2 * i], s[nt][2 * i + 1]));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+    alpha[i] = ex2((m[i] - mt) * kLog2e);
+    m[i] = mt;
+    nb[i] = -mt * kLog2e;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < kTile / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[nt][e] = ex2(fmaf(s[nt][e], kLog2e, nb[e >> 1]));
+      rs[e >> 1] += s[nt][e];
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
+  // Once the row maxima settle, alpha is 1 for every row of the warp and
+  // the rescale (an identity) is skipped.
+  if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+    for (int nt = 0; nt < GP / 8; ++nt) {
+      o[nt][0] *= alpha[0];
+      o[nt][1] *= alpha[0];
+      o[nt][2] *= alpha[1];
+      o[nt][3] *= alpha[1];
+    }
+  }
+  // All of P's fragments first: a register read by a wgmma in flight
+  // must not be rewritten before the wait.
+  FragA pa[kTile / 16];
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk)
+    acc_to_a<kSplit>(s[2 * kk], s[2 * kk + 1], pa[kk]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk)
+    wgmma_acc<kSplit, GP, 1>(&o[0][0], pa[kk],
+                             wgmma_desc(gh + kk * 128, 128, kGColGroup),
+                             wgmma_desc(gl + kk * 128, 128, kGColGroup),
+                             1);
+  wgmma_commit();
+  wgmma_wait();
+}
+
+// The forward's epilogue: out = O / den in the input type for rows
+// r0 + [0, 16) of this warp and columns [c0, c0 + cw) of out, and with
+// `stats` the row max mx and denominator den.
+template <typename T, int GP>
+__device__ __forceinline__ void fwd_store(float (&o)[GP / 8][4],
+                                         const float (&m)[2], float (&l)[2],
+                                         T* out, float* mx_out,
+                                         float* den_out, int b, int r0,
+                                         int N, int Cg, int c0, int cw,
+                                         bool stats) {
+  const int lane = threadIdx.x & 31, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + (lane >> 2) + 8 * i;
+    if (row >= N) continue;
+    const long base = (static_cast<long>(b) * N + row) * Cg + c0;
+#pragma unroll
+    for (int nt = 0; nt < GP / 8; ++nt) {
+      const int c = nt * 8 + 2 * t;
+      if (c < cw) store(out, base + c, o[nt][2 * i] / l[i]);
+      if (c + 1 < cw) store(out, base + c + 1, o[nt][2 * i + 1] / l[i]);
+    }
+    if (t == 0 && stats) {
+      mx_out[static_cast<long>(b) * N + row] = m[i];
+      den_out[static_cast<long>(b) * N + row] = l[i];
+    }
+  }
+}
+
 template <typename T, int CP, int GP>
 __global__ void
 __launch_bounds__(kThreads, min_blocks(Traits<T>::kSplit, false, CP, GP))
@@ -661,8 +783,8 @@ attention_fwd_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
     return g_s + (buf * R::kParts + part) * kGTile;
   };
 
-  const int b = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t = lane & 3, r0 = blockIdx.x * kRows + warp * 16;
+  const int b = blockIdx.y, warp = threadIdx.x >> 5;
+  const int r0 = blockIdx.x * kRows + warp * 16;
   // This block's columns [c0, c0 + cw) of g and out.
   const int c0 = blockIdx.z * chunk;
   const int cw = Cg - c0 < chunk ? Cg - c0 : chunk;
@@ -695,7 +817,6 @@ attention_fwd_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
   };
   auto body = [&](int j, int buf) {
     const bf16 *ph = phi_at(buf, 0), *phl = phi_at(buf, R::kParts - 1);
-    const bf16 *gh = g_at(buf, 0), *gl = g_at(buf, R::kParts - 1);
     float s[kTile / 8][4];
     wgmma_fence();
 #pragma unroll
@@ -706,89 +827,12 @@ attention_fwd_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
           wgmma_desc(phl + kc * 128, 128, kPhiRowGroup), kc > 0);
     wgmma_commit();
     wgmma_wait();
-    const int key0 = j * kTile;
-    if (key0 + kTile > M) {
-#pragma unroll
-      for (int nt = 0; nt < kTile / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (key0 + nt * 8 + 2 * t + (e & 1) >= M) s[nt][e] = -INFINITY;
-    }
-    // Key key0 is valid, so each row's new max is finite; on the first
-    // tile ex2(-inf) = 0 rescales the (zero) accumulators.
-    float alpha[2], nb[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float mt = m[i];
-#pragma unroll
-      for (int nt = 0; nt < kTile / 8; ++nt)
-        mt = fmaxf(mt, fmaxf(s[nt][2 * i], s[nt][2 * i + 1]));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-      alpha[i] = ex2((m[i] - mt) * kLog2e);
-      m[i] = mt;
-      nb[i] = -mt * kLog2e;
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = ex2(fmaf(s[nt][e], kLog2e, nb[e >> 1]));
-        rs[e >> 1] += s[nt][e];
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
-    // Once the row maxima settle, alpha is 1 for every row of the warp and
-    // the rescale (an identity) is skipped.
-    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
-#pragma unroll
-      for (int nt = 0; nt < GP / 8; ++nt) {
-        o[nt][0] *= alpha[0];
-        o[nt][1] *= alpha[0];
-        o[nt][2] *= alpha[1];
-        o[nt][3] *= alpha[1];
-      }
-    }
-    // All of P's fragments first: a register read by a wgmma in flight
-    // must not be rewritten before the wait.
-    FragA pa[kTile / 16];
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk)
-      acc_to_a<kSplit>(s[2 * kk], s[2 * kk + 1], pa[kk]);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk)
-      wgmma_acc<kSplit, GP, 1>(&o[0][0], pa[kk],
-                               wgmma_desc(gh + kk * 128, 128, kGColGroup),
-                               wgmma_desc(gl + kk * 128, 128, kGColGroup),
-                               1);
-    wgmma_commit();
-    wgmma_wait();
+    fwd_tile<kSplit, GP>(s, o, m, l, g_at(buf, 0), g_at(buf, R::kParts - 1),
+                         j * kTile, M);
   };
   pipeline<T>((M + kTile - 1) / kTile, issue, body);
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = r0 + (lane >> 2) + 8 * i;
-    if (row >= N) continue;
-    const long base = (static_cast<long>(b) * N + row) * Cg + c0;
-#pragma unroll
-    for (int nt = 0; nt < GP / 8; ++nt) {
-      const int c = nt * 8 + 2 * t;
-      if (c < cw) store(out, base + c, o[nt][2 * i] / l[i]);
-      if (c + 1 < cw) store(out, base + c + 1, o[nt][2 * i + 1] / l[i]);
-    }
-    if (t == 0 && blockIdx.z == 0) {
-      mx_out[static_cast<long>(b) * N + row] = m[i];
-      den_out[static_cast<long>(b) * N + row] = l[i];
-    }
-  }
+  fwd_store<T, GP>(o, m, l, out, mx_out, den_out, b, r0, N, Cg, c0, cw,
+                   blockIdx.z == 0);
 }
 
 template <typename T, int CP, int GP>
@@ -1115,6 +1159,495 @@ attention_bwd_cols_kernel(const T* __restrict__ theta,
   }
 }
 
+// The kernels at C > 64 (the object compiled with CGT_WIDE). C is cut into
+// nc = ceil(C / kCW) chunks of kCW = 64 columns, the last zero-padded to a
+// multiple of 16, and the CP = 64 geometry above loops over them in the
+// same shared memory: S = theta.phi^T (S^T = phi.theta^T in the column
+// pass) needs all of C before its exponentials, so a block sums it over
+// the chunks, one pipeline step per (tile, chunk), staging phi's (theta's)
+// chunk where the CP = 64 kernels stage all of it and reading theta's
+// (phi's) chunk fragments from device memory each step (no A fragments of
+// all of C stay in registers). The forward has no output of C columns, so
+// only its score product loops. The backward's dtheta and dphi have C
+// columns, and a warp's f32 accumulators of more than 64 outgrow the
+// registers: a block accumulates one chunk of them, blockIdx.z = z_g * nc
+// + z_c (z_g the column chunk of Cg, z_c that of C), and every block
+// recomputes S over all of C with its own chunk staged last, so that the
+// products read it from the tile S left there. The chunks' columns are
+// disjoint: the f32 parts of the Cg chunks and their sums take them as
+// they are, still without atomics. Cost: each extra C chunk recomputes S
+// and its exponentials in the backward.
+constexpr int kCW = 64;
+
+__device__ __forceinline__ int round16(int x) { return (x + 15) / 16 * 16; }
+
+template <typename T, int GP>
+__global__ void __launch_bounds__(kThreads, 1)
+attention_fwd_wide_kernel(const T* __restrict__ theta,
+                          const T* __restrict__ phi, const T* __restrict__ g,
+                          T* __restrict__ out, float* __restrict__ mx_out,
+                          float* __restrict__ den_out, int N, int M, int C,
+                          int Cg, int chunk, int vec_c, int vec_g) {
+  using R = Ring<T>;
+  constexpr bool kSplit = R::kSplit;
+  constexpr int kPhiRowGroup = kCW / 8 * 128, kGColGroup = kTile / 8 * 128;
+  constexpr int kPhiTile = kTile * kCW, kGTile = kTile * GP;
+  bf16* const phi_s = reinterpret_cast<bf16*>(smem);  // [kBuf][kParts]
+  bf16* const g_s = phi_s + R::kBuf * R::kParts * kPhiTile;
+  auto phi_at = [&](int buf, int part) {
+    return phi_s + (buf * R::kParts + part) * kPhiTile;
+  };
+  auto g_at = [&](int buf, int part) {
+    return g_s + (buf * R::kParts + part) * kGTile;
+  };
+
+  const int b = blockIdx.y, warp = threadIdx.x >> 5;
+  const int r0 = blockIdx.x * kRows + warp * 16;
+  const int c0 = blockIdx.z * chunk;
+  const int cw = Cg - c0 < chunk ? Cg - c0 : chunk;
+  const int nc = (C + kCW - 1) / kCW;
+  const T* theta_b = theta + static_cast<long>(b) * N * C;
+  const T* phi_b = phi + static_cast<long>(b) * M * C;
+  const T* g_b = g + static_cast<long>(b) * M * Cg + c0;
+
+  if (!kSplit) {
+    zero(phi_s, R::kBuf * R::kParts * (kPhiTile + kGTile));
+    __syncthreads();
+  }
+
+  float o[GP / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < GP / 8; ++nt)
+    o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float s[kTile / 8][4];  // the key tile's S, summed over the C chunks
+
+  // Step i: C chunk i % nc of key tile i / nc; g's tile with the last.
+  auto issue = [&](int i, int buf) {
+    const int j = i / nc, cc = (i - j * nc) * kCW;
+    const int w = C - cc < kCW ? C - cc : kCW;
+    stage_cm<T, kCW, kPhiRowGroup, 128, true>(
+        phi_at(buf, 0), phi_at(buf, R::kParts - 1), phi_b + cc, j * kTile, M,
+        w, C, vec_c, round16(w));
+    if (cc + kCW >= C)
+      stage_cm<T, GP, 128, kGColGroup>(g_at(buf, 0),
+                                       g_at(buf, R::kParts - 1), g_b,
+                                       j * kTile, M, cw, Cg, vec_g);
+  };
+  auto body = [&](int i, int buf) {
+    const int j = i / nc, kc = i - j * nc, cc = kc * kCW;
+    const bf16 *ph = phi_at(buf, 0), *phl = phi_at(buf, R::kParts - 1);
+    FragA th[kCW / 16];
+#pragma unroll
+    for (int kk = 0; kk < kCW / 16; ++kk)
+      if (cc + kk * 16 < C)
+        load_a(theta_b, r0, N, cc + kk * 16, C, C, th[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kCW / 16; ++kk)
+      if (cc + kk * 16 < C)
+        wgmma_acc<kSplit, kTile, 0>(
+            &s[0][0], th[kk], wgmma_desc(ph + kk * 128, 128, kPhiRowGroup),
+            wgmma_desc(phl + kk * 128, 128, kPhiRowGroup), kc > 0 || kk > 0);
+    wgmma_commit();
+    wgmma_wait();
+    if (kc == nc - 1)
+      fwd_tile<kSplit, GP>(s, o, m, l, g_at(buf, 0),
+                           g_at(buf, R::kParts - 1), j * kTile, M);
+  };
+  pipeline<T>((M + kTile - 1) / kTile * nc, issue, body);
+  fwd_store<T, GP>(o, m, l, out, mx_out, den_out, b, r0, N, Cg, c0, cw,
+                   blockIdx.z == 0);
+}
+
+template <typename T, int GP>
+__global__ void __launch_bounds__(kThreads, 1)
+attention_bwd_rows_wide_kernel(const T* __restrict__ theta,
+                               const T* __restrict__ phi,
+                               const T* __restrict__ g,
+                               const T* __restrict__ dout,
+                               const float* __restrict__ mx,
+                               const float* __restrict__ den,
+                               T* __restrict__ dtheta,
+                               float* __restrict__ dtheta_parts,
+                               float* __restrict__ row_out, int N, int M,
+                               int C, int Cg, int chunk, int vec_c,
+                               int vec_g) {
+  using R = Ring<T>;
+  constexpr bool kSplit = R::kSplit;
+  constexpr int CS = kCW + 8, GS = GP + 8;
+  constexpr int kPhiTile = kTile * CS, kGTile = kTile * GS;
+  bf16* const phi_s = reinterpret_cast<bf16*>(smem);  // [kBuf][kParts]
+  bf16* const g_s = phi_s + R::kBuf * R::kParts * kPhiTile;
+  auto phi_at = [&](int buf, int part) {
+    return phi_s + (buf * R::kParts + part) * kPhiTile;
+  };
+  auto g_at = [&](int buf, int part) {
+    return g_s + (buf * R::kParts + part) * kGTile;
+  };
+
+  const int b = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3, r0 = blockIdx.x * kRows + warp * 16;
+  const int nc = (C + kCW - 1) / kCW;
+  const int zg = blockIdx.z / nc, zc = blockIdx.z - zg * nc;
+  // This block's columns [c0, c0 + cw) of dout and g, and [cc0, cc0 + ccw)
+  // of dtheta.
+  const int c0 = zg * chunk;
+  const int cw = Cg - c0 < chunk ? Cg - c0 : chunk;
+  const int cc0 = zc * kCW;
+  const int ccw = C - cc0 < kCW ? C - cc0 : kCW;
+  const T* theta_b = theta + static_cast<long>(b) * N * C;
+  const T* phi_b = phi + static_cast<long>(b) * M * C;
+  const T* g_b = g + static_cast<long>(b) * M * Cg + c0;
+  const T* dout_b = dout + static_cast<long>(b) * N * Cg + c0;
+  // The first column of the C chunk of step kc of a tile: this block's own
+  // chunk comes last.
+  auto chunk_at = [&](int kc) {
+    const int z = zc + 1 + kc;
+    return (z < nc ? z : z - nc) * kCW;
+  };
+
+  if (!kSplit) {
+    zero(phi_s, R::kBuf * R::kParts * (kPhiTile + kGTile));
+    __syncthreads();
+  }
+
+  float nb[2], inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + (lane >> 2) + 8 * i;
+    const bool ok = row < N;
+    nb[i] = ok ? -mx[static_cast<long>(b) * N + row] * kLog2e : 0.f;
+    inv[i] = ok ? 1.f / den[static_cast<long>(b) * N + row] : 0.f;
+  }
+
+  float a1[kCW / 8][4], a2[kCW / 8][4];  // (P*dP).phi and P.phi
+#pragma unroll
+  for (int nt = 0; nt < kCW / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a1[nt][e] = a2[nt][e] = 0.f;
+  float rsum[2] = {0.f, 0.f};
+  float s[kTile / 8][4];  // the key tile's S, summed over the C chunks
+
+  auto issue = [&](int i, int buf) {
+    const int j = i / nc, kc = i - j * nc, cc = chunk_at(kc);
+    const int w = C - cc < kCW ? C - cc : kCW;
+    stage<T, kCW, CS, true>(phi_at(buf, 0), phi_at(buf, R::kParts - 1),
+                            phi_b + cc, j * kTile, M, w, C, vec_c,
+                            round16(w));
+    if (kc == nc - 1)
+      stage<T, GP, GS>(g_at(buf, 0), g_at(buf, R::kParts - 1), g_b,
+                       j * kTile, M, cw, Cg, vec_g);
+  };
+  auto body = [&](int i, int buf) {
+    const int j = i / nc, kc = i - j * nc, cc = chunk_at(kc);
+    const bf16 *ph = phi_at(buf, 0), *phl = phi_at(buf, R::kParts - 1);
+    if (kc == 0) {
+#pragma unroll
+      for (int nt = 0; nt < kTile / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+    }
+    {
+      FragA th[kCW / 16];
+#pragma unroll
+      for (int kk = 0; kk < kCW / 16; ++kk)
+        if (cc + kk * 16 < C)
+          load_a(theta_b, r0, N, cc + kk * 16, C, C, th[kk]);
+#pragma unroll
+      for (int ks = 0; ks < kTile; ks += 16)
+#pragma unroll
+        for (int kk = 0; kk < kCW / 16; ++kk)
+          if (cc + kk * 16 < C) {
+            FragB b0, b1;
+            load_b_nk2<kSplit, CS>(ph, phl, ks, kk * 16, b0, b1);
+            mma<kSplit>(s[ks / 8], th[kk], b0);
+            mma<kSplit>(s[ks / 8 + 1], th[kk], b1);
+          }
+    }
+    if (kc != nc - 1) return;
+    // The tile's S is whole, and phi's tile holds this block's chunk.
+    const bf16 *gh = g_at(buf, 0), *gl = g_at(buf, R::kParts - 1);
+    FragA dO[GP / 16];
+#pragma unroll
+    for (int kq = 0; kq < GP / 16; ++kq)
+      load_a(dout_b, r0, N, kq * 16, cw, Cg, dO[kq]);
+#pragma unroll
+    for (int ks = 0; ks < kTile; ks += 16) {
+      float dp[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[nt][e] = 0.f;
+#pragma unroll
+      for (int kq = 0; kq < GP / 16; ++kq) {
+        FragB b0, b1;
+        load_b_nk2<kSplit, GS>(gh, gl, ks, kq * 16, b0, b1);
+        mma<kSplit>(dp[0], dO[kq], b0);
+        mma<kSplit>(dp[1], dO[kq], b1);
+      }
+      const int key0 = j * kTile + ks;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float& sv = s[ks / 8 + nt][e];
+          const float p =
+              key0 + nt * 8 + 2 * t + (e & 1) < M
+                  ? ex2(fmaf(sv, kLog2e, nb[e >> 1])) * inv[e >> 1]
+                  : 0.f;
+          sv = p;
+          dp[nt][e] *= p;
+          rsum[e >> 1] += dp[nt][e];
+        }
+      // P and P*dP as hi + lo parts, as in the row pass above.
+      FragA pa, ta;
+      acc_to_a<true>(s[ks / 8], s[ks / 8 + 1], pa);
+      acc_to_a<true>(dp[0], dp[1], ta);
+#pragma unroll
+      for (int np = 0; np < kCW / 16; ++np)
+        if (np * 16 < ccw) {
+          FragB b0, b1;
+          load_b_kn2<kSplit, CS>(ph, phl, ks, np * 16, b0, b1);
+          mma<true, kSplit>(a1[2 * np], ta, b0);
+          mma<true, kSplit>(a1[2 * np + 1], ta, b1);
+          mma<true, kSplit>(a2[2 * np], pa, b0);
+          mma<true, kSplit>(a2[2 * np + 1], pa, b1);
+        }
+    }
+  };
+  pipeline<T>((M + kTile - 1) / kTile * nc, issue, body);
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 1);
+    rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 2);
+  }
+  // One Cg chunk: dtheta in the input type and row. Several: Cg chunk
+  // z_g's f32 parts at [z_g, b, row]. The C chunk z_c = 0 writes row.
+  const bool parts = static_cast<int>(gridDim.z) > nc;
+  const long part = static_cast<long>(zg) * gridDim.y * N;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + (lane >> 2) + 8 * i;
+    if (row >= N) continue;
+    const long bn = static_cast<long>(b) * N + row;
+#pragma unroll
+    for (int nt = 0; nt < kCW / 8; ++nt) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int c = nt * 8 + 2 * t + q;
+        if (c >= ccw) continue;
+        const float v = a1[nt][2 * i + q] - rsum[i] * a2[nt][2 * i + q];
+        if (parts)
+          dtheta_parts[(part + bn) * C + cc0 + c] = v;
+        else
+          store(dtheta, bn * C + cc0 + c, v);
+      }
+    }
+    if (t == 0 && zc == 0) row_out[part + bn] = rsum[i];
+  }
+}
+
+template <typename T, int GP>
+__global__ void __launch_bounds__(kThreads, 1)
+attention_bwd_cols_wide_kernel(const T* __restrict__ theta,
+                               const T* __restrict__ phi,
+                               const T* __restrict__ g,
+                               const T* __restrict__ dout,
+                               const float* __restrict__ mx,
+                               const float* __restrict__ den,
+                               const float* __restrict__ row,
+                               float* __restrict__ dphi,
+                               float* __restrict__ dg, int N, int M, int C,
+                               int Cg, int chunk, int vec_c, int vec_g) {
+  using R = Ring<T>;
+  constexpr bool kSplit = R::kSplit;
+  constexpr int CS = kCW + 8, GS = GP + 8;
+  constexpr int kThTile = kTile * CS, kDoTile = kTile * GS;
+  bf16* const th_s = reinterpret_cast<bf16*>(smem);  // [kBuf][kParts]
+  bf16* const do_s = th_s + R::kBuf * R::kParts * kThTile;
+  // mx, den, row: [kBuf][3][kTile]
+  float* const sc_s = reinterpret_cast<float*>(
+      do_s + R::kBuf * R::kParts * kDoTile);
+  auto th_at = [&](int buf, int part) {
+    return th_s + (buf * R::kParts + part) * kThTile;
+  };
+  auto do_at = [&](int buf, int part) {
+    return do_s + (buf * R::kParts + part) * kDoTile;
+  };
+  auto sc_at = [&](int buf, int k) { return sc_s + (buf * 3 + k) * kTile; };
+
+  const int b = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3, k0 = blockIdx.x * kRows + warp * 16;
+  const int nc = (C + kCW - 1) / kCW;
+  const int zg = blockIdx.z / nc, zc = blockIdx.z - zg * nc;
+  // This block's columns [c0, c0 + cw) of dout, g and dg (which the C
+  // chunk z_c = 0 writes), and [cc0, cc0 + ccw) of dphi; the Cg chunk
+  // z_g = 0 alone subtracts the row term from dP.
+  const int c0 = zg * chunk;
+  const int cw = Cg - c0 < chunk ? Cg - c0 : chunk;
+  const int cc0 = zc * kCW;
+  const int ccw = C - cc0 < kCW ? C - cc0 : kCW;
+  const bool first = zg == 0, with_dg = zc == 0;
+  const long bn = static_cast<long>(b) * N;
+  const T* theta_b = theta + bn * C;
+  const T* dout_b = dout + bn * Cg + c0;
+  const T* phi_b = phi + static_cast<long>(b) * M * C;
+  const T* g_b = g + static_cast<long>(b) * M * Cg + c0;
+  auto chunk_at = [&](int kc) {
+    const int z = zc + 1 + kc;
+    return (z < nc ? z : z - nc) * kCW;
+  };
+
+  if (!kSplit) {
+    zero(th_s, R::kBuf * R::kParts * (kThTile + kDoTile));
+    __syncthreads();
+  }
+
+  float dph[kCW / 8][4], dgv[GP / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < kCW / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dph[nt][e] = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < GP / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dgv[nt][e] = 0.f;
+  float s[kTile / 8][4];  // the row tile's S^T, summed over the C chunks
+
+  auto issue = [&](int i, int buf) {
+    const int j = i / nc, kc = i - j * nc, cc = chunk_at(kc);
+    const int w = C - cc < kCW ? C - cc : kCW;
+    stage<T, kCW, CS, true>(th_at(buf, 0), th_at(buf, R::kParts - 1),
+                            theta_b + cc, j * kTile, N, w, C, vec_c,
+                            round16(w));
+    if (kc == nc - 1) {
+      stage<T, GP, GS>(do_at(buf, 0), do_at(buf, R::kParts - 1), dout_b,
+                       j * kTile, N, cw, Cg, vec_g);
+      stage_scalars(sc_at(buf, 0), mx + bn, j * kTile, N);
+      stage_scalars(sc_at(buf, 1), den + bn, j * kTile, N);
+      stage_scalars(sc_at(buf, 2), row + bn, j * kTile, N);
+    }
+  };
+  auto body = [&](int i, int buf) {
+    const int j = i / nc, kc = i - j * nc, cc = chunk_at(kc);
+    const bf16 *thh = th_at(buf, 0), *thl = th_at(buf, R::kParts - 1);
+    if (kc == 0) {
+#pragma unroll
+      for (int nt = 0; nt < kTile / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+    }
+    {
+      FragA pf[kCW / 16];
+#pragma unroll
+      for (int kk = 0; kk < kCW / 16; ++kk)
+        if (cc + kk * 16 < C)
+          load_a(phi_b, k0, M, cc + kk * 16, C, C, pf[kk]);
+#pragma unroll
+      for (int rs = 0; rs < kTile; rs += 16)
+#pragma unroll
+        for (int kk = 0; kk < kCW / 16; ++kk)
+          if (cc + kk * 16 < C) {
+            FragB b0, b1;
+            load_b_nk2<kSplit, CS>(thh, thl, rs, kk * 16, b0, b1);
+            mma<kSplit>(s[rs / 8], pf[kk], b0);
+            mma<kSplit>(s[rs / 8 + 1], pf[kk], b1);
+          }
+    }
+    if (kc != nc - 1) return;
+    // The tile's S^T is whole, and theta's tile holds this block's chunk.
+    const bf16 *doh = do_at(buf, 0), *dol = do_at(buf, R::kParts - 1);
+    const float *mx_t = sc_at(buf, 0), *den_t = sc_at(buf, 1),
+                *row_t = sc_at(buf, 2);
+    FragA ga[GP / 16];
+#pragma unroll
+    for (int kq = 0; kq < GP / 16; ++kq)
+      load_a(g_b, k0, M, kq * 16, cw, Cg, ga[kq]);
+#pragma unroll
+    for (int rs = 0; rs < kTile; rs += 16) {
+      float dp[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[nt][e] = 0.f;
+#pragma unroll
+      for (int kq = 0; kq < GP / 16; ++kq) {
+        FragB b0, b1;
+        load_b_nk2<kSplit, GS>(doh, dol, rs, kq * 16, b0, b1);
+        mma<kSplit>(dp[0], ga[kq], b0);
+        mma<kSplit>(dp[1], ga[kq], b1);
+      }
+      // Element e of n-tile nt is (key, row n = rs + nt*8 + 2t + (e & 1)).
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int n = rs + nt * 8 + 2 * t + q;
+          const bool ok = j * kTile + n < N;
+          const float nbv = -mx_t[n] * kLog2e;
+          const float iv = ok ? __frcp_rn(den_t[n]) : 0.f;
+          const float rw = first ? row_t[n] : 0.f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int e = 2 * h + q;
+            float& sv = s[rs / 8 + nt][e];
+            const float p = ok ? ex2(fmaf(sv, kLog2e, nbv)) * iv : 0.f;
+            sv = p;
+            dp[nt][e] = p * (dp[nt][e] - rw);
+          }
+        }
+      // P and dS as hi + lo parts, as in the column pass above.
+      FragA pa, dsa;
+      acc_to_a<true>(s[rs / 8], s[rs / 8 + 1], pa);
+      acc_to_a<true>(dp[0], dp[1], dsa);
+#pragma unroll
+      for (int np = 0; np < kCW / 16; ++np)
+        if (np * 16 < ccw) {
+          FragB b0, b1;
+          load_b_kn2<kSplit, CS>(thh, thl, rs, np * 16, b0, b1);
+          mma<true, kSplit>(dph[2 * np], dsa, b0);
+          mma<true, kSplit>(dph[2 * np + 1], dsa, b1);
+        }
+      if (with_dg) {
+#pragma unroll
+        for (int np = 0; np < GP / 16; ++np) {
+          FragB b0, b1;
+          load_b_kn2<kSplit, GS>(doh, dol, rs, np * 16, b0, b1);
+          mma<true, kSplit>(dgv[2 * np], pa, b0);
+          mma<true, kSplit>(dgv[2 * np + 1], pa, b1);
+        }
+      }
+    }
+  };
+  pipeline<T>((N + kTile - 1) / kTile * nc, issue, body);
+
+  // dphi is [nz, B, M, C]: the output itself with one Cg chunk, its f32
+  // parts with several.
+  const long part = static_cast<long>(zg) * gridDim.y * M;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + (lane >> 2) + 8 * i;
+    if (key >= M) continue;
+    const long bm = static_cast<long>(b) * M + key;
+#pragma unroll
+    for (int nt = 0; nt < kCW / 8; ++nt) {
+      const int c = nt * 8 + 2 * t;
+      if (c < ccw) dphi[(part + bm) * C + cc0 + c] = dph[nt][2 * i];
+      if (c + 1 < ccw)
+        dphi[(part + bm) * C + cc0 + c + 1] = dph[nt][2 * i + 1];
+    }
+    if (!with_dg) continue;
+#pragma unroll
+    for (int nt = 0; nt < GP / 8; ++nt) {
+      const int c = nt * 8 + 2 * t;
+      if (c < cw) dg[bm * Cg + c0 + c] = dgv[nt][2 * i];
+      if (c + 1 < cw) dg[bm * Cg + c0 + c + 1] = dgv[nt][2 * i + 1];
+    }
+  }
+}
+
 // Bytes per cp.async for rows of a bf16 matrix at p of row stride ld, read
 // in column chunks of `chunk` (the last `last` wide): the largest of 16, 8
 // or 4 that divides the address and every row's and chunk's bytes; 0 when
@@ -1137,64 +1670,100 @@ int allow_smem(K* kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
-template <typename T, int CP, int GP>
+// The kernels of a launch: those at C padded to CP, or with kWide those
+// that loop over C chunks (CP = kCW).
+template <typename T, int CP, int GP, bool kWide>
+struct Kernels {
+  static constexpr auto fwd = attention_fwd_kernel<T, CP, GP>;
+  static constexpr auto rows = attention_bwd_rows_kernel<T, CP, GP>;
+  static constexpr auto cols = attention_bwd_cols_kernel<T, CP, GP>;
+};
+template <typename T, int GP>
+struct Kernels<T, kCW, GP, true> {
+  static constexpr auto fwd = attention_fwd_wide_kernel<T, GP>;
+  static constexpr auto rows = attention_bwd_rows_wide_kernel<T, GP>;
+  static constexpr auto cols = attention_bwd_cols_wide_kernel<T, GP>;
+};
+
+template <typename T, int CP, int GP, bool kWide>
 int launch(const Args& a, int kind) {
+  using K = Kernels<T, CP, GP, kWide>;
   constexpr int kParts = Ring<T>::kBuf * Ring<T>::kParts;  // tiles a ring
   const int nz = a.nz(), last = a.Cg - (nz - 1) * a.chunk;
+  // The wide backward's blocks also run over nc chunks of C.
+  const int cc = kWide ? kCW : a.C, nc = (a.C + cc - 1) / cc;
+  const int nzc = kind == cgt::kFwd ? nz : nz * nc;
+  if (nzc > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const int vec_g = vec_bytes(kind == cgt::kColsPass ? a.dout : a.g, a.Cg,
                               a.chunk, last, a.bf16);
   const int vec_c = vec_bytes(kind == cgt::kColsPass ? a.theta : a.phi, a.C,
-                              a.C, a.C, a.bf16);
-  const dim3 grid_rows((a.N + kRows - 1) / kRows, a.B, nz);
+                              cc, a.C - (nc - 1) * cc, a.bf16);
+  const dim3 grid_rows((a.N + kRows - 1) / kRows, a.B, nzc);
   if (kind == cgt::kFwd) {
     constexpr int bytes = kParts * kTile * (CP + GP) * sizeof(bf16);
-    int err = allow_smem(attention_fwd_kernel<T, CP, GP>, bytes);
+    const auto kernel = K::fwd;
+    int err = allow_smem(kernel, bytes);
     if (err != 0) return err;
-    attention_fwd_kernel<T, CP, GP><<<grid_rows, kThreads, bytes, a.stream>>>(
+    kernel<<<grid_rows, kThreads, bytes, a.stream>>>(
         static_cast<const T*>(a.theta), static_cast<const T*>(a.phi),
         static_cast<const T*>(a.g), static_cast<T*>(a.out), a.mx, a.den, a.N,
         a.M, a.C, a.Cg, a.chunk, vec_c, vec_g);
   } else if (kind == cgt::kRowsPass) {
     constexpr int bytes = kParts * kTile * (CP + GP + 16) * sizeof(bf16);
-    int err = allow_smem(attention_bwd_rows_kernel<T, CP, GP>, bytes);
+    const auto kernel = K::rows;
+    int err = allow_smem(kernel, bytes);
     if (err != 0) return err;
-    attention_bwd_rows_kernel<T, CP, GP>
-        <<<grid_rows, kThreads, bytes, a.stream>>>(
-            static_cast<const T*>(a.theta), static_cast<const T*>(a.phi),
-            static_cast<const T*>(a.g), static_cast<const T*>(a.dout),
-            a.mx_in, a.den_in, static_cast<T*>(a.dtheta), a.dtheta_parts,
-            a.row, a.N, a.M, a.C, a.Cg, a.chunk, vec_c, vec_g);
+    kernel<<<grid_rows, kThreads, bytes, a.stream>>>(
+        static_cast<const T*>(a.theta), static_cast<const T*>(a.phi),
+        static_cast<const T*>(a.g), static_cast<const T*>(a.dout), a.mx_in,
+        a.den_in, static_cast<T*>(a.dtheta), a.dtheta_parts, a.row, a.N, a.M,
+        a.C, a.Cg, a.chunk, vec_c, vec_g);
   } else {
     constexpr int bytes = kParts * kTile * (CP + GP + 16) * sizeof(bf16) +
                           Ring<T>::kBuf * 3 * kTile * sizeof(float);
-    int err = allow_smem(attention_bwd_cols_kernel<T, CP, GP>, bytes);
+    const auto kernel = K::cols;
+    int err = allow_smem(kernel, bytes);
     if (err != 0) return err;
-    const dim3 grid_cols((a.M + kRows - 1) / kRows, a.B, nz);
-    attention_bwd_cols_kernel<T, CP, GP>
-        <<<grid_cols, kThreads, bytes, a.stream>>>(
-            static_cast<const T*>(a.theta), static_cast<const T*>(a.phi),
-            static_cast<const T*>(a.g), static_cast<const T*>(a.dout),
-            a.mx_in, a.den_in, a.row, nz > 1 ? a.dphi_parts : a.dphi, a.dg,
-            a.N, a.M, a.C, a.Cg, a.chunk, vec_c, vec_g);
+    const dim3 grid_cols((a.M + kRows - 1) / kRows, a.B, nzc);
+    kernel<<<grid_cols, kThreads, bytes, a.stream>>>(
+        static_cast<const T*>(a.theta), static_cast<const T*>(a.phi),
+        static_cast<const T*>(a.g), static_cast<const T*>(a.dout), a.mx_in,
+        a.den_in, a.row, nz > 1 ? a.dphi_parts : a.dphi, a.dg, a.N, a.M, a.C,
+        a.Cg, a.chunk, vec_c, vec_g);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The chunk width pads to the narrowest GP that holds it.
+template <typename T, int CP, bool kWide>
+int launch_gp(const Args& a, int kind) {
+  if (a.chunk <= 48) return launch<T, CP, 48, kWide>(a, kind);
+  if (a.chunk <= 96) return launch<T, CP, 96, kWide>(a, kind);
+  if (a.chunk <= cgt::kMaxChunk) return launch<T, CP, 128, kWide>(a, kind);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 namespace cgt {
 
-// The chunk width pads to the narrowest GP that holds it.
+#ifdef CGT_WIDE
+template <typename T>
+int launch_wide(const Args& a, int kind) {
+  return launch_gp<T, kCW, true>(a, kind);
+}
+
+template int launch_wide<float>(const Args&, int);
+template int launch_wide<bf16>(const Args&, int);
+#else
 template <typename T, int CP>
 int launch_cp(const Args& a, int kind) {
-  if (a.chunk <= 48) return launch<T, CP, 48>(a, kind);
-  if (a.chunk <= 96) return launch<T, CP, 96>(a, kind);
-  if (a.chunk <= kMaxChunk) return launch<T, CP, 128>(a, kind);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_gp<T, CP, false>(a, kind);
 }
 
 template int launch_cp<float, CGT_CP>(const Args&, int);
 template int launch_cp<bf16, CGT_CP>(const Args&, int);
+#endif
 
 }  // namespace cgt
 
@@ -1237,7 +1806,7 @@ int launch_c(const Args& a, int kind) {
   if (a.C <= 32) return cgt::launch_cp<T, 32>(a, kind);
   if (a.C <= 48) return cgt::launch_cp<T, 48>(a, kind);
   if (a.C <= 64) return cgt::launch_cp<T, 64>(a, kind);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return cgt::launch_wide<T>(a, kind);
 }
 
 int launch(const Args& a, int kind) {
@@ -1329,4 +1898,4 @@ const char* cgt_error_string(int code) {
 
 }  // extern "C"
 
-#endif  // CGT_CP
+#endif  // CGT_CP || CGT_WIDE

@@ -3,7 +3,8 @@
 `nvcc` compiles `compare_gan_torch/csrc/attention.cu` for sm_90a into one
 shared library with a plain C interface, which is loaded with ctypes. The
 source is compiled once per padded C (`-DCGT_CP=16, 32, 48, 64`: the
-kernels at that width) and once without (the entry points), by as many
+kernels at that width), once for C > 64 (`-DCGT_WIDE`: the kernels that
+loop over chunks of 64) and once without (the entry points), by as many
 `nvcc` processes started together, and the objects are linked. The build
 runs at first use (never at import), from the checkout's sources only, into
 `compare_gan_torch/_build/` (git-ignored). The library's file name carries a
@@ -27,10 +28,10 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCE = os.path.join(SRC_DIR, "attention.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# One object of the kernels per padded C (csrc/attention.cu's CP), and the
-# entry object (no define).
+# One object of the kernels per padded C (csrc/attention.cu's CP), one of
+# the kernels at C > 64, and the entry object (no define).
 PARTS = ((), ("-DCGT_CP=16",), ("-DCGT_CP=32",), ("-DCGT_CP=48",),
-         ("-DCGT_CP=64",))
+         ("-DCGT_CP=64",), ("-DCGT_WIDE",))
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

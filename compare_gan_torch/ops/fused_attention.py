@@ -22,10 +22,13 @@ only shapes and types. A program traced by `torch.export`
 so the device is picked, and the operands checked, when the program runs.
 Importing this module registers the operator; it imports no layer code.
 
-theta: [B, N, C]; phi: [B, M, C]; g: [B, M, Cg] -> out [B, N, Cg], with
-0 < C <= MAX_C and any Cg: the kernels cut Cg into column chunks of at most
-CG_CHUNK (`cg_chunk`), so the non-local block runs on them up to 512
-channels (C = channels / 8), BigGAN-deep-512's width. N and M are free: in
+theta: [B, N, C]; phi: [B, M, C]; g: [B, M, Cg] -> out [B, N, Cg], at
+any C and Cg, as the Pallas kernels take them: the kernels cut Cg into
+column chunks of at most CG_CHUNK (`cg_chunk`) and a C past C_CHUNK into
+chunks of C_CHUNK, so the non-local block runs on them at any width
+(C = channels / 8, Cg = channels / 2), up to BigGAN-deep-512's 512
+channels in the published placements and past them with the attention on
+the 8x8 maps (BigGAN-128's G block B1: (192, 768)). N and M are free: in
 the spatial layout (`ops.arch_ops.NonLocalBlock`) each worker
 passes its band's N / k queries against all M keys, and the key gradients
 it returns are its band's part of theirs.
@@ -47,9 +50,11 @@ from compare_gan_torch.ops import _build
 launches_fwd = 0
 launches_bwd = 0
 
-# The widest C the kernels hold (csrc/attention.cu pads C to 16, 32, 48 or
-# 64), and the widest column chunk of Cg (its GP: 48, 96 or 128).
-MAX_C = 64
+# The widest C the kernels hold in one piece (csrc/attention.cu pads C to
+# 16, 32, 48 or 64; a wider C goes in chunks of this many columns, the
+# last padded to 16), and the widest column chunk of Cg (its GP: 48, 96
+# or 128).
+C_CHUNK = 64
 CG_CHUNK = 128
 
 
@@ -119,12 +124,18 @@ def _check_operands(theta, phi, g):
     for name, t in (("phi", phi), ("g", g)):
         if t.dtype != theta.dtype:
             raise TypeError(f"{name} is {t.dtype}, theta is {theta.dtype}.")
-    if not (0 < c <= MAX_C and cg > 0 and n > 0 and m > 0):
-        raise ValueError(f"The CUDA attention takes 0 < C <= {MAX_C} and "
-                         f"Cg, N, M > 0; got C={c}, Cg={cg}, N={n}, M={m}.")
-    if b > 65535 or max(b * n * max(c, cg), b * m * max(c, cg)) >= 2 ** 31:
+    if not (c > 0 and cg > 0 and n > 0 and m > 0):
+        raise ValueError(f"The CUDA attention takes C, Cg, N, M > 0; got "
+                         f"C={c}, Cg={cg}, N={n}, M={m}.")
+    # The grid holds B and the chunks of Cg (times those of C, in the
+    # backward) in 16 bits. The kernels' offsets are 64-bit, also into the
+    # backward's f32 parts ([nz, B, N or M, C]); the operands stay within
+    # 2**31 elements as before.
+    chunks = -(-cg // cg_chunk(cg)) * -(-c // C_CHUNK)
+    if b > 65535 or chunks > 65535 or \
+            max(b * n * max(c, cg), b * m * max(c, cg)) >= 2 ** 31:
         raise ValueError(f"Operands too large for the kernel's indexing: "
-                         f"B={b}, N={n}, M={m}.")
+                         f"B={b}, N={n}, M={m}, C={c}, Cg={cg}.")
     for name, t in (("theta", theta), ("phi", phi), ("g", g)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous.")

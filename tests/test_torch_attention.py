@@ -128,9 +128,15 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         n = 2 ** 31 // 64
         fa.attention_fwd(*(torch.empty(1, rows, 64, device="meta")
                            for rows in (n, 16, 16)))
-    with pytest.raises(ValueError):  # wider than the kernels' C
-        fa.attention_fwd(*(torch.zeros(1, 4, w)
-                           for w in (fa.MAX_C + 1, fa.MAX_C + 1, 8)))
+    with pytest.raises(ValueError):  # no columns of C
+        fa.attention_fwd(*(torch.zeros(1, 4, w) for w in (0, 0, 8)))
+    # A C past one chunk of the kernels' C (C_CHUNK + 1, which they take
+    # in two chunks) is taken, as the Pallas kernel takes any C: the CPU
+    # path gives the plain forward.
+    wide = _torch(_inputs(b=1, n=4, m=2, c=fa.C_CHUNK + 1, cg=8))
+    for got, want in zip(fa.attention_fwd(*wide),
+                         fa.attention_fwd_plain(*wide)):
+        assert torch.equal(got, want)
     out, mx, den = fa.attention_fwd(theta, phi, g)
     with pytest.raises(ValueError):
         fa.attention_bwd(theta, phi, g, out, mx.squeeze(-1), den)

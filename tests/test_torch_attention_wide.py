@@ -1,12 +1,16 @@
-"""The port's attention at the widths of the 256 and 512 px models, on the
-CPU, against the JAX package: the CUDA kernels' algorithm with Cg cut into
-column chunks (csrc/attention.cu), and the plain versions, against the
-Pallas kernels in interpret mode at (C, Cg) = (48, 192) (BigGAN-512's G
-block), (64, 256) (BigGAN-deep-256/512's blocks) and a ragged (40, 200);
-`fused_attention` at those widths; and BigGAN-512's and BigGAN-deep-256's
-G and D forwards from the same numpy-drawn parameters, carried by
-interop.py. The kernels themselves are held to the plain versions at these
-widths on the card (tests/test_torch_kernels_gpu.py, chip_smoke.py)."""
+"""The port's attention at the widths of the 256 and 512 px models and
+past C 64, on the CPU, against the JAX package: the CUDA kernels'
+algorithm with Cg cut into column chunks and C into chunks of 64
+(csrc/attention.cu), and the plain versions, against the Pallas kernels in
+interpret mode at (C, Cg) = (48, 192) (BigGAN-512's G block), (64, 256)
+(BigGAN-deep-256/512's blocks), a ragged (40, 200), and with the attention
+on the 8x8 or 16x16 maps (the SAGAN paper's feat8 / feat16 placements at
+BigGAN-128's width) (192, 768) (G's block B1) and (96, 384) (D's B4, G's
+B2), and a ragged (72, 200); `fused_attention` at those widths; and
+BigGAN-512's and BigGAN-deep-256's G and D forwards from the same
+numpy-drawn parameters, carried by interop.py. The kernels themselves are
+held to the plain versions at these widths on the card
+(tests/test_torch_kernels_gpu.py, chip_smoke.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -31,10 +35,16 @@ from compare_gan_torch.gans import consts as c
 from compare_gan_torch.ops import fused_attention as fa
 
 # (B, N, M, C, Cg): the two widths at a 16x16 map (N 256) against 64 keys,
-# and a ragged width over partial tiles and chunks (N 200, M 150).
+# and a ragged width over partial tiles and chunks (N 200, M 150); past C
+# 64, BigGAN-128's G block B1 on the 8x8 map (N 64, M 16: three chunks of
+# C, six of Cg), (96, 384) on the 16x16 map (two of C, three of Cg), and a
+# ragged C 72 (64 + 8 columns) over partial tiles and chunks.
 SHAPES = {"G_B4_512": (2, 256, 64, 48, 192),
           "deep_512": (2, 256, 64, 64, 256),
-          "ragged": (2, 200, 150, 40, 200)}
+          "ragged": (2, 200, 150, 40, 200),
+          "G_B1_feat8": (2, 64, 16, 192, 768),
+          "feat16": (2, 256, 64, 96, 384),
+          "ragged_c": (2, 200, 150, 72, 200)}
 
 
 @pytest.fixture(autouse=True)
@@ -59,10 +69,14 @@ def _chunked_algorithm(theta, phi, g, dout, mode, tile=64, step=16):
     chunk 0), the row pass's parts row_z = sum P*dP_z and dtheta_z =
     (P*dP_z).phi - row_z*(P.phi) over 16-key steps, and the column pass's
     dg columns and dphi part from dS_z = P*(dP_z - [z = 0] row) over 16-row
-    steps; the parts summed in chunk order. `mode` is where the kernels
-    round, as in test_torch_attention.py's `_kernel_algorithm`: "f32"
-    nowhere, "bf16" P before P.g and the backward's P, P*dP and dS as
-    hi + lo parts, "split" every product as four bf16 products."""
+    steps; the parts summed in chunk order. Past C_CHUNK, C goes in chunks
+    of C_CHUNK columns: every score product is the sum of the chunks'
+    products (the kernels' loop over C), and dtheta and dphi are put
+    together from their chunks' columns, each computed from the whole S
+    (one block per chunk of C). `mode` is where the kernels round, as in
+    test_torch_attention.py's `_kernel_algorithm`: "f32" nowhere, "bf16" P
+    before P.g and the backward's P, P*dP and dS as hi + lo parts, "split"
+    every product as four bf16 products."""
     if mode == "split":
         def mm(a, b):
             (ah, al), (bh, bl) = _split_bf16(a), _split_bf16(b)
@@ -76,6 +90,16 @@ def _chunked_algorithm(theta, phi, g, dout, mode, tile=64, step=16):
     def hi_lo(x):
         return sum(_split_bf16(x)) if mode == "bf16" else x
 
+    c_chunks = [slice(c0, c0 + fa.C_CHUNK)
+                for c0 in range(0, theta.shape[2], fa.C_CHUNK)]
+
+    def scores(a, b):
+        return sum(mm(a[..., cs], b[..., cs].transpose(1, 2))
+                   for cs in c_chunks)
+
+    def by_c_chunks(a, b):
+        return torch.cat([mm(a, b[..., cs]) for cs in c_chunks], -1)
+
     b, n, _ = theta.shape
     m, cg = g.shape[1], g.shape[2]
     chunk = fa.cg_chunk(cg)
@@ -87,7 +111,7 @@ def _chunked_algorithm(theta, phi, g, dout, mode, tile=64, step=16):
         den = torch.zeros(b, n, 1)
         acc = torch.zeros(b, n, gz.shape[2])
         for j0 in range(0, m, tile):
-            s = mm(theta, phi[:, j0:j0 + tile].transpose(1, 2))
+            s = scores(theta, phi[:, j0:j0 + tile])
             new_mx = torch.maximum(mx, s.amax(-1, keepdim=True))
             scale = torch.exp(mx - new_mx)
             p = torch.exp(s - new_mx)
@@ -104,11 +128,11 @@ def _chunked_algorithm(theta, phi, g, dout, mode, tile=64, step=16):
         row_z = torch.zeros(b, n, 1)
         for k0 in range(0, m, step):
             ph = phi[:, k0:k0 + step]
-            attn = torch.exp(mm(theta, ph.transpose(1, 2)) - mx) / den
+            attn = torch.exp(scores(theta, ph) - mx) / den
             t = attn * mm(dz, gz[:, k0:k0 + step].transpose(1, 2))
             row_z = row_z + t.sum(-1, keepdim=True)
-            a_acc = a_acc + mm(hi_lo(t), ph)
-            b_acc = b_acc + mm(hi_lo(attn), ph)
+            a_acc = a_acc + by_c_chunks(hi_lo(t), ph)
+            b_acc = b_acc + by_c_chunks(hi_lo(attn), ph)
         parts.append((a_acc - row_z * b_acc, row_z))
     for dtheta_z, row_z in parts:
         dtheta, row = dtheta + dtheta_z, row + row_z
@@ -118,11 +142,11 @@ def _chunked_algorithm(theta, phi, g, dout, mode, tile=64, step=16):
         dphi_z, dg_z = torch.zeros_like(phi), torch.zeros_like(gz)
         for i0 in range(0, n, step):
             th_, do_ = theta[:, i0:i0 + step], dz[:, i0:i0 + step]
-            attn = torch.exp(mm(th_, phi.transpose(1, 2))
+            attn = torch.exp(scores(th_, phi)
                              - mx[:, i0:i0 + step]) / den[:, i0:i0 + step]
             ds = attn * (mm(do_, gz.transpose(1, 2))
                          - (row[:, i0:i0 + step] if z == 0 else 0.0))
-            dphi_z = dphi_z + mm(hi_lo(ds).transpose(1, 2), th_)
+            dphi_z = dphi_z + by_c_chunks(hi_lo(ds).transpose(1, 2), th_)
             dg_z = dg_z + mm(hi_lo(attn).transpose(1, 2), do_)
         dphi, dgs = dphi + dphi_z, dgs + [dg_z]
     return (torch.cat(outs, -1), mx, den), (dtheta, dphi, torch.cat(dgs, -1))
@@ -146,12 +170,16 @@ def _pallas(arrays, jdtype):
 @pytest.mark.parametrize("name", list(SHAPES))
 def test_chunk_widths_are_equal_but_the_last(name):
     """Cg = 192, 256 and 200 go in two chunks of 96, 128 and 100 columns,
-    each within the kernels' widest GP of 128."""
-    cg = SHAPES[name][4]
+    768 in six and 384 in three of 128, each within the kernels' widest GP
+    of 128; C past 64 in chunks of 64: 192 in three, 96 and 72 in two."""
+    c, cg = SHAPES[name][3:]
     chunk = fa.cg_chunk(cg)
     assert (chunk, -(-cg // chunk)) == {192: (96, 2), 256: (128, 2),
-                                        200: (100, 2)}[cg]
+                                        200: (100, 2), 768: (128, 6),
+                                        384: (128, 3)}[cg]
     assert chunk <= fa.CG_CHUNK
+    assert -(-c // fa.C_CHUNK) == {40: 1, 48: 1, 64: 1, 72: 2, 96: 2,
+                                   192: 3}[c]
 
 
 @pytest.mark.parametrize("mode", ["f32", "split", "bf16"])
@@ -198,11 +226,13 @@ def test_plain_versions_match_pallas_kernels(name):
         th.assert_close(got, want, rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("name", ["G_B4_512", "deep_512"])
+@pytest.mark.parametrize("name", ["G_B4_512", "deep_512", "G_B1_feat8",
+                                  "feat16", "ragged_c"])
 def test_fused_attention_takes_the_wide_widths(name):
-    """What the non-local block calls, on CPU tensors, at (48, 192) and
-    (64, 256): the forward and gradients of sum(sin(out)) against the
-    Pallas kernel's custom_vjp (interpret mode); f32, 1e-5 and 1e-4."""
+    """What the non-local block calls, on CPU tensors, at (48, 192),
+    (64, 256), (192, 768), (96, 384) and (72, 200): the forward and
+    gradients of sum(sin(out)) against the Pallas kernel's custom_vjp
+    (interpret mode); f32, 1e-5 and 1e-4."""
     b, n, m, c, cg = SHAPES[name]
     arrays = _inputs((b, n, m, c, cg), c ** -0.25)[:3]
     jargs = tuple(map(jnp.asarray, arrays))

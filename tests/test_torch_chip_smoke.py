@@ -502,3 +502,100 @@ def test_launch_widths_count_each_launch_and_restore():
     assert seen == {"fwd float32 48x192": 2, "bwd float32 48x192": 2,
                     "fwd float32 24x96": 1, "bwd float32 24x96": 1}
     assert (fa.attention_fwd, fa.attention_bwd) == (fwd, bwd)
+
+
+def test_feat8_shapes_are_the_blocks_of_biggan128_at_the_feat8_placement():
+    """The feat8 phase's rows and parameter counts: BigGAN-128 at ch 96
+    with the attention after G's B1 and D's B4 (built on the meta device
+    from chip_smoke's bindings) has (channels / 8, channels / 2) =
+    (192, 768) and (96, 384) on the 8x8 maps, and the parameter counts of
+    the JAX package's model at the same bindings (jax.eval_shape: shapes
+    only)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from compare_gan_tpu import core as jcore
+    from compare_gan_tpu.architectures import resnet_biggan
+    from compare_gan_tpu.ops import arch_ops as jarch_ops
+    from compare_gan_torch import config as tgin
+    from compare_gan_torch import core
+    from compare_gan_torch import gans  # noqa: F401 (gin)
+    from compare_gan_torch.architectures import (DISCRIMINATORS,
+                                                 GENERATORS)
+
+    tgin.clear_config()
+    tgin.parse_config_files_and_bindings(
+        [os.path.join(REPO, "example_configs", "biggan_imagenet128.gin")],
+        list(chip_smoke.FEAT8_BINDINGS))
+    try:
+        gen = GENERATORS["resnet_biggan_arch"](
+            image_shape=(128, 128, 3), z_dim=120, num_classes=1000,
+            device="meta")
+        disc = DISCRIMINATORS["resnet_biggan_arch"](
+            image_shape=(128, 128, 3), num_classes=1000, device="meta")
+        counts = tuple(core.count_params(m) for m in (gen, disc))
+        widths = [(m.non_local_block.attn_ch, m.non_local_block.g_ch)
+                  for m in (gen, disc)]
+    finally:
+        tgin.clear_config()
+    shapes = dict(chip_smoke.FEAT8_SHAPES)
+    assert widths == [shapes["G_B1_feat8"][3:], shapes["D_B4_feat8"][3:]] \
+        == [(192, 768), (96, 384)]
+    assert shapes["G_B1_feat8"][:3] == shapes["D_B4_feat8"][:3] \
+        == (32, 64, 16)
+    assert shapes["G_B2_feat16"] == (32, 256, 64, 96, 384)
+
+    jgen = resnet_biggan.Generator(
+        image_shape=(128, 128, 3),
+        batch_norm_fn=jarch_ops.conditional_batch_norm,
+        blocks_with_attention="B1")
+    jdisc = resnet_biggan.Discriminator(blocks_with_attention="B4")
+
+    def net(z, y):
+        return jdisc(jgen(z, y, is_training=True), y, is_training=True)
+
+    params = jax.eval_shape(
+        lambda z, y: jcore.init(net, jax.random.PRNGKey(0), z, y)[1],
+        jnp.zeros((2, 120)), jnp.zeros((2, 1000)))
+    jcounts = tuple(
+        sum(int(np.prod(v.shape))
+            for v in jcore.filter_prefix(params, prefix).values())
+        for prefix in ("generator", "discriminator"))
+    assert counts == jcounts == chip_smoke.FEAT8_PARAMS \
+        == (73337028, 88708130)
+    cases = [(name, dtype, bwd) for name, _, dtype, bwd, _
+             in chip_smoke._cases()
+             if name in dict(chip_smoke.FEAT8_SHAPES
+                             + chip_smoke.CHECK_ONLY_SHAPES)]
+    assert cases == [(name, dtype, True)
+                     for name in ("G_B1_feat8", "D_B4_feat8", "G_B2_feat16",
+                                  "ragged_c72", "c256")
+                     for dtype in ("float32", "bfloat16")]
+
+
+def test_ptxas_report_names_the_kernels_past_c_64():
+    log = (
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_130"
+        "attention_bwd_cols_wide_kernelIfLi128EEEvPKT_\n"
+        "    0 bytes stack frame, 68 bytes spill stores, 144 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 255 registers, used 1 barriers\n")
+    assert chip_smoke.ptxas_report(log) == [
+        ("attention_bwd_cols_wide_kernel<f32, 128>", 255, 68, 144)]
+
+
+def test_attention_variants_substitutions_apply_to_the_source():
+    """tools/attention_variants.py builds its variants by text
+    substitutions in csrc/attention.cu with expected counts; each must
+    still apply to the source as it stands (it raises on the card
+    otherwise)."""
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    try:
+        import attention_variants
+    finally:
+        sys.path.remove(os.path.join(REPO, "tools"))
+    with open(os.path.join(REPO, "compare_gan_torch", "csrc",
+                           "attention.cu")) as f:
+        base = f.read()
+    for name, subs in attention_variants.SUBSTITUTIONS.items():
+        assert attention_variants._variant_source(base, subs) != base, name

@@ -26,7 +26,11 @@ torch.set_num_threads(1)
 # BigGAN-deep-256/512's (64, 256), two column chunks each; a ragged wide
 # shape (C 40 padded to 48, Cg 200 in two chunks of 100) and the widest C
 # with three ragged chunks of Cg (86, 86, 85 columns, rows too odd for
-# cp.async); and one row block over fewer keys than one MMA tile.
+# cp.async); and one row block over fewer keys than one MMA tile. Past C
+# 64, the kernels that loop over chunks of 64 columns of C: BigGAN-128's G
+# block B1 with the attention on the 8x8 map (192, 768: three C chunks,
+# six of Cg), C 256 (four, eight), and a ragged C 72 (64 + 8 columns, the
+# last zero-padded to 16) over partial tiles and two chunks of Cg.
 SHAPES = {
     "G_B4": (2, 4096, 1024, 24, 96),
     "D_B1": (2, 4096, 1024, 12, 48),
@@ -40,6 +44,9 @@ SHAPES = {
     "ragged_wide": (2, 200, 150, 40, 200),
     "three_chunks": (2, 300, 130, 64, 257),
     "tiny": (1, 5, 3, 1, 1),
+    "G_B1_feat8": (2, 64, 16, 192, 768),
+    "c256": (2, 64, 16, 256, 1024),
+    "ragged_c": (2, 200, 150, 72, 200),
 }
 # f32: the same f32 math summed in another order. bf16: both sides round
 # one f32 result to bf16 (dphi/dg stay f32 but come from bf16 inputs).

@@ -160,13 +160,17 @@ def test_attention_op_on_the_cpu_is_the_plain_forward(dtype):
         assert a.dtype == b.dtype and torch.equal(a, b)
     assert got[0].dtype == dtype and got[1].dtype == torch.float32
     torch.library.opcheck(ATTENTION_OP, (theta, phi, g))
-    # BigGAN-512's width (C 48, Cg 192) is taken; a C past the kernels'
-    # is refused.
+    # BigGAN-512's width (C 48, Cg 192) is taken, and so is one past a
+    # chunk of the kernels' C: BigGAN-128's G block B1 with the attention
+    # on the 8x8 map (C 192, Cg 768), the plain forward on the CPU.
     wide = [torch.zeros(1, n, w) for n, w in ((4, 48), (2, 48), (2, 192))]
     assert tuple(ATTENTION_OP(*wide)[0].shape) == (1, 4, 192)
-    with pytest.raises(ValueError, match=f"C <= {fa.MAX_C}"):
-        ATTENTION_OP(torch.zeros(1, 4, fa.MAX_C + 1),
-                     torch.zeros(1, 2, fa.MAX_C + 1), torch.zeros(1, 2, 8))
+    wide = [torch.from_numpy(th.randn(shape, seed)).to(dtype) for seed, shape
+            in enumerate(((1, 64, 192), (1, 16, 192), (1, 16, 768)))]
+    got = ATTENTION_OP(*wide)
+    assert tuple(got[0].shape) == (1, 64, 768)
+    for a, b in zip(got, fa.attention_fwd_plain(*wide)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 def test_attention_op_fake_shapes_at_a_symbolic_batch():

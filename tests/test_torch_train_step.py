@@ -5,7 +5,9 @@ against the JAX package's ModularGAN, f32 on the CPU.
 forward for the D sub-steps and the fake-only G loss, attention in G (B2)
 and D (B1). Both sides start from the JAX init_state (converted by
 interop.py) and take the same batches and the same z / sampled labels,
-drawn with JAX's own per-sub-step streams and handed to the port.
+drawn with JAX's own per-sub-step streams and handed to the port. Then
+one step at 64 px with the attention on G's 8x8 and D's 4x4 maps, at a
+width that puts C past 64 in both.
 """
 
 import jax
@@ -22,6 +24,7 @@ from compare_gan_tpu.ops import pallas_attention
 from compare_gan_torch import config as tgin
 from compare_gan_torch import datasets, interop
 from compare_gan_torch.gans import modular_gan
+from compare_gan_torch.ops import fused_attention as fa
 
 BATCH = 2
 CFG = """
@@ -68,26 +71,32 @@ def _setup():
     tgin.clear_config()
 
 
-def _gans(cfg=CFG):
+def _gans(cfg=CFG, dataset="cifar10", parameters=PARAMETERS):
     # The JAX side runs attention through its plain einsum reference here
     # (its CPU default); the Pallas kernel is held against the port in
     # test_torch_attention.py and test_torch_arch_ops.py.
     jgin.parse_config(cfg + "attention.use_pallas = False\n")
     tgin.parse_config(cfg)
     jgan = jmodular.ModularGAN(
-        dataset=jdatasets.get_dataset("cifar10"), parameters=PARAMETERS,
+        dataset=jdatasets.get_dataset(dataset), parameters=parameters,
         model_dir="unused")
     tgan = modular_gan.ModularGAN(
-        dataset=datasets.get_dataset("cifar10"), parameters=PARAMETERS,
+        dataset=datasets.get_dataset(dataset), parameters=parameters,
         model_dir="unused", device="cpu")
     return jgan, tgan
 
 
-def _batch(seed):
+def _batch(seed, size=32, classes=10):
     rng = np.random.RandomState(seed)
     total = BATCH * 3
-    return {"images": rng.rand(total, 32, 32, 3).astype(np.float32),
-            "labels": rng.randint(0, 10, total).astype(np.int32)}
+    return {"images": rng.rand(total, size, size, 3).astype(np.float32),
+            "labels": rng.randint(0, classes, total).astype(np.int32)}
+
+
+def _lr_steps(name, steps, g_lr=1e-4, d_lr=5e-4):
+    # One G update per step; two D sub-step updates per step.
+    lr = g_lr if name.startswith("generator/") else 2 * d_lr
+    return lr * steps
 
 
 def _one_and_two_train_steps_match_jax(cfg):
@@ -102,11 +111,6 @@ def _one_and_two_train_steps_match_jax(cfg):
     step_j = jax.jit(jgan.make_train_step(BATCH))
     step_t = tgan.make_train_step(BATCH)
 
-    def lr_steps(name, steps):
-        # One G update per step; two D sub-step updates per step.
-        lr = 1e-4 if name.startswith("generator/") else 2 * 5e-4
-        return lr * steps
-
     for step in (1, 2):
         batch = _batch(step)
         draws = th.jax_draws(jgan, ts_j, batch["labels"], BATCH)
@@ -115,7 +119,7 @@ def _one_and_two_train_steps_match_jax(cfg):
         assert ts_t.step == int(ts_j.step) == step
         assert ts_t.disc_step == int(ts_j.disc_step) == 2 * step
         th.assert_train_states_close(ts_j, ts_t, metrics_j, metrics_t,
-                                     lambda name: lr_steps(name, step),
+                                     lambda name: _lr_steps(name, step),
                                      th.G_BN_FED_BIASES)
 
 
@@ -133,6 +137,79 @@ def test_one_and_two_train_steps_of_the_published_g_path_match_jax():
                     "experimental_fake_only_g_loss = False"))
     assert cfg.count("= False") == CFG.count("= False") + 2
     _one_and_two_train_steps_match_jax(cfg)
+
+
+# BigGAN at 64 px and ch 40 with the attention after G's block B1 (the 8x8
+# map, 640 channels) and D's B4 (the 4x4 map, 640 channels): (C, Cg) =
+# (80, 320) in both, past the 64 columns of C that the kernels hold in one
+# piece, the smallest width that puts C past 64 in G and D (the SAGAN
+# paper's feat8 placement, as BigGAN-128 takes it at (192, 768) and
+# (96, 384) on the card). z_dim 20: the hierarchical z splits into five
+# parts at 64 px.
+WIDE_PARAMETERS = dict(PARAMETERS, z_dim=20)
+# Learning rates of 1e-6: at the recipe's (1e-4, 5e-4) one D update at this
+# width and batch sends D's hinge loss from 1.95 to 28 on the next
+# sub-step in both packages, and G's Adam update then takes the other sign
+# on thousands of entries (f32 gradients that part in the 4th digit near
+# that point, the attention on the default blocks alike). At 1e-6 a
+# parameter whose update flips moves 2e-6, inside the parameters' 1e-5, and
+# the Adam moments (mu = g at beta1 = 0) hold the gradients.
+WIDE_LR = 1e-6
+WIDE_CFG = (CFG.replace("resnet_biggan.Generator.ch = 4",
+                        "resnet_biggan.Generator.ch = 40")
+            .replace('resnet_biggan.Generator.blocks_with_attention = "B2"',
+                     'resnet_biggan.Generator.blocks_with_attention = "B1"')
+            .replace("resnet_biggan.Discriminator.ch = 4",
+                     "resnet_biggan.Discriminator.ch = 40")
+            .replace("ModularGAN.g_lr = 0.0001", f"ModularGAN.g_lr = {WIDE_LR}")
+            .replace("ModularGAN.d_lr = 0.0005", f"ModularGAN.d_lr = {WIDE_LR}")
+            + 'resnet_biggan.Discriminator.blocks_with_attention = "B4"\n')
+# G's biases that feed a batch norm (exact gradient zero) at 64 px: each
+# block's conv1, and B4's conv2 and shortcut before the final norm.
+WIDE_G_BN_FED_BIASES = frozenset(
+    [f"generator/B{i}/up_conv1/bias" for i in range(1, 5)]
+    + ["generator/B4/same_conv2/bias", "generator/B4/up_conv_shortcut/bias"])
+# The Adam moments' share of the network's largest (mu, nu), twice what
+# this step needs, 1.5e-3 and 1.3e-3 (G's final conv and B4's BN): G's f32
+# gradients at ch 40 part by ~3e-3 of their norm between the packages, by
+# 2e-3 with the attention on G's B2 and D's B1 (C 40 and 10), so it is the
+# width and not the attention's C; D's need 1.2e-4 and 1.6e-6.
+WIDE_MOMENT_ATOL = (3e-3, 3e-3)
+
+
+def test_a_train_step_with_attention_past_c_64_matches_jax():
+    """One BigGAN-64 train step with C = 80 in G's and D's non-local
+    blocks against JAX's (whose einsum attention takes any C), batch 2,
+    f32: losses, parameters, SN vectors and EMA at the tolerances of the
+    32 px steps above, the moments at WIDE_MOMENT_ATOL. Both gates open at
+    0.5, so the attention moves the losses and every gradient. The port
+    initializes and interop carries its state to JAX (JAX's jitted
+    orthogonal init at this width takes ~28 s on the CPU)."""
+    assert WIDE_CFG.count("ch = 40") == 2 and WIDE_CFG.count('"B') == 2
+    assert WIDE_CFG.count(f"_lr = {WIDE_LR}") == 2
+    jgan, tgan = _gans(WIDE_CFG, "imagenet_64", WIDE_PARAMETERS)
+    ts_t = tgan.init_state(seed=1)
+    for module in (tgan.generator, tgan.discriminator):
+        block = module.non_local_block
+        assert (block.attn_ch, block.g_ch) == (80, 320)
+        sigma = f"{module.name}/non_local_block/sigma"
+        with torch.no_grad():
+            for tree in (ts_t.params(), ts_t.ema_params):
+                if sigma in tree:
+                    tree[sigma].fill_(0.5)
+    ts_j = th.jax_train_state(jgan, ts_t)
+    batch = _batch(1, 64, 1000)
+    draws = th.jax_draws(jgan, ts_j, batch["labels"], BATCH)
+    ts_j, metrics_j = jax.jit(jgan.make_train_step(BATCH))(ts_j, batch)
+    ts_t, metrics_t = tgan.make_train_step(BATCH)(ts_t, batch, draws=draws)
+    assert ts_t.step == int(ts_j.step) == 1
+    assert ts_t.disc_step == int(ts_j.disc_step) == 2
+    assert set(WIDE_G_BN_FED_BIASES) <= set(ts_j.params)
+    assert fa.C_CHUNK < 80  # the kernels take this C in two chunks
+    th.assert_train_states_close(
+        ts_j, ts_t, metrics_j, metrics_t,
+        lambda name: _lr_steps(name, 1, WIDE_LR, WIDE_LR),
+        WIDE_G_BN_FED_BIASES, WIDE_MOMENT_ATOL)
 
 
 def test_adam_matches_optax_on_the_same_gradients():

@@ -38,15 +38,15 @@ SUBSTITUTIONS = {
         "  auto issue = [&](int j, int buf) {\n",
         "  auto issue = [&](int j, int buf) {\n    return;\n", 3)],
     "no_exp": [(
-        "        s[nt][e] = ex2(fmaf(s[nt][e], kLog2e, nb[e >> 1]));",
-        "        s[nt][e] = fmaf(s[nt][e], kLog2e, nb[e >> 1]);", 1), (
+        "      s[nt][e] = ex2(fmaf(s[nt][e], kLog2e, nb[e >> 1]));",
+        "      s[nt][e] = fmaf(s[nt][e], kLog2e, nb[e >> 1]);", 1), (
         "ex2(fmaf(s[nt][e], kLog2e, nb[e >> 1])) * inv[e >> 1]",
         "fmaf(s[nt][e], kLog2e, nb[e >> 1]) * inv[e >> 1]", 1), (
         "ok ? ex2(fmaf(s[nt][e], kLog2e, nb)) * inv : 0.f;",
         "ok ? fmaf(s[nt][e], kLog2e, nb) * inv : 0.f;", 1)],
     "no_pv": [(
-        "      wgmma_acc<kSplit, GP, 1>(&o[0][0], pa[kk],",
-        "      if (kk < 0) wgmma_acc<kSplit, GP, 1>(&o[0][0], pa[kk],", 1), (
+        "    wgmma_acc<kSplit, GP, 1>(&o[0][0], pa[kk],",
+        "    if (kk < 0) wgmma_acc<kSplit, GP, 1>(&o[0][0], pa[kk],", 1), (
         """        mma<true, kSplit>(dgv[2 * np], pa, b0);
         mma<true, kSplit>(dgv[2 * np + 1], pa, b1);""",
         """        dgv[2 * np][0] += __uint_as_float(b0.h[0] ^ pa.h[0]);
