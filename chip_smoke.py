@@ -36,9 +36,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    events, 20 calls after a warm-up); each kernel's bound (the least
    time the card could take: its operations over the tensor-core peak for
    the input type, bf16 or TF32 for f32, or its bytes over the memory
-   rate, whichever is larger) with the kernel's share of it; and the
+   rate, whichever is larger) with the kernel's share of it; the
    forward's issued-MMA floor (the bf16 MMAs it issues, four per product
-   for f32 inputs split into hi + lo parts, at the bf16 peak).
+   for f32 inputs split into hi + lo parts, at the bf16 peak); and for
+   each backward, its row and column passes' device times apart
+   (torch.profiler), at C <= 64 the design's issued-MMA floor (hi/lo
+   products counted), its exponential floor (2 B N M ex2 per column chunk
+   at 16 a clock an SM) and its two kernels' ptxas registers and spills.
 4. Main path: 3 BigGAN-128 training steps at full width through the port's
    CLI (compare_gan_torch.main.main) with the benchmark options: batch 16,
    bf16 activations, joint G forward for the D sub-steps, fake-only G loss,
@@ -429,6 +433,9 @@ INCEPTION_TOL = 1e-4
 # products on the tensor cores, as this one does).
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12}
 PEAK_BYTES = 3.35e12
+# The special-function units' exponentials: 16 ex2 a clock on each of the
+# H100 SXM's 132 SMs at its 1.98 GHz boost clock.
+EX2_PER_S = 16 * 132 * 1.98e9
 # torch.nn.attention.SDPBackend by value.
 SDPA_BACKENDS = {0: "math", 1: "flash", 2: "efficient", 3: "cudnn",
                  4: "overrideable"}
@@ -563,6 +570,86 @@ def issued_fwd_ms(shape, dtype_name):
         / PEAK_FLOPS["bfloat16"]
 
 
+def _bwd_geometry(shape):
+    """(padded C, column chunks nz, padded chunk width GP) of the backward
+    at `shape` (csrc/attention.cu): C to CP, a multiple of 16 (past 64 in
+    chunks of 64 whose last is padded to 16: again C rounded up to 16); Cg
+    in nz chunks of at most 128, each padded to 48, 96 or 128."""
+    from compare_gan_torch.ops import fused_attention as fa
+    _, _, _, c, cg = shape
+    chunk = fa.cg_chunk(cg)
+    return (16 * -(-c // 16), -(-cg // chunk),
+            next(w for w in (48, 96, 128) if chunk <= w))
+
+
+def issued_bwd_ms(shape, dtype_name):
+    """The backward's own tensor-core floor at C <= 64: the bf16 MMAs its
+    two passes issue at the padded widths over 989 TFLOP/s, each column
+    chunk recomputing the scores. Per (row, key) and chunk, the row pass
+    takes S = theta.phi^T (CP) and dP = dout.g^T (GP) once, (P*dP).phi and
+    P.phi (CP each) with P*dP and P as hi + lo parts; the column pass S^T
+    (CP), dP^T (GP), dS^T.theta (CP, dS as hi + lo) and P^T.dout (GP, P's
+    hi part alone in bf16). f32 operands are split into hi + lo parts, so a
+    product of two split operands takes four MMAs and one of hi + lo P or
+    dS with a split operand four as well."""
+    b, n, m, _, _ = shape
+    cp, nz, gp = _bwd_geometry(shape)
+    f32 = dtype_name == "float32"
+    score, pair, pg = (4, 4, 4) if f32 else (1, 2, 1)
+    rows = score * (cp + gp) + 2 * pair * cp
+    cols = score * (cp + gp) + pair * cp + pg * gp
+    return 1e3 * 2 * b * n * m * nz * (rows + cols) / PEAK_FLOPS["bfloat16"]
+
+
+def exp_floor_ms(shape):
+    """The backward's exponential floor: both passes take an ex2 per (row,
+    key) and column chunk, 2 B N M nz of them, at EX2_PER_S."""
+    b, n, m, _, _ = shape
+    return 1e3 * 2 * b * n * m * _bwd_geometry(shape)[1] / EX2_PER_S
+
+
+def bwd_kernel_names(shape, dtype_name):
+    """The row and column pass kernels the backward launches at `shape`,
+    named as ptxas_report names them."""
+    cp, _, gp = _bwd_geometry(shape)
+    dt = "f32" if dtype_name == "float32" else "bf16"
+    if shape[3] > 64:
+        return tuple(f"attention_bwd_{p}_wide_kernel<{dt}, {gp}>"
+                     for p in ("rows", "cols"))
+    return tuple(f"attention_bwd_{p}_kernel<{dt}, {cp}, {gp}>"
+                 for p in ("rows", "cols"))
+
+
+def pass_ms(torch, fn, iters=5):
+    """Device ms per call of the backward's kernels by kind ("rows",
+    "cols", "sums": the sums of the column chunks' parts) over `iters`
+    calls of fn, from torch.profiler's device times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {"rows": 0.0, "cols": 0.0, "sums": 0.0}
+    for a in prof.key_averages():
+        kind = pass_kind(a.key)
+        if kind is not None:
+            out[kind] += a.device_time_total / 1e3 / iters
+    return out
+
+
+def pass_kind(kernel):
+    """"rows", "cols" or "sums" for a backward kernel's name in a profiler
+    trace, None for any other kernel."""
+    for kind, stem in (("rows", "attention_bwd_rows"),
+                       ("cols", "attention_bwd_cols"),
+                       ("sums", "sum_parts_kernel")):
+        if stem in kernel:
+            return kind
+    return None
+
+
 def _sdpa_backend(torch, q, k, v):
     try:
         return SDPA_BACKENDS.get(int(torch._fused_sdp_choice(q, k, v,
@@ -612,6 +699,7 @@ def compare_kernels(torch, shapes=None):
     CHECK_ONLY_SHAPES with their errors only); and the spatial bands' rows
     in each type."""
     _phase("kernels")
+    from compare_gan_torch.ops import _build
     from compare_gan_torch.ops import fused_attention as fa
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = torch.device("cuda")
@@ -622,6 +710,8 @@ def compare_kernels(torch, shapes=None):
     eval_row = s3gan_row = None
     deep_rows, convergence_rows, hires_rows, spatial_rows = [], [], [], []
     feat8_rows = []
+    ptxas = {name: (regs, st, ld) for name, regs, st, ld in
+             ptxas_report(_build.build_log)}
     for name, (b, n, m, c, cg), dtype_name, with_bwd, summed in _cases():
         if shapes is not None and (name, (b, n, m, c, cg)) not in shapes:
             continue
@@ -724,13 +814,18 @@ def compare_kernels(torch, shapes=None):
         print(f"  fwd issued-MMA floor {issued:.4f} ms (bf16 MMAs at "
               f"{PEAK_FLOPS['bfloat16'] / 1e12:g} TFLOP/s): kernel at "
               f"{100 * issued / times['fwd']:.1f}% of it")
+        if with_bwd:
+            bwd_extra = backward_row_extra(torch, fa, shape, dtype_name,
+                                           times["bwd"], ptxas, theta, phi,
+                                           g, dout, mx, den)
         rows = {kern: {
             "name": f"attention_{kern}", "shape": name, "B": b,
             "dtype": dtype_name,
             "max_abs_err": fwd_err if kern == "fwd" else bwd_err,
             "ms": times[kern], "plain_ms": times[kern + "_plain"],
             "library_ms": times[kern + "_library"],
-            "bound_ms": bounds[kern][0], "bound_by": bounds[kern][1]}
+            "bound_ms": bounds[kern][0], "bound_by": bounds[kern][1],
+            **(bwd_extra if kern == "bwd" else {})}
             for kern in kerns}
         for kern, row in rows.items():
             result[kern]["rows"].append(dict(row, N=n, M=m, C=c, Cg=cg,
@@ -761,6 +856,29 @@ def compare_kernels(torch, shapes=None):
         torch.cuda.empty_cache()
     return (result, eval_row, s3gan_row, deep_rows, convergence_rows,
             hires_rows, feat8_rows, spatial_rows)
+
+
+def backward_row_extra(torch, fa, shape, dtype_name, bwd_ms, ptxas, theta,
+                       phi, g, dout, mx, den):
+    """What a timed backward row adds: its passes' device ms (`pass_ms`),
+    at C <= 64 the design's issued-MMA floor and the kernel's share of it,
+    the exponential floor, and the ptxas registers and spill bytes (stores,
+    loads) of its row and column pass kernels. Prints them."""
+    passes = pass_ms(torch, lambda: fa.attention_bwd(theta, phi, g, dout, mx,
+                                                     den))
+    issued = issued_bwd_ms(shape, dtype_name) if shape[3] <= 64 else None
+    expf = exp_floor_ms(shape)
+    regs = {p: ptxas.get(k) for p, k in
+            zip(("rows", "cols"), bwd_kernel_names(shape, dtype_name))}
+    print("  bwd passes ms " + " ".join(f"{k} {v:.4f}"
+                                        for k, v in passes.items())
+          + (f"; issued-MMA floor {issued:.4f} ms (kernel at "
+             f"{100 * issued / bwd_ms:.1f}% of it)" if issued else "")
+          + f"; exp floor {expf:.4f} ms; ptxas (registers, spill stores, "
+          f"loads) {regs}")
+    return {"rows_ms": passes["rows"], "cols_ms": passes["cols"],
+            "sums_ms": passes["sums"], "issued_mma_ms": issued,
+            "exp_floor_ms": expf, "ptxas": regs}
 
 
 def deep_shape_row(name, b, dtype_name, backend, rows, issued):

@@ -24,17 +24,19 @@
 // pass. C = 12 or 24 is shallow, so the score product is cheap next to the
 // exponentials; Cg = 48 or 96 makes the P.g product the larger matmul.
 // Measured on an H100 (tools/attention_variants.py, PERF.md), neither floor
-// is what holds these kernels back; the staging of the key (row) tiles
-// weighs most: every block re-reads its batch element's whole phi and g
-// (or theta and dout) from L2 into shared memory.
+// is what holds the forward back; the staging of its key tiles weighs most
+// (every block re-reads its batch element's whole phi and g from L2 into
+// shared memory by cp.async). For the backward at C <= 64 see the note
+// above attention_bwd_rows_kernel.
 //
-// Design (FlashAttention-2/3 on wgmma and mma.sync):
+// Design (FlashAttention-2/3 on wgmma; mma.sync past C 64):
 //  * Every product runs on the tensor cores with bf16 operands and f32
 //    accumulation. C is zero-padded to CP = 16, 32, 48 or 64 (multiples of
 //    the MMA depth); a C > 64 is cut into chunks of 64, the last padded to
-//    16, by the wide kernels (see there). A block is 8 warps, 128 rows, so
-//    each staged tile serves 128 rows; a warp owns 16 rows (or 16 keys in
-//    the backward column pass).
+//    16, by the wide kernels (see there). A block covers 128 rows (128 keys
+//    in the backward column pass), so each staged tile serves 128 rows: 8
+//    warps in the forward and the wide kernels, and in the backward at C <=
+//    64 two consumer warpgroups and a producer warp.
 //  * Cg is cut into nz = ceil(Cg / 128) column chunks of equal width, each
 //    zero-padded to GP = 48, 96 or 128, one chunk per blockIdx.z: a warp's
 //    accumulators and operand fragments of width Cg would outgrow the 255
@@ -51,8 +53,9 @@
 //    columns of dg = P^T.dout_z and a part of dphi from
 //    dS_z^T = P^T*(dP_z^T - [z = 0] row), summed likewise. With one chunk
 //    the passes write their outputs directly, as before.
-//  * The staged tiles live in dynamic shared memory (64 KB at most a block,
-//    past the 48 KB of static shared memory at CP = 64, GP = 128).
+//  * The staged tiles live in dynamic shared memory (64 KB at most a block
+//    in the forward and the wide kernels, 192 KB in the backward at C <= 64,
+//    past the 48 KB of static shared memory).
 //  * The kernels are compiled once per padded C (CGT_CP, one object each)
 //    and once for C > 64 (CGT_WIDE), the objects built in parallel; the
 //    entry object dispatches on C and Cg.
@@ -60,14 +63,18 @@
 //    registers, B from shared memory: S = theta.phi^T with N = 64 keys,
 //    then O += P.g with N = GP, the g tile read transposed. The key tiles
 //    are staged in wgmma's core-matrix layout (8 rows x 16 bytes a block).
-//  * Backward: mma.sync m16n8k16, whose 16-row fragments also fit the
+//  * Backward at C <= 64: wgmma for every product of both passes, A and B
+//    from shared memory for the score products, fed by TMA or cp.async
+//    from a producer warp through a ring of 4 (bf16) or 2 (f32) stages
+//    with an mbarrier each (the note above attention_bwd_rows_kernel).
+//    Past C 64: mma.sync m16n8k16, whose 16-row fragments also fit the
 //    column pass's transposed products (dS^T.theta, P^T.dout); B fragments
 //    come from row-padded tiles (8 extra elements a row, free of bank
 //    conflicts) by ldmatrix, transposed for P.g-like products.
-//  * The key (or row) tiles of 64 are staged by cp.async into a two-buffer
-//    ring in shared memory, so the next tile's copy is in flight while the
-//    current one is consumed; rows beyond the edge are zero-filled by the
-//    copy itself.
+//  * The forward's and the wide kernels' key (or row) tiles of 64 are
+//    staged by cp.async into a two-buffer ring in shared memory, so the
+//    next tile's copy is in flight while the current one is consumed; rows
+//    beyond the edge are zero-filled by the copy itself.
 //  * Scores never leave the registers: the f32 accumulator fragment of
 //    S = theta.phi^T is exactly the A-operand layout of the next product
 //    (for wgmma as for mma.sync), so P (or dS) is rounded in registers and
@@ -86,23 +93,26 @@
 //         wrong for a bf16 out), and dtheta = (P*dP).phi - row*(P.phi),
 //         both products accumulated on the tensor cores in one sweep.
 //         It writes dtheta in the input type and row as [B,N] f32 scratch.
-//      2. columns: a warp owns 16 keys and loops over all N rows:
+//      2. columns: a warpgroup owns 64 keys and loops over all N rows:
 //         S^T = phi.theta^T, dP^T = g.dout^T, dS^T = P^T*(dP^T - row),
 //         dphi += dS^T.theta and dg += P^T.dout in f32 registers, written
 //         once in f32 as _bwd_kernel's outputs.
 //  * Rounding: bf16 inputs make every MMA product exact in f32; the only
 //    rounding beyond the f32 sums is that of P to bf16 before O += P.g in
-//    the forward. The backward keeps P, P*dP and dS as bf16 hi + lo parts
-//    (two MMAs per product, about 2^-17 relative): its sums cancel where
-//    the attention is peaked (dtheta is the difference of two products;
-//    dphi and dg sum terms of either sign over all rows), and one bf16
+//    the forward and of P to bf16 before dg += P^T.dout in the backward at
+//    C <= 64. The backward keeps P (but for dg there), P*dP and dS as bf16
+//    hi + lo parts (two MMAs per product, about 2^-17 relative): its sums
+//    cancel where the attention is peaked (dtheta is the difference of two
+//    products; dphi sums terms of either sign over all rows), and one bf16
 //    rounding per term there exceeds the 2e-2 tolerance. f32 inputs are
 //    split into bf16 hi + lo parts and each product takes four MMAs
 //    (lo.lo + lo.hi + hi.lo + hi.hi; what the split drops is about 2^-17
 //    relative per operand), so the f32 path keeps the 1e-4 agreement on
 //    the tensor cores with the same fragment layouts; it stages its tiles
-//    with plain loads (the split happens on the way into shared memory).
+//    with plain loads (the split happens on the way into shared memory),
+//    and its backward keeps P's lo part for dg as well.
 
+#include <cuda.h>  // CUtensorMap
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -159,14 +169,12 @@ constexpr int kRows = 16 * kWarps;  // rows (column pass: keys) per block
 constexpr int kTile = 64;           // keys (column pass: rows) per staged tile
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Blocks each SM must hold, which caps the registers at 65536 / (256 * 2)
-// = 128 a thread: on an H100, 16 warps an SM at 128 registers ran faster
-// than the compiler's own choice of up to 255 registers (12 warps or
-// fewer). The f32 backward at Cg > 48 and every kernel at C > 32 keep the
-// compiler's choice, since at 128 registers they spill.
-constexpr int min_blocks(bool split, bool backward, int CP, int GP) {
-  return CP > 32 || (split && backward && GP > 48) ? 1 : 2;
-}
+// Forward blocks each SM must hold, which caps the registers at 65536 /
+// (256 * 2) = 128 a thread: on an H100, 16 warps an SM at 128 registers ran
+// faster than the compiler's own choice of up to 255 registers (12 warps or
+// fewer). At C > 32 it keeps the compiler's choice, since at 128 registers
+// it spills.
+constexpr int min_blocks(int CP) { return CP > 32 ? 1 : 2; }
 
 template <typename T>
 struct Traits {
@@ -439,6 +447,39 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 template <int kTransB>
+__device__ __forceinline__ void wgmma_n16(float* d, const uint32_t* a,
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+        "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_n32(float* d, const uint32_t* a,
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+        "n"(kTransB));
+}
+
+template <int kTransB>
 __device__ __forceinline__ void wgmma_n48(float* d, const uint32_t* a,
                                          uint64_t b, int scale_d) {
   asm volatile(
@@ -546,22 +587,33 @@ __device__ __forceinline__ void wgmma_n128(float* d, const uint32_t* a,
 template <int N, int kTransB>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
                                          uint64_t b, int scale_d) {
-  static_assert(N == 48 || N == 64 || N == 96 || N == 128, "wgmma width");
+  static_assert(N == 16 || N == 32 || N == 48 || N == 64 || N == 96 ||
+                    N == 128,
+                "wgmma width");
+  if (N == 16) wgmma_n16<kTransB>(d, a, b, scale_d);
+  if (N == 32) wgmma_n32<kTransB>(d, a, b, scale_d);
   if (N == 48) wgmma_n48<kTransB>(d, a, b, scale_d);
   if (N == 64) wgmma_n64<kTransB>(d, a, b, scale_d);
   if (N == 96) wgmma_n96<kTransB>(d, a, b, scale_d);
   if (N == 128) wgmma_n128<kTransB>(d, a, b, scale_d);
 }
 
-// d (+)= a.b with hi/lo parts as in mma(); scale_d = 0 overwrites d.
-template <bool kSplit, int N, int kTransB>
+// d (+)= a.b, where an operand with kSplit* is the sum of its hi and lo
+// parts, as in mma(): the small terms go first. scale_d = 0 overwrites d.
+template <bool kSplitA, bool kSplitB, int N, int kTransB>
 __device__ __forceinline__ void wgmma_acc(float* d, const FragA& a,
                                           uint64_t bh, uint64_t bl,
                                           int scale_d) {
-  if (kSplit) {
+  if (kSplitA && kSplitB) {
     wgmma_rs<N, kTransB>(d, a.l, bl, scale_d);
-    wgmma_rs<N, kTransB>(d, a.l, bh, 1);
-    wgmma_rs<N, kTransB>(d, a.h, bl, 1);
+    scale_d = 1;
+  }
+  if (kSplitA) {
+    wgmma_rs<N, kTransB>(d, a.l, bh, scale_d);
+    scale_d = 1;
+  }
+  if (kSplitB) {
+    wgmma_rs<N, kTransB>(d, a.h, bl, scale_d);
     scale_d = 1;
   }
   wgmma_rs<N, kTransB>(d, a.h, bh, scale_d);
@@ -717,10 +769,9 @@ __device__ __forceinline__ void fwd_tile(float (&s)[kTile / 8][4],
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < kTile / 16; ++kk)
-    wgmma_acc<kSplit, GP, 1>(&o[0][0], pa[kk],
-                             wgmma_desc(gh + kk * 128, 128, kGColGroup),
-                             wgmma_desc(gl + kk * 128, 128, kGColGroup),
-                             1);
+    wgmma_acc<kSplit, kSplit, GP, 1>(
+        &o[0][0], pa[kk], wgmma_desc(gh + kk * 128, 128, kGColGroup),
+        wgmma_desc(gl + kk * 128, 128, kGColGroup), 1);
   wgmma_commit();
   wgmma_wait();
 }
@@ -761,7 +812,7 @@ __device__ __forceinline__ void fwd_store(float (&o)[GP / 8][4],
 
 template <typename T, int CP, int GP>
 __global__ void
-__launch_bounds__(kThreads, min_blocks(Traits<T>::kSplit, false, CP, GP))
+__launch_bounds__(kThreads, min_blocks(CP))
 attention_fwd_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
                      const T* __restrict__ g, T* __restrict__ out,
                      float* __restrict__ mx_out, float* __restrict__ den_out,
@@ -821,7 +872,7 @@ attention_fwd_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
     wgmma_fence();
 #pragma unroll
     for (int kc = 0; kc < CP / 16; ++kc)
-      wgmma_acc<kSplit, kTile, 0>(
+      wgmma_acc<kSplit, kSplit, kTile, 0>(
           &s[0][0], th[kc],
           wgmma_desc(ph + kc * 128, 128, kPhiRowGroup),
           wgmma_desc(phl + kc * 128, 128, kPhiRowGroup), kc > 0);
@@ -835,10 +886,440 @@ attention_fwd_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
                    blockIdx.z == 0);
 }
 
+// ---------------------------------------------------------------------------
+// The backward at C <= 64 (CP = 16, 32, 48, 64; GP = 48, 96, 128), on wgmma
+// fed by an asynchronous ring of tiles. Replaces PR 2's mma.sync passes.
+//
+// A block is kConsumers = 2 consumer warpgroups, each owning 64 rows (row
+// pass) or 64 keys (column pass), and one producer warpgroup: 384 threads,
+// one block an SM. setmaxnreg moves registers from the producer (64 a
+// thread) to the consumers (216; the f32 column pass at GP 128 holds dg 64
+// x 128 and dphi 64 x 64 in f32 besides the scores), where an even split
+// would leave 168.
+// Both passes keep the block-invariant operand of their two score products
+// in shared memory as wgmma's A: theta and dout (row pass), phi and g
+// (column pass), staged once by all threads, split into bf16 hi + lo parts
+// for f32. The producer warpgroup stages the other operand tile by tile into a
+// ring of kStages stages (4 for bf16, 2 for f32, whose hi and lo parts
+// double a stage): phi and g (row pass), theta, dout and the per-row
+// softmax terms (column pass: the exponent bias, which the row pass writes
+// beside the row term, and the row term). Stage s is full when its
+// mbarrier full[s] completes (an arrival from each producer thread and
+// TMA's bytes) and free again when empty[s] does (one arrival from each
+// consumer warp once its products on the stage have completed).
+//
+// Staging, by operand: bf16 with rows of a multiple of 8 elements and a
+// 16-byte aligned base goes by TMA (cp.async.bulk.tensor, one box of 64
+// rows x 8 columns per column group, rows past the end zero-filled by the
+// copy, completion counted on full[s]); the tensor map is a 3-D view
+// [B][rows][ld] encoded per launch. TMA cannot take rows whose stride is
+// not a multiple of 16 bytes (D's C = 12, the ragged test shapes): those
+// go by cp.async of 16, 8 or 4 bytes, zero-filled past the last row, and
+// rows too odd for 4-byte copies (C = 7) and every f32 tile by plain loads
+// in batches of four 16-byte rows a thread, which split f32 into hi and lo
+// on the way into shared memory. A producer thread whose stage holds only
+// copies arrives through cp.async.mbarrier.arrive.noinc, when its copies
+// land, and goes on to the next stage at once; one that stored with plain
+// loads waits for its copies, fences its stores to the async proxy and
+// arrives. The consumers fence what they acquire to the async proxy
+// before their products read it. So a stage's copies of every kind
+// overlap the consumers' products on the stages before it.
+//
+// Tiles are in wgmma's no-swizzle core-matrix layout, column-group major:
+// element (r, c) of a 64-row tile at byte (r % 8) * 16 + (r / 8) * 128 +
+// (c % 8) * 2 + (c / 8) * kGroup (kGroup = 1024, one TMA box). One tile
+// serves as a K-major operand (K = its columns: desc_k) and as an MN-major
+// one (K = its rows: desc_mn), so the same phi tile feeds S = theta.phi^T
+// and (P*dP).phi, the same theta tile S^T = phi.theta^T and dS^T.theta.
+//
+// Products, m64nNk16 per consumer warpgroup, f32 accumulate:
+//   row pass: S = theta.phi^T and dP = dout.g^T (A and B from shared
+//     memory, N = 64 keys), then a1 += (P*dP).phi and a2 += P.phi (A from
+//     registers in the accumulator layout, B = the phi tile read MN-major,
+//     N = CP); dtheta = a1 - row * a2, row = sum_m P*dP.
+//   column pass: S^T = phi.theta^T and dP^T = g.dout^T (N = 64 rows), then
+//     dphi += dS^T.theta (N = CP) and dg += P^T.dout (N = GP).
+// Exponentials overlap products across the two consumer warpgroups: each
+// waits only on its own wgmma groups and on the ring, so one's ex2s issue
+// while the other's products are in flight.
+//
+// What bounds it, measured on an H100 (tools/attention_variants.py,
+// PERF.md): at BigGAN-128's widths in bf16 the passes run at 20-40% of
+// the rate of the MMAs they issue, and neither the staging, the
+// exponentials, the hi/lo packing nor either group of products alone is
+// what holds them: dropping any one of them saves 2-25% of a pass. What
+// does is the dependent chain in each warpgroup (products, wait, the
+// elementwise work and packing, products, wait), which two consumer
+// warpgroups overlap only in part. Committing S and dP apart, so that the
+// exponentials run while dP is in flight, was no faster (slower at G's
+// widths), nor was deferring each tile's last wait past the next tile's
+// score products.
+//
+// Hi + lo parts (two MMAs a product; four with f32 operands split): kept
+// for P*dP and P in the row pass (dtheta is their difference, which
+// cancels where the attention is peaked) and for dS in the column pass
+// (dphi sums terms of either sign over all rows); P for dg takes its hi
+// part alone with bf16 inputs (dg sums P*dout with P >= 0: no cancellation
+// from P, so a bf16 rounding of each P stays far below the 2e-2 tolerance)
+// and both parts with f32 inputs (1e-4).
+//
+// Grid: the row pass runs N/128 x B x nz blocks, the column pass M/128 x B
+// x nz, one block an SM: 256 column blocks at B 32 fill two waves of 132 to
+// 97%; B 38's 304 leave a third wave of 40 (the work comes in units of 128
+// keys of one example; splitting N across blocks would need a sum of parts).
+// ---------------------------------------------------------------------------
+
+constexpr int kConsumers = 2;
+static_assert(kRows == kConsumers * kTile, "a block's rows");
+constexpr int kBwdThreads = 128 * (kConsumers + 1);
+constexpr int kProducerWarp = 4 * kConsumers;  // the producer's first warp
+constexpr int kProducers = 128;
+// Registers a thread after setmaxnreg: 64 * 128 + 216 * 256 <= 65536.
+constexpr int kProducerRegs = 64, kConsumerRegs = 216;
+constexpr int kGroup = kTile * 16;  // bytes of one column group of a tile
+constexpr int kTma = -1;            // a tile operand staged by TMA
+
 template <typename T, int CP, int GP>
-__global__ void
-__launch_bounds__(kThreads, min_blocks(Traits<T>::kSplit, true, CP, GP))
-attention_bwd_rows_kernel(const T* __restrict__ theta,
+struct BwdSmem {
+  static constexpr int kParts = Traits<T>::kSplit ? 2 : 1;
+  static constexpr int kStages = Traits<T>::kSplit ? 2 : 4;
+  static constexpr int kNTile = kTile * CP, kWTile = kTile * GP;  // elements
+  // Block-invariant A operands: [kConsumers][kParts] narrow tiles, then
+  // [kConsumers][kParts] wide tiles; then the ring's stages, each
+  // [kParts] narrow tiles and [kParts] wide tiles.
+  static constexpr int kInv = kConsumers * kParts * (kNTile + kWTile);
+  static constexpr int kStage = kParts * (kNTile + kWTile);
+  static constexpr int kTiles = kInv + kStages * kStage;  // bf16 elements
+  // Then per stage the column pass's exponent bias and row term of 64 rows
+  // (f32, zero past N and, but in column chunk 0, for the row term), and
+  // the barriers full[kStages], empty[kStages].
+  static constexpr int kScalars = kStages * 2 * kTile;
+  static constexpr int kBytes = kTiles * 2 + kScalars * 4 + 2 * kStages * 8;
+
+  bf16* base;
+  __device__ explicit BwdSmem(unsigned char* p)
+      : base(reinterpret_cast<bf16*>(p)) {}
+  __device__ bf16* narrow_inv(int w, int part) const {
+    return base + (w * kParts + part) * kNTile;
+  }
+  __device__ bf16* wide_inv(int w, int part) const {
+    return base + kConsumers * kParts * kNTile + (w * kParts + part) * kWTile;
+  }
+  __device__ bf16* narrow(int s, int part) const {
+    return base + kInv + s * kStage + part * kNTile;
+  }
+  __device__ bf16* wide(int s, int part) const {
+    return base + kInv + s * kStage + kParts * kNTile + part * kWTile;
+  }
+  __device__ float* bias(int s) const {
+    return reinterpret_cast<float*>(base + kTiles) + s * 2 * kTile;
+  }
+  __device__ float* rowterm(int s) const { return bias(s) + kTile; }
+  __device__ uint64_t* full(int s) const {
+    return reinterpret_cast<uint64_t*>(bias(0) + kScalars) + s;
+  }
+  __device__ uint64_t* empty(int s) const { return full(kStages) + s; }
+};
+
+// Descriptors of a 64-row tile in the layout above for the k16-th step of
+// K: K-major (K runs along the tile's columns) and MN-major (along its
+// rows; wgmma's transposed B).
+__device__ __forceinline__ uint64_t desc_k(const bf16* tile, int k16) {
+  return wgmma_desc(reinterpret_cast<const char*>(tile) + k16 * 2 * kGroup,
+                    kGroup, 128);
+}
+__device__ __forceinline__ uint64_t desc_mn(const bf16* tile, int k16) {
+  return wgmma_desc(reinterpret_cast<const char*>(tile) + k16 * 256, 128,
+                    kGroup);
+}
+
+// wgmma m64n64k16 with A and B from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (+)= a.b, 64 x 64 over one k16 step, a and b from shared memory, each
+// the sum of its hi and lo parts with kSplit (small terms first); scale_d
+// = 0 overwrites d.
+template <bool kSplit>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t ah, uint64_t al,
+                                         uint64_t bh, uint64_t bl,
+                                         int scale_d) {
+  if (kSplit) {
+    wgmma_ss_n64(d, al, bl, scale_d);
+    wgmma_ss_n64(d, al, bh, 1);
+    wgmma_ss_n64(d, ah, bl, 1);
+    scale_d = 1;
+  }
+  wgmma_ss_n64(d, ah, bh, scale_d);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+// Arrives on bar once all of this thread's cp.asyncs so far have landed
+// (the arrival counts toward the barrier's expected count).
+__device__ __forceinline__ void mbar_arrive_on_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+}
+
+// One TMA box (8 columns x 64 rows of example b) into 1 KB at dst.
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
+                                        int col, int row, int b,
+                                        uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(b),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// 8 values of a row from p (n of them valid, zero past them): bf16 with
+// a 16-byte aligned whole row as its 16 bytes (raw), else as f32 (v).
+template <typename T>
+__device__ __forceinline__ bool load8(const T* p, int n, float (&v)[8],
+                                      uint4& raw) {
+  const bool vec = n >= 8 && (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  if constexpr (sizeof(T) == 2) {
+    if (vec) {
+      raw = *reinterpret_cast<const uint4*>(p);
+      return true;
+    }
+  } else if (vec) {
+    const float4 x = reinterpret_cast<const float4*>(p)[0];
+    const float4 y = reinterpret_cast<const float4*>(p)[1];
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+    v[4] = y.x, v[5] = y.y, v[6] = y.z, v[7] = y.w;
+    return false;
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = e < n ? to_f32(p[e]) : 0.f;
+  return false;
+}
+
+// Plain loads of rows [r0, r0 + kTile) x columns [0, W) of a row-major
+// [rows, width] block at src (row stride ld) into a tile, zero past `rows`
+// and `width`, f32 split into hi and lo; thread `tid` of `nthreads`. A
+// thread takes 8 columns of a row (one core-matrix row, 16 bytes), rows
+// fastest, so a warp's stores are free of bank conflicts; it loads kBatch
+// of them before it stores any, so their loads are in flight together.
+template <typename T, int W, int kBatch = 4>
+__device__ __forceinline__ void fill_plain(bf16* hi, bf16* lo, const T* src,
+                                           int r0, int rows, int width,
+                                           int ld, int tid, int nthreads) {
+  constexpr bool kSplit = Traits<T>::kSplit;
+  constexpr int kChunks = kTile * (W / 8);
+  for (int i0 = tid; i0 < kChunks; i0 += kBatch * nthreads) {
+    float v[kBatch][8];
+    uint4 raw[kBatch];
+    bool whole[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int idx = i0 + k * nthreads, q = idx / kTile, r = idx % kTile;
+      const bool ok = idx < kChunks && r0 + r < rows;
+      whole[k] = load8(src + static_cast<long>(ok ? r0 + r : 0) * ld + q * 8,
+                       ok ? width - q * 8 : 0, v[k], raw[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int idx = i0 + k * nthreads;
+      if (idx >= kChunks) break;
+      uint4 h = raw[k], l;
+      if (!whole[k]) {
+        uint32_t* hw = &h.x;
+        uint32_t* lw = &l.x;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pack<kSplit>(v[k][2 * e], v[k][2 * e + 1], hw[e], lw[e]);
+      }
+      const int off = (idx / kTile) * kGroup + (idx % kTile) * 16;
+      *reinterpret_cast<uint4*>(reinterpret_cast<char*>(hi) + off) = h;
+      if (kSplit)
+        *reinterpret_cast<uint4*>(reinterpret_cast<char*>(lo) + off) = l;
+    }
+  }
+}
+
+// Producer thread pt's share of a ring stage: rows [r0, r0 + kTile) x
+// columns [0, width) of the [rows, width] block at src (row stride ld; in
+// the tensor map, from column col0 of example b). `how`: kTma, thread 0
+// issues one box per column group (width % 8 == 0 then); 16, 8 or 4,
+// cp.async of that many bytes (zero past `rows`); 0, fill_plain. Columns
+// past `width` keep the zeros the prologue wrote, but for fill_plain,
+// which writes them.
+template <typename T, int W>
+__device__ __forceinline__ void fill_tile(bf16* hi, bf16* lo, const T* src,
+                                          int r0, int rows, int width,
+                                          int ld, int how,
+                                          const CUtensorMap* map, int col0,
+                                          int b, uint64_t* bar, int pt) {
+  if (how == kTma) {
+    if (pt == 0)
+      for (int q = 0; q < width / 8; ++q)
+        tma_box(reinterpret_cast<char*>(hi) + q * kGroup, map, col0 + q * 8,
+                r0, b, bar);
+  } else if (how > 0) {
+    const int per_row = width * 2 / how;
+    for (int idx = pt; idx < kTile * per_row; idx += kProducers) {
+      const int r = idx / per_row, bq = (idx - r * per_row) * how;
+      const bool ok = r0 + r < rows;
+      const char* s = reinterpret_cast<const char*>(
+                          src + static_cast<long>(ok ? r0 + r : 0) * ld) +
+                      bq;
+      char* d = reinterpret_cast<char*>(hi) + (r % 8) * 16 + (r / 8) * 128 +
+                bq % 16 + (bq / 16) * kGroup;
+      if (how == 16)
+        cp_async<16>(d, s, ok);
+      else if (how == 8)
+        cp_async<8>(d, s, ok);
+      else
+        cp_async<4>(d, s, ok);
+    }
+  } else {
+    // f32 in batches of four rows a thread; bf16 comes here only for rows
+    // too odd for cp.async, one at a time within the producer's registers.
+    fill_plain<T, W, sizeof(T) == 4 ? 4 : 1>(hi, lo, src, r0, rows, width,
+                                             ld, pt, kProducers);
+  }
+}
+
+// The bytes TMA brings into a stage: 1 KB a column group of each operand
+// it stages.
+__device__ __forceinline__ int tma_bytes(int how_n, int wn, int how_w,
+                                         int ww) {
+  return ((how_n == kTma ? wn / 8 : 0) + (how_w == kTma ? ww / 8 : 0)) *
+         kGroup;
+}
+
+// Before the roles split: the ring's tiles and scalars zeroed (padding
+// columns and rows stay zero), the barriers initialised, and the
+// block-invariant A operands staged by every thread: the narrow [rows, C]
+// and wide [rows, cw] (row stride Cg) blocks at rows r0 + 64 w for
+// consumer warpgroup w.
+template <typename T, int CP, int GP>
+__device__ __forceinline__ void bwd_prologue(const BwdSmem<T, CP, GP>& sm,
+                                             const T* narrow, const T* wide,
+                                             int r0, int rows, int C, int cw,
+                                             int Cg) {
+  using L = BwdSmem<T, CP, GP>;
+  uint4* ring = reinterpret_cast<uint4*>(sm.narrow(0, 0));
+  for (int i = threadIdx.x;
+       i < (L::kStages * L::kStage * 2 + L::kScalars * 4) / 16;
+       i += kBwdThreads)
+    ring[i] = make_uint4(0, 0, 0, 0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(sm.full(s), kProducers);
+      mbar_init(sm.empty(s), 4 * kConsumers);
+    }
+  }
+  for (int w = 0; w < kConsumers; ++w) {
+    fill_plain<T, CP>(sm.narrow_inv(w, 0), sm.narrow_inv(w, L::kParts - 1),
+                      narrow, r0 + w * kTile, rows, C, C, threadIdx.x,
+                      kBwdThreads);
+    fill_plain<T, GP>(sm.wide_inv(w, 0), sm.wide_inv(w, L::kParts - 1), wide,
+                      r0 + w * kTile, rows, cw, Cg, threadIdx.x,
+                      kBwdThreads);
+  }
+  fence_proxy_async();
+  __syncthreads();
+}
+
+// The producer warpgroup: fills stage j % kStages for tiles j = 0 ..
+// ntiles-1, once the consumers have freed it, and arrives on its full
+// barrier: when its copies land, or, where it stored with plain loads
+// (`plain`), after them (TMA's bytes complete the phase themselves).
+template <typename L, typename Fill>
+__device__ __forceinline__ void produce(const L& sm, int ntiles, bool plain,
+                                        Fill fill) {
+  setmaxnreg_dec<kProducerRegs>();
+  for (int j = 0; j < ntiles; ++j) {
+    const int s = j % L::kStages;
+    if (j >= L::kStages) mbar_wait(sm.empty(s), (j / L::kStages - 1) & 1);
+    fill(j, s);
+    if (plain) {
+      cp_async_commit();
+      cp_async_wait<0>();
+      fence_proxy_async();
+      mbar_arrive(sm.full(s));
+    } else {
+      mbar_arrive_on_copies(sm.full(s));
+    }
+  }
+}
+
+// A consumer waits for stage s's j-th fill and makes what every proxy
+// wrote there visible to its products.
+template <typename L>
+__device__ __forceinline__ void acquire(const L& sm, int j) {
+  mbar_wait(sm.full(j % L::kStages), (j / L::kStages) & 1);
+  fence_proxy_async();
+}
+
+// A consumer warp is done with stage s: its products on it have completed.
+template <typename L>
+__device__ __forceinline__ void release(const L& sm, int s) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(sm.empty(s));
+}
+
+template <typename T, int CP, int GP>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+attention_bwd_rows_kernel(const __grid_constant__ CUtensorMap tm_phi,
+                          const __grid_constant__ CUtensorMap tm_g,
+                          const T* __restrict__ theta,
                           const T* __restrict__ phi, const T* __restrict__ g,
                           const T* __restrict__ dout,
                           const float* __restrict__ mx,
@@ -846,52 +1327,54 @@ attention_bwd_rows_kernel(const T* __restrict__ theta,
                           T* __restrict__ dtheta,
                           float* __restrict__ dtheta_parts,
                           float* __restrict__ row_out, int N, int M, int C,
-                          int Cg, int chunk, int vec_c, int vec_g) {
-  using R = Ring<T>;
-  constexpr bool kSplit = R::kSplit;
-  constexpr int CS = CP + 8, GS = GP + 8;
-  constexpr int kPhiTile = kTile * CS, kGTile = kTile * GS;
-  bf16* const phi_s = reinterpret_cast<bf16*>(smem);  // [kBuf][kParts]
-  bf16* const g_s = phi_s + R::kBuf * R::kParts * kPhiTile;
-  auto phi_at = [&](int buf, int part) {
-    return phi_s + (buf * R::kParts + part) * kPhiTile;
-  };
-  auto g_at = [&](int buf, int part) {
-    return g_s + (buf * R::kParts + part) * kGTile;
-  };
-
+                          int Cg, int chunk, int how_c, int how_g) {
+  using L = BwdSmem<T, CP, GP>;
+  constexpr bool kSplit = Traits<T>::kSplit;
+  const L sm(smem);
   const int b = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t = lane & 3, r0 = blockIdx.x * kRows + warp * 16;
   // This block's columns [c0, c0 + cw) of dout and g.
   const int c0 = blockIdx.z * chunk;
   const int cw = Cg - c0 < chunk ? Cg - c0 : chunk;
+  const long bn = static_cast<long>(b) * N;
   const T* phi_b = phi + static_cast<long>(b) * M * C;
   const T* g_b = g + static_cast<long>(b) * M * Cg + c0;
+  const int ntiles = (M + kTile - 1) / kTile;
+  bwd_prologue(sm, theta + bn * C, dout + bn * Cg + c0, blockIdx.x * kRows,
+               N, C, cw, Cg);
 
-  if (!kSplit) {
-    zero(phi_s, R::kBuf * R::kParts * (kPhiTile + kGTile));
-    __syncthreads();
+  if (warp >= kProducerWarp) {
+    const int pt = threadIdx.x - kProducerWarp * 32;
+    auto fill = [&](int j, int s) {
+      if (pt == 0 && tma_bytes(how_c, C, how_g, cw) > 0)
+        mbar_expect_tx(sm.full(s), tma_bytes(how_c, C, how_g, cw));
+      fill_tile<T, CP>(sm.narrow(s, 0), sm.narrow(s, L::kParts - 1), phi_b,
+                       j * kTile, M, C, C, how_c, &tm_phi, 0, b, sm.full(s),
+                       pt);
+      fill_tile<T, GP>(sm.wide(s, 0), sm.wide(s, L::kParts - 1), g_b,
+                       j * kTile, M, cw, Cg, how_g, &tm_g, c0, b, sm.full(s),
+                       pt);
+    };
+    produce(sm, ntiles, how_c == 0 || how_g == 0, fill);
+    return;
   }
+  setmaxnreg_inc<kConsumerRegs>();
 
-  FragA th[CP / 16], dO[GP / 16];
-#pragma unroll
-  for (int kc = 0; kc < CP / 16; ++kc)
-    load_a(theta + static_cast<long>(b) * N * C, r0, N, kc * 16, C, C,
-           th[kc]);
-#pragma unroll
-  for (int kc = 0; kc < GP / 16; ++kc)
-    load_a(dout + static_cast<long>(b) * N * Cg + c0, r0, N, kc * 16, cw, Cg,
-           dO[kc]);
-  // Rows beyond N: theta is zero there, so s = 0 and P = ex2(0) * 0 = 0.
-  float nb[2], inv[2];
+  const int w = warp >> 2, gq = lane >> 2, t = lane & 3;
+  const int r_w = blockIdx.x * kRows + w * kTile + (warp & 3) * 16;
+  const bf16 *th_h = sm.narrow_inv(w, 0),
+             *th_l = sm.narrow_inv(w, L::kParts - 1);
+  const bf16 *do_h = sm.wide_inv(w, 0), *do_l = sm.wide_inv(w, L::kParts - 1);
+  // P = ex2(s * log2(e) + nb) with nb = -(mx log2(e) + log2(den)); rows
+  // beyond N have theta = 0 and nb = -inf, so P = 0 there. Keys beyond M
+  // have phi = g = 0: P = ex2(nb) is finite there, and P*dP = 0 and
+  // P.phi = 0 take nothing from them.
+  float nb[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int row = r0 + (lane >> 2) + 8 * i;
-    const bool ok = row < N;
-    nb[i] = ok ? -mx[static_cast<long>(b) * N + row] * kLog2e : 0.f;
-    inv[i] = ok ? 1.f / den[static_cast<long>(b) * N + row] : 0.f;
+    const int row = r_w + gq + 8 * i;
+    nb[i] = row < N ? -fmaf(mx[bn + row], kLog2e, __log2f(den[bn + row]))
+                    : -INFINITY;
   }
-
   float a1[CP / 8][4], a2[CP / 8][4];  // (P*dP).phi and P.phi
 #pragma unroll
   for (int nt = 0; nt < CP / 8; ++nt)
@@ -899,67 +1382,50 @@ attention_bwd_rows_kernel(const T* __restrict__ theta,
     for (int e = 0; e < 4; ++e) a1[nt][e] = a2[nt][e] = 0.f;
   float rsum[2] = {0.f, 0.f};
 
-  auto issue = [&](int j, int buf) {
-    stage<T, CP, CS>(phi_at(buf, 0), phi_at(buf, R::kParts - 1), phi_b,
-                     j * kTile, M, C, C, vec_c);
-    stage<T, GP, GS>(g_at(buf, 0), g_at(buf, R::kParts - 1), g_b, j * kTile,
-                     M, cw, Cg, vec_g);
-  };
-  auto body = [&](int j, int buf) {
-    const bf16 *ph = phi_at(buf, 0), *phl = phi_at(buf, R::kParts - 1);
-    const bf16 *gh = g_at(buf, 0), *gl = g_at(buf, R::kParts - 1);
+  for (int j = 0; j < ntiles; ++j) {
+    const int s = j % L::kStages;
+    acquire(sm, j);
+    const bf16 *ph = sm.narrow(s, 0), *pl = sm.narrow(s, L::kParts - 1);
+    const bf16 *gh = sm.wide(s, 0), *gl = sm.wide(s, L::kParts - 1);
+    float sc[kTile / 8][4], dp[kTile / 8][4];
+    wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < kTile; ks += 16) {
-      float s[2][4], dp[2][4];
+    for (int kc = 0; kc < CP / 16; ++kc)
+      wgmma_ss<kSplit>(&sc[0][0], desc_k(th_h, kc), desc_k(th_l, kc),
+                       desc_k(ph, kc), desc_k(pl, kc), kc > 0);
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
+    for (int kc = 0; kc < GP / 16; ++kc)
+      wgmma_ss<kSplit>(&dp[0][0], desc_k(do_h, kc), desc_k(do_l, kc),
+                       desc_k(gh, kc), desc_k(gl, kc), kc > 0);
+    wgmma_commit();
+    wgmma_wait();
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+    for (int nt = 0; nt < kTile / 8; ++nt)
 #pragma unroll
-      for (int kc = 0; kc < CP / 16; ++kc) {
-        FragB b0, b1;
-        load_b_nk2<kSplit, CS>(ph, phl, ks, kc * 16, b0, b1);
-        mma<kSplit>(s[0], th[kc], b0);
-        mma<kSplit>(s[1], th[kc], b1);
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(fmaf(sc[nt][e], kLog2e, nb[e >> 1]));
+        sc[nt][e] = p;
+        dp[nt][e] *= p;
+        rsum[e >> 1] += dp[nt][e];
       }
+    FragA pa[kTile / 16], ta[kTile / 16];
 #pragma unroll
-      for (int kc = 0; kc < GP / 16; ++kc) {
-        FragB b0, b1;
-        load_b_nk2<kSplit, GS>(gh, gl, ks, kc * 16, b0, b1);
-        mma<kSplit>(dp[0], dO[kc], b0);
-        mma<kSplit>(dp[1], dO[kc], b1);
-      }
-      const int key0 = j * kTile + ks;
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p =
-              key0 + nt * 8 + 2 * t + (e & 1) < M
-                  ? ex2(fmaf(s[nt][e], kLog2e, nb[e >> 1])) * inv[e >> 1]
-                  : 0.f;
-          s[nt][e] = p;
-          dp[nt][e] *= p;
-          rsum[e >> 1] += dp[nt][e];
-        }
-      // P and P*dP as hi + lo parts in every type: dtheta is the
-      // difference of the two products, which cancels where the attention
-      // is peaked, so one bf16 rounding of P*dP or P could outweigh it.
-      FragA pa, ta;
-      acc_to_a<true>(s[0], s[1], pa);
-      acc_to_a<true>(dp[0], dp[1], ta);
-#pragma unroll
-      for (int np = 0; np < CP / 16; ++np) {
-        FragB b0, b1;
-        load_b_kn2<kSplit, CS>(ph, phl, ks, np * 16, b0, b1);
-        mma<true, kSplit>(a1[2 * np], ta, b0);
-        mma<true, kSplit>(a1[2 * np + 1], ta, b1);
-        mma<true, kSplit>(a2[2 * np], pa, b0);
-        mma<true, kSplit>(a2[2 * np + 1], pa, b1);
-      }
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      acc_to_a<true>(sc[2 * kk], sc[2 * kk + 1], pa[kk]);
+      acc_to_a<true>(dp[2 * kk], dp[2 * kk + 1], ta[kk]);
     }
-  };
-  pipeline<T>((M + kTile - 1) / kTile, issue, body);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      wgmma_acc<true, kSplit, CP, 1>(&a1[0][0], ta[kk], desc_mn(ph, kk),
+                                     desc_mn(pl, kk), 1);
+      wgmma_acc<true, kSplit, CP, 1>(&a2[0][0], pa[kk], desc_mn(ph, kk),
+                                     desc_mn(pl, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    release(sm, s);
+  }
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -967,14 +1433,16 @@ attention_bwd_rows_kernel(const T* __restrict__ theta,
     rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 2);
   }
   // One chunk: dtheta in the input type and row. Several: chunk z's f32
-  // parts at [z, b, row].
+  // parts at [z, b, row]. Chunk 0 writes the exponent bias nb at [nz, b,
+  // row] for the column pass.
   const bool parts = gridDim.z > 1;
   const long part = static_cast<long>(blockIdx.z) * gridDim.y * N;
+  float* const bias_out =
+      row_out + static_cast<long>(gridDim.z) * gridDim.y * N;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int row = r0 + (lane >> 2) + 8 * i;
+    const int row = r_w + gq + 8 * i;
     if (row >= N) continue;
-    const long bn = static_cast<long>(b) * N + row;
 #pragma unroll
     for (int nt = 0; nt < CP / 8; ++nt) {
 #pragma unroll
@@ -983,71 +1451,76 @@ attention_bwd_rows_kernel(const T* __restrict__ theta,
         if (c >= C) continue;
         const float v = a1[nt][2 * i + q] - rsum[i] * a2[nt][2 * i + q];
         if (parts)
-          dtheta_parts[(part + bn) * C + c] = v;
+          dtheta_parts[(part + bn + row) * C + c] = v;
         else
-          store(dtheta, bn * C + c, v);
+          store(dtheta, (bn + row) * C + c, v);
       }
     }
-    if (t == 0) row_out[part + bn] = rsum[i];
+    if (t == 0) row_out[part + bn + row] = rsum[i];
+    if (t == 0 && blockIdx.z == 0) bias_out[bn + row] = nb[i];
   }
 }
 
 template <typename T, int CP, int GP>
-__global__ void
-__launch_bounds__(kThreads, min_blocks(Traits<T>::kSplit, true, CP, GP))
-attention_bwd_cols_kernel(const T* __restrict__ theta,
+__global__ void __launch_bounds__(kBwdThreads, 1)
+attention_bwd_cols_kernel(const __grid_constant__ CUtensorMap tm_theta,
+                          const __grid_constant__ CUtensorMap tm_dout,
+                          const T* __restrict__ theta,
                           const T* __restrict__ phi, const T* __restrict__ g,
                           const T* __restrict__ dout,
-                          const float* __restrict__ mx,
-                          const float* __restrict__ den,
                           const float* __restrict__ row,
                           float* __restrict__ dphi, float* __restrict__ dg,
-                          int N, int M, int C, int Cg, int chunk, int vec_c,
-                          int vec_g) {
-  using R = Ring<T>;
-  constexpr bool kSplit = R::kSplit;
-  constexpr int CS = CP + 8, GS = GP + 8;
-  constexpr int kThTile = kTile * CS, kDoTile = kTile * GS;
-  bf16* const th_s = reinterpret_cast<bf16*>(smem);  // [kBuf][kParts]
-  bf16* const do_s = th_s + R::kBuf * R::kParts * kThTile;
-  // mx, den, row: [kBuf][3][kTile]
-  float* const sc_s = reinterpret_cast<float*>(
-      do_s + R::kBuf * R::kParts * kDoTile);
-  auto th_at = [&](int buf, int part) {
-    return th_s + (buf * R::kParts + part) * kThTile;
-  };
-  auto do_at = [&](int buf, int part) {
-    return do_s + (buf * R::kParts + part) * kDoTile;
-  };
-  auto sc_at = [&](int buf, int k) { return sc_s + (buf * 3 + k) * kTile; };
-
+                          int N, int M, int C, int Cg, int chunk, int how_c,
+                          int how_g) {
+  using L = BwdSmem<T, CP, GP>;
+  constexpr bool kSplit = Traits<T>::kSplit;
+  const L sm(smem);
   const int b = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t = lane & 3, k0 = blockIdx.x * kRows + warp * 16;
   // This block's columns [c0, c0 + cw) of dout, g and dg; chunk 0 alone
   // subtracts the row term from dP.
   const int c0 = blockIdx.z * chunk;
   const int cw = Cg - c0 < chunk ? Cg - c0 : chunk;
   const bool first = blockIdx.z == 0;
-  const long bn = static_cast<long>(b) * N;
+  const long bn = static_cast<long>(b) * N, bm = static_cast<long>(b) * M;
   const T* theta_b = theta + bn * C;
   const T* dout_b = dout + bn * Cg + c0;
-
-  if (!kSplit) {
-    zero(th_s, R::kBuf * R::kParts * (kThTile + kDoTile));
-    __syncthreads();
-  }
-
+  const int ntiles = (N + kTile - 1) / kTile;
   // Keys beyond M: phi and g are zero there and their rows are not stored.
-  FragA pf[CP / 16], ga[GP / 16];
-#pragma unroll
-  for (int kc = 0; kc < CP / 16; ++kc)
-    load_a(phi + static_cast<long>(b) * M * C, k0, M, kc * 16, C, C,
-           pf[kc]);
-#pragma unroll
-  for (int kc = 0; kc < GP / 16; ++kc)
-    load_a(g + static_cast<long>(b) * M * Cg + c0, k0, M, kc * 16, cw, Cg,
-           ga[kc]);
+  bwd_prologue(sm, phi + bm * C, g + bm * Cg + c0, blockIdx.x * kRows, M, C,
+               cw, Cg);
 
+  // The rows' exponent bias, written by the row pass after the nz parts
+  // of the row term; part 0 of those is their sum.
+  const float* bias_in = row + static_cast<long>(gridDim.z) * gridDim.y * N;
+  if (warp >= kProducerWarp) {
+    const int pt = threadIdx.x - kProducerWarp * 32;
+    auto fill = [&](int j, int s) {
+      // Rows past N stage zeros: theta and dout are zero there too, so
+      // P = ex2(0) = 1 meets dP = 0 and dout = 0 and adds nothing.
+      const int n = j * kTile + pt % kTile;
+      if (pt < kTile || first)
+        cp_async<4>((pt < kTile ? sm.bias(s) : sm.rowterm(s)) + pt % kTile,
+                    (pt < kTile ? bias_in : row) + bn + (n < N ? n : 0),
+                    n < N);
+      if (pt == 0 && tma_bytes(how_c, C, how_g, cw) > 0)
+        mbar_expect_tx(sm.full(s), tma_bytes(how_c, C, how_g, cw));
+      fill_tile<T, CP>(sm.narrow(s, 0), sm.narrow(s, L::kParts - 1), theta_b,
+                       j * kTile, N, C, C, how_c, &tm_theta, 0, b, sm.full(s),
+                       pt);
+      fill_tile<T, GP>(sm.wide(s, 0), sm.wide(s, L::kParts - 1), dout_b,
+                       j * kTile, N, cw, Cg, how_g, &tm_dout, c0, b,
+                       sm.full(s), pt);
+    };
+    produce(sm, ntiles, how_c == 0 || how_g == 0, fill);
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+
+  const int w = warp >> 2, gq = lane >> 2, t = lane & 3;
+  const int k_w = blockIdx.x * kRows + w * kTile + (warp & 3) * 16;
+  const bf16 *ph_h = sm.narrow_inv(w, 0),
+             *ph_l = sm.narrow_inv(w, L::kParts - 1);
+  const bf16 *g_h = sm.wide_inv(w, 0), *g_l = sm.wide_inv(w, L::kParts - 1);
   float dph[CP / 8][4], dgv[GP / 8][4];
 #pragma unroll
   for (int nt = 0; nt < CP / 8; ++nt)
@@ -1058,103 +1531,76 @@ attention_bwd_cols_kernel(const T* __restrict__ theta,
 #pragma unroll
     for (int e = 0; e < 4; ++e) dgv[nt][e] = 0.f;
 
-  auto issue = [&](int j, int buf) {
-    stage<T, CP, CS>(th_at(buf, 0), th_at(buf, R::kParts - 1), theta_b,
-                     j * kTile, N, C, C, vec_c);
-    stage<T, GP, GS>(do_at(buf, 0), do_at(buf, R::kParts - 1), dout_b,
-                     j * kTile, N, cw, Cg, vec_g);
-    stage_scalars(sc_at(buf, 0), mx + bn, j * kTile, N);
-    stage_scalars(sc_at(buf, 1), den + bn, j * kTile, N);
-    stage_scalars(sc_at(buf, 2), row + bn, j * kTile, N);
-  };
-  auto body = [&](int j, int buf) {
-    const bf16 *thh = th_at(buf, 0), *thl = th_at(buf, R::kParts - 1);
-    const bf16 *doh = do_at(buf, 0), *dol = do_at(buf, R::kParts - 1);
-    const float *mx_t = sc_at(buf, 0), *den_t = sc_at(buf, 1),
-                *row_t = sc_at(buf, 2);
+  for (int j = 0; j < ntiles; ++j) {
+    const int s = j % L::kStages;
+    acquire(sm, j);
+    const bf16 *thh = sm.narrow(s, 0), *thl = sm.narrow(s, L::kParts - 1);
+    const bf16 *doh = sm.wide(s, 0), *dol = sm.wide(s, L::kParts - 1);
+    const float *bias = sm.bias(s), *rw = sm.rowterm(s);
+    float sc[kTile / 8][4], dp[kTile / 8][4];
+    wgmma_fence();
 #pragma unroll
-    for (int rs = 0; rs < kTile; rs += 16) {
-      float s[2][4], dp[2][4];
+    for (int kc = 0; kc < CP / 16; ++kc)
+      wgmma_ss<kSplit>(&sc[0][0], desc_k(ph_h, kc), desc_k(ph_l, kc),
+                       desc_k(thh, kc), desc_k(thl, kc), kc > 0);
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
+    for (int kc = 0; kc < GP / 16; ++kc)
+      wgmma_ss<kSplit>(&dp[0][0], desc_k(g_h, kc), desc_k(g_l, kc),
+                       desc_k(doh, kc), desc_k(dol, kc), kc > 0);
+    wgmma_commit();
+    wgmma_wait();
+    // Element e of n-tile nt is (key, row n = nt*8 + 2t + (e & 1)).
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+    for (int nt = 0; nt < kTile / 8; ++nt)
 #pragma unroll
-      for (int kc = 0; kc < CP / 16; ++kc) {
-        FragB b0, b1;
-        load_b_nk2<kSplit, CS>(thh, thl, rs, kc * 16, b0, b1);
-        mma<kSplit>(s[0], pf[kc], b0);
-        mma<kSplit>(s[1], pf[kc], b1);
-      }
+      for (int q = 0; q < 2; ++q) {
+        const int n = nt * 8 + 2 * t + q;
+        const float bv = bias[n], rv = rw[n];
 #pragma unroll
-      for (int kc = 0; kc < GP / 16; ++kc) {
-        FragB b0, b1;
-        load_b_nk2<kSplit, GS>(doh, dol, rs, kc * 16, b0, b1);
-        mma<kSplit>(dp[0], ga[kc], b0);
-        mma<kSplit>(dp[1], ga[kc], b1);
-      }
-      // Element e of n-tile nt is (key, row n = rs + nt*8 + 2t + (e & 1)).
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int n = rs + nt * 8 + 2 * t + q;
-          const bool ok = j * kTile + n < N;
-          const float nb = -mx_t[n] * kLog2e;
-          const float inv = ok ? __frcp_rn(den_t[n]) : 0.f;
-          const float rw = first ? row_t[n] : 0.f;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int e = 2 * h + q;
-            const float p = ok ? ex2(fmaf(s[nt][e], kLog2e, nb)) * inv : 0.f;
-            s[nt][e] = p;
-            dp[nt][e] = p * (dp[nt][e] - rw);
-          }
+        for (int h = 0; h < 2; ++h) {
+          const int e = 2 * h + q;
+          const float p = ex2(fmaf(sc[nt][e], kLog2e, bv));
+          sc[nt][e] = p;
+          dp[nt][e] = p * (dp[nt][e] - rv);
         }
-      // P and dS as hi + lo parts in every type: dphi and dg sum terms of
-      // either sign over all rows, and where the attention is peaked a
-      // few large terms cancel, so a bf16 rounding of each could outweigh
-      // the sum.
-      FragA pa, dsa;
-      acc_to_a<true>(s[0], s[1], pa);
-      acc_to_a<true>(dp[0], dp[1], dsa);
-#pragma unroll
-      for (int np = 0; np < CP / 16; ++np) {
-        FragB b0, b1;
-        load_b_kn2<kSplit, CS>(thh, thl, rs, np * 16, b0, b1);
-        mma<true, kSplit>(dph[2 * np], dsa, b0);
-        mma<true, kSplit>(dph[2 * np + 1], dsa, b1);
       }
+    FragA pa[kTile / 16], dsa[kTile / 16];
 #pragma unroll
-      for (int np = 0; np < GP / 16; ++np) {
-        FragB b0, b1;
-        load_b_kn2<kSplit, GS>(doh, dol, rs, np * 16, b0, b1);
-        mma<true, kSplit>(dgv[2 * np], pa, b0);
-        mma<true, kSplit>(dgv[2 * np + 1], pa, b1);
-      }
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      acc_to_a<kSplit>(sc[2 * kk], sc[2 * kk + 1], pa[kk]);
+      acc_to_a<true>(dp[2 * kk], dp[2 * kk + 1], dsa[kk]);
     }
-  };
-  pipeline<T>((N + kTile - 1) / kTile, issue, body);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      wgmma_acc<true, kSplit, CP, 1>(&dph[0][0], dsa[kk], desc_mn(thh, kk),
+                                     desc_mn(thl, kk), 1);
+      wgmma_acc<kSplit, kSplit, GP, 1>(&dgv[0][0], pa[kk], desc_mn(doh, kk),
+                                       desc_mn(dol, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    release(sm, s);
+  }
 
   // dphi is [nz, B, M, C]: the output itself with one chunk, its f32 parts
   // with several.
   const long part = static_cast<long>(blockIdx.z) * gridDim.y * M;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int key = k0 + (lane >> 2) + 8 * i;
+    const int key = k_w + gq + 8 * i;
     if (key >= M) continue;
-    const long bm = static_cast<long>(b) * M + key;
 #pragma unroll
     for (int nt = 0; nt < CP / 8; ++nt) {
       const int c = nt * 8 + 2 * t;
-      if (c < C) dphi[(part + bm) * C + c] = dph[nt][2 * i];
-      if (c + 1 < C) dphi[(part + bm) * C + c + 1] = dph[nt][2 * i + 1];
+      if (c < C) dphi[(part + bm + key) * C + c] = dph[nt][2 * i];
+      if (c + 1 < C) dphi[(part + bm + key) * C + c + 1] = dph[nt][2 * i + 1];
     }
 #pragma unroll
     for (int nt = 0; nt < GP / 8; ++nt) {
       const int c = nt * 8 + 2 * t;
-      if (c < cw) dg[bm * Cg + c0 + c] = dgv[nt][2 * i];
-      if (c + 1 < cw) dg[bm * Cg + c0 + c + 1] = dgv[nt][2 * i + 1];
+      if (c < cw) dg[(bm + key) * Cg + c0 + c] = dgv[nt][2 * i];
+      if (c + 1 < cw) dg[(bm + key) * Cg + c0 + c + 1] = dgv[nt][2 * i + 1];
     }
   }
 }
@@ -1246,7 +1692,7 @@ attention_fwd_wide_kernel(const T* __restrict__ theta,
 #pragma unroll
     for (int kk = 0; kk < kCW / 16; ++kk)
       if (cc + kk * 16 < C)
-        wgmma_acc<kSplit, kTile, 0>(
+        wgmma_acc<kSplit, kSplit, kTile, 0>(
             &s[0][0], th[kk], wgmma_desc(ph + kk * 128, 128, kPhiRowGroup),
             wgmma_desc(phl + kk * 128, 128, kPhiRowGroup), kc > 0 || kk > 0);
     wgmma_commit();
@@ -1670,6 +2116,63 @@ int allow_smem(K* kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
+// cuTensorMapEncodeTiled of the driver, found through the runtime (no link
+// against libcuda); null if the driver has none.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// How the backward stages a tile operand [B, rows, ld] at p whose columns
+// it reads in chunks of `chunk` (the last `last` wide): kTma, with `map`
+// encoded as a 3-D view [B][rows][ld] of boxes of 64 rows x 8 columns,
+// when the rows are bf16 of a multiple of 8 elements (16 bytes, as TMA
+// needs) in chunks of a multiple of 8 at a 16-byte aligned base; else
+// vec_bytes (cp.async, or 0 for plain loads). Returns a CUDA error if such
+// an operand's map cannot be encoded: no other staging stands in for it.
+int tile_how(CUtensorMap* map, const void* p, int B, int rows, int ld,
+             int chunk, int last, bool is_bf16, int* how) {
+  *how = vec_bytes(p, ld, chunk, last, is_bf16);
+  if (!is_bf16 || ld % 8 != 0 || chunk % 8 != 0 || last % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(p) % 16 != 0)
+    return 0;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(ld),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * 2,
+                                 static_cast<cuuint64_t>(rows) * ld * 2};
+  const cuuint32_t box[3] = {8, kTile, 1}, steps[3] = {1, 1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p),
+             dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  *how = kTma;
+  return 0;
+}
+
 // The kernels of a launch: those at C padded to CP, or with kWide those
 // that loop over C chunks (CP = kCW).
 template <typename T, int CP, int GP, bool kWide>
@@ -1685,8 +2188,53 @@ struct Kernels<T, kCW, GP, true> {
   static constexpr auto cols = attention_bwd_cols_wide_kernel<T, GP>;
 };
 
+// The backward passes at C <= 64: 288 threads a block, the operand tiles'
+// staging chosen per launch (tile_how).
+template <typename T, int CP, int GP>
+int launch_bwd(const Args& a, int kind) {
+  using K = Kernels<T, CP, GP, false>;
+  constexpr int bytes = BwdSmem<T, CP, GP>::kBytes;
+  const bool rows_pass = kind == cgt::kRowsPass;
+  const int nz = a.nz(), last = a.Cg - (nz - 1) * a.chunk;
+  const int trows = rows_pass ? a.M : a.N;  // rows of the tile operands
+  CUtensorMap tm_c{}, tm_g{};
+  int how_c, how_g;
+  int err = tile_how(&tm_c, rows_pass ? a.phi : a.theta, a.B, trows, a.C,
+                     a.C, a.C, a.bf16, &how_c);
+  if (err != 0) return err;
+  err = tile_how(&tm_g, rows_pass ? a.g : a.dout, a.B, trows, a.Cg, a.chunk,
+                 last, a.bf16, &how_g);
+  if (err != 0) return err;
+  const T *theta = static_cast<const T*>(a.theta),
+          *phi = static_cast<const T*>(a.phi), *g = static_cast<const T*>(a.g),
+          *dout = static_cast<const T*>(a.dout);
+  if (rows_pass) {
+    const auto kernel = K::rows;
+    err = allow_smem(kernel, bytes);
+    if (err != 0) return err;
+    const dim3 grid((a.N + kRows - 1) / kRows, a.B, nz);
+    kernel<<<grid, kBwdThreads, bytes, a.stream>>>(
+        tm_c, tm_g, theta, phi, g, dout, a.mx_in, a.den_in,
+        static_cast<T*>(a.dtheta), a.dtheta_parts, a.row, a.N, a.M, a.C, a.Cg,
+        a.chunk, how_c, how_g);
+  } else {
+    const auto kernel = K::cols;
+    err = allow_smem(kernel, bytes);
+    if (err != 0) return err;
+    const dim3 grid((a.M + kRows - 1) / kRows, a.B, nz);
+    kernel<<<grid, kBwdThreads, bytes, a.stream>>>(
+        tm_c, tm_g, theta, phi, g, dout, a.row,
+        nz > 1 ? a.dphi_parts : a.dphi, a.dg, a.N, a.M, a.C, a.Cg, a.chunk,
+        how_c, how_g);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int CP, int GP, bool kWide>
 int launch(const Args& a, int kind) {
+  if constexpr (!kWide) {
+    if (kind != cgt::kFwd) return launch_bwd<T, CP, GP>(a, kind);
+  }
   using K = Kernels<T, CP, GP, kWide>;
   constexpr int kParts = Ring<T>::kBuf * Ring<T>::kParts;  // tiles a ring
   const int nz = a.nz(), last = a.Cg - (nz - 1) * a.chunk;
@@ -1708,28 +2256,30 @@ int launch(const Args& a, int kind) {
         static_cast<const T*>(a.theta), static_cast<const T*>(a.phi),
         static_cast<const T*>(a.g), static_cast<T*>(a.out), a.mx, a.den, a.N,
         a.M, a.C, a.Cg, a.chunk, vec_c, vec_g);
-  } else if (kind == cgt::kRowsPass) {
-    constexpr int bytes = kParts * kTile * (CP + GP + 16) * sizeof(bf16);
-    const auto kernel = K::rows;
-    int err = allow_smem(kernel, bytes);
-    if (err != 0) return err;
-    kernel<<<grid_rows, kThreads, bytes, a.stream>>>(
-        static_cast<const T*>(a.theta), static_cast<const T*>(a.phi),
-        static_cast<const T*>(a.g), static_cast<const T*>(a.dout), a.mx_in,
-        a.den_in, static_cast<T*>(a.dtheta), a.dtheta_parts, a.row, a.N, a.M,
-        a.C, a.Cg, a.chunk, vec_c, vec_g);
-  } else {
-    constexpr int bytes = kParts * kTile * (CP + GP + 16) * sizeof(bf16) +
-                          Ring<T>::kBuf * 3 * kTile * sizeof(float);
-    const auto kernel = K::cols;
-    int err = allow_smem(kernel, bytes);
-    if (err != 0) return err;
-    const dim3 grid_cols((a.M + kRows - 1) / kRows, a.B, nzc);
-    kernel<<<grid_cols, kThreads, bytes, a.stream>>>(
-        static_cast<const T*>(a.theta), static_cast<const T*>(a.phi),
-        static_cast<const T*>(a.g), static_cast<const T*>(a.dout), a.mx_in,
-        a.den_in, a.row, nz > 1 ? a.dphi_parts : a.dphi, a.dg, a.N, a.M, a.C,
-        a.Cg, a.chunk, vec_c, vec_g);
+  } else if constexpr (kWide) {
+    if (kind == cgt::kRowsPass) {
+      constexpr int bytes = kParts * kTile * (CP + GP + 16) * sizeof(bf16);
+      const auto kernel = K::rows;
+      int err = allow_smem(kernel, bytes);
+      if (err != 0) return err;
+      kernel<<<grid_rows, kThreads, bytes, a.stream>>>(
+          static_cast<const T*>(a.theta), static_cast<const T*>(a.phi),
+          static_cast<const T*>(a.g), static_cast<const T*>(a.dout), a.mx_in,
+          a.den_in, static_cast<T*>(a.dtheta), a.dtheta_parts, a.row, a.N,
+          a.M, a.C, a.Cg, a.chunk, vec_c, vec_g);
+    } else {
+      constexpr int bytes = kParts * kTile * (CP + GP + 16) * sizeof(bf16) +
+                            Ring<T>::kBuf * 3 * kTile * sizeof(float);
+      const auto kernel = K::cols;
+      int err = allow_smem(kernel, bytes);
+      if (err != 0) return err;
+      const dim3 grid_cols((a.M + kRows - 1) / kRows, a.B, nzc);
+      kernel<<<grid_cols, kThreads, bytes, a.stream>>>(
+          static_cast<const T*>(a.theta), static_cast<const T*>(a.phi),
+          static_cast<const T*>(a.g), static_cast<const T*>(a.dout), a.mx_in,
+          a.den_in, a.row, nz > 1 ? a.dphi_parts : a.dphi, a.dg, a.N, a.M,
+          a.C, a.Cg, a.chunk, vec_c, vec_g);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1844,8 +2394,10 @@ int cgt_attention_fwd(const void* theta, const void* phi, const void* g,
 
 // The row pass, with several chunks the sums of its parts, then the column
 // pass and the sum of its dphi parts, on one stream; returns the first
-// non-zero cudaGetLastError(). `row` holds nz = ceil(Cg / chunk) parts of
-// [B, N]; dtheta_parts and dphi_parts are read only when nz > 1.
+// non-zero cudaGetLastError(). `row` holds nz + 1 parts of [B, N], nz =
+// ceil(Cg / chunk): the row term's (part 0 their sum), then the exponent
+// bias that the row pass at C <= 64 writes for its column pass;
+// dtheta_parts and dphi_parts are read only when nz > 1.
 int cgt_attention_bwd(const void* theta, const void* phi, const void* g,
                       const void* dout, const void* mx, const void* den,
                       void* dtheta, void* row, void* dphi, void* dg,

@@ -2,8 +2,9 @@
 
 Counterpart of compare_gan_tpu/ops/pallas_attention.py. On a CUDA tensor the
 wrappers launch the hand-written kernels of `csrc/attention.cu` (forward:
-one launch; backward: a row pass and a column pass) and raise on anything
-the kernels do not take. On a CPU tensor they run the plain PyTorch versions
+one launch; backward: a row pass and a column pass, at C <= 64 on wgmma fed
+by a ring of TMA or cp.async copies) and raise on anything the kernels do
+not take. On a CPU tensor they run the plain PyTorch versions
 below, which compute what the kernels compute (same saved statistics, same
 backward formula) with materialized [B, N, M] scores.
 
@@ -216,9 +217,10 @@ def attention_bwd(theta, phi, g, dout, mx, den):
     nz = -(-cg // chunk)
     f32 = dict(dtype=torch.float32, device=theta.device)
     dtheta = torch.empty_like(theta)
-    # The row term per column chunk (part 0 their sum), and with several
-    # chunks the f32 parts of dtheta and dphi that the kernels sum.
-    row = torch.empty((nz, b, n), **f32)
+    # The row term per column chunk (part 0 their sum) and, after them, the
+    # rows' exponent bias that the row pass hands the column pass; with
+    # several chunks the f32 parts of dtheta and dphi that the kernels sum.
+    row = torch.empty((nz + 1, b, n), **f32)
     dphi = torch.empty((b, m, c), **f32)
     dg = torch.empty((b, m, cg), **f32)
     dtheta_parts = torch.empty((nz, b, n, c) if nz > 1 else (0,), **f32)

@@ -155,20 +155,21 @@ def _split_bf16(x):
     return hi, (x - hi).bfloat16().float()
 
 
-def _kernel_algorithm(theta, phi, g, dout, mode="f32", tile=64, chunk=16):
+def _kernel_algorithm(theta, phi, g, dout, mode="f32", tile=64):
     """The CUDA kernels' algorithm in torch (csrc/attention.cu), on f32
     tensors: the forward's online softmax over 64-key tiles; the backward's
-    row pass, which forms dtheta in one sweep over 16-key chunks as
-    (P*dP).phi - row*(P.phi); and its column pass over 16-row chunks of all
+    row pass, which sweeps 64-key tiles and forms dtheta as
+    (P*dP).phi - row*(P.phi); and its column pass over 64-row tiles of all
     rows for dphi and dg.
 
     `mode` is where the kernels round: "f32" rounds nothing; "bf16" (the
-    inputs hold bf16 values) rounds P to bf16 before P.g in the forward,
-    as the kernels' bf16 path feeds it to the tensor cores, and keeps P,
-    P*dP and dS as bf16 hi + lo parts in the backward, whose sums cancel
-    where the attention is peaked. "split" takes every product as four
-    bf16 products of hi and lo parts, as the kernels' f32 path does. Row
-    sums stay in f32 in every mode."""
+    inputs hold bf16 values) rounds P to bf16 before P.g in the forward and
+    before dg = P^T.dout in the backward, as the kernels' bf16 path feeds P
+    (its hi part alone) to the tensor cores there, and keeps P and P*dP
+    (row pass) and dS (column pass) as bf16 hi + lo parts, whose sums
+    cancel where the attention is peaked. "split" takes every product as
+    four bf16 products of hi and lo parts, as the kernels' f32 path does.
+    Row sums stay in f32 in every mode."""
     if mode == "split":
         def mm(a, b):
             (ah, al), (bh, bl) = _split_bf16(a), _split_bf16(b)
@@ -199,8 +200,8 @@ def _kernel_algorithm(theta, phi, g, dout, mode="f32", tile=64, chunk=16):
     a_acc = torch.zeros_like(theta)
     b_acc = torch.zeros_like(theta)
     row = torch.zeros(b, n, 1)
-    for k0 in range(0, m, chunk):
-        ph, gg = phi[:, k0:k0 + chunk], g[:, k0:k0 + chunk]
+    for k0 in range(0, m, tile):
+        ph, gg = phi[:, k0:k0 + tile], g[:, k0:k0 + tile]
         attn = torch.exp(mm(theta, ph.transpose(1, 2)) - mx) / den
         t = attn * mm(dout, gg.transpose(1, 2))
         row = row + t.sum(-1, keepdim=True)
@@ -209,22 +210,30 @@ def _kernel_algorithm(theta, phi, g, dout, mode="f32", tile=64, chunk=16):
     dtheta = a_acc - row * b_acc
     dphi = torch.zeros_like(phi)
     dg = torch.zeros_like(g)
-    for i0 in range(0, n, chunk):
-        th_, do_ = theta[:, i0:i0 + chunk], dout[:, i0:i0 + chunk]
-        attn = torch.exp(mm(th_, phi.transpose(1, 2)) - mx[:, i0:i0 + chunk]) \
-            / den[:, i0:i0 + chunk]
-        ds = attn * (mm(do_, g.transpose(1, 2)) - row[:, i0:i0 + chunk])
+    for i0 in range(0, n, tile):
+        th_, do_ = theta[:, i0:i0 + tile], dout[:, i0:i0 + tile]
+        attn = torch.exp(mm(th_, phi.transpose(1, 2)) - mx[:, i0:i0 + tile]) \
+            / den[:, i0:i0 + tile]
+        ds = attn * (mm(do_, g.transpose(1, 2)) - row[:, i0:i0 + tile])
         dphi = dphi + mm(hi_lo(ds).transpose(1, 2), th_)
-        dg = dg + mm(hi_lo(attn).transpose(1, 2), do_)
+        dg = dg + mm(rnd(attn).transpose(1, 2), do_)
     return (out, mx, den), (dtheta, dphi, dg)
 
 
-def _algorithm_vs_pallas(mode, jdtype, scale=1.0):
-    """(kernel algorithm, Pallas kernels) on ragged tiles: n = 200 and
-    m = 150 leave partial tiles and chunks."""
-    theta, phi, g = _inputs(b=2, n=200, m=150, c=8, cg=12, seed=11)
+# (n, m, c, cg) of the algorithm's comparisons: n = 200 and m = 150 leave
+# partial 64-row and 64-key tiles; then the main path's widths, BigGAN-128's
+# G after B4 (24, 96) and D after B1 (12, 48), on small maps that leave
+# partial tiles too.
+ALGORITHM_CASES = [pytest.param(200, 150, 8, 12, id="c8_cg12"),
+                   pytest.param(136, 80, 24, 96, id="G_B4_widths"),
+                   pytest.param(136, 80, 12, 48, id="D_B1_widths")]
+
+
+def _algorithm_vs_pallas(mode, jdtype, n, m, c, cg, scale=1.0):
+    """(kernel algorithm, Pallas kernels) on the same inputs."""
+    theta, phi, g = _inputs(b=2, n=n, m=m, c=c, cg=cg, seed=11)
     theta, phi = theta * scale, phi * scale
-    dout = th.randn((2, 200, 12), 12)
+    dout = th.randn((2, n, cg), 12)
     jargs = [jnp.asarray(a, jdtype) for a in (theta, phi, g, dout)]
     # The same (possibly bf16-rounded) values on both sides, in f32.
     t = [torch.from_numpy(np.array(a.astype(jnp.float32))) for a in jargs]
@@ -235,38 +244,43 @@ def _algorithm_vs_pallas(mode, jdtype, scale=1.0):
     return fwd, bwd, j_fwd, j_bwd
 
 
-def test_kernel_algorithm_matches_pallas_kernels():
+@pytest.mark.parametrize("n,m,c,cg", ALGORITHM_CASES)
+def test_kernel_algorithm_matches_pallas_kernels(n, m, c, cg):
     """The tiling of the CUDA kernels, run in torch on the CPU in f32,
     against the Pallas forward and backward kernels (interpret mode). f32,
     1e-5 for the forward, 1e-4 for the gradients, as above."""
-    fwd, bwd, j_fwd, j_bwd = _algorithm_vs_pallas("f32", jnp.float32)
+    fwd, bwd, j_fwd, j_bwd = _algorithm_vs_pallas("f32", jnp.float32, n, m,
+                                                  c, cg)
     for got, want in zip(fwd, j_fwd):
         th.assert_close(got, want, rtol=1e-5, atol=1e-5)
     for got, want in zip(bwd, j_bwd):
         th.assert_close(got, want, rtol=1e-4, atol=1e-5)
 
 
-def test_kernel_f32_split_matches_pallas_kernels():
+@pytest.mark.parametrize("n,m,c,cg", ALGORITHM_CASES)
+def test_kernel_f32_split_matches_pallas_kernels(n, m, c, cg):
     """The kernels' f32 path (every product as hi/lo bf16 parts on the
     tensor cores) against the Pallas kernels in f32: 1e-4, the tolerance of
     the f32 kernels against their plain versions on the card. theta and phi
     are scaled by C**-0.25, as there, so the scores are unit normal."""
-    fwd, bwd, j_fwd, j_bwd = _algorithm_vs_pallas("split", jnp.float32,
-                                                  scale=8 ** -0.25)
+    fwd, bwd, j_fwd, j_bwd = _algorithm_vs_pallas(
+        "split", jnp.float32, n, m, c, cg, scale=c ** -0.25)
     for got, want in zip(fwd + bwd, j_fwd + j_bwd):
         th.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
-def test_kernel_bf16_rounding_matches_pallas_kernels():
+@pytest.mark.parametrize("n,m,c,cg", ALGORITHM_CASES)
+def test_kernel_bf16_rounding_matches_pallas_kernels(n, m, c, cg):
     """The kernels' bf16 path rounds P to bf16 before the forward's P.g and
-    keeps P, P*dP and dS as hi + lo parts in the backward; nothing else
-    rounds beyond f32 sums. Unit-normal theta and phi at C = 8, so the
-    attention is peaked and the backward's sums cancel. Against the Pallas
-    kernels fed the
-    same bf16 inputs: out and the gradients at 2e-2, the bf16 tolerance of
-    the JAX package's tests; mx and den at 1e-4, since the products of bf16
-    inputs are exact in f32 and den sums the unrounded P."""
-    fwd, bwd, j_fwd, j_bwd = _algorithm_vs_pallas("bf16", jnp.bfloat16)
+    the backward's P^T.dout, and keeps P, P*dP and dS as hi + lo parts in
+    the backward's other products; nothing else rounds beyond f32 sums.
+    Unit-normal theta and phi (C >= 8), so the attention is peaked and the
+    backward's sums cancel. Against the Pallas kernels fed the same bf16
+    inputs: out and the gradients at 2e-2, the bf16 tolerance of the JAX
+    package's tests; mx and den at 1e-4, since the products of bf16 inputs
+    are exact in f32 and den sums the unrounded P."""
+    fwd, bwd, j_fwd, j_bwd = _algorithm_vs_pallas("bf16", jnp.bfloat16, n, m,
+                                                  c, cg)
     (out, mx, den), (j_out, j_mx, j_den) = fwd, j_fwd
     th.assert_close(out.bfloat16(), j_out, rtol=2e-2, atol=2e-2)
     th.assert_close(mx, j_mx, rtol=1e-4, atol=1e-4)

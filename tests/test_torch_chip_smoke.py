@@ -76,6 +76,59 @@ def test_issued_mma_floor_counts_the_split_and_the_padding(shape, dtype_name,
     assert abs(1e3 * chip_smoke.issued_fwd_ms(shape, dtype_name) - us) < 0.01
 
 
+@pytest.mark.parametrize("shape,dtype_name,us", [
+    # Per (row, key) and chunk, bf16: rows CP + GP + 2*2*CP, columns
+    # CP + GP + 2*CP + GP; f32: rows 4*(CP + GP) + 2*4*CP, columns
+    # 4*(CP + GP) + 4*CP + 4*GP; times 2*B*N*M*nz at 989 TFLOP/s.
+    ((32, 4096, 1024, 24, 96), "bfloat16", 147.65),
+    ((32, 4096, 1024, 12, 48), "bfloat16", 73.83),
+    ((32, 4096, 1024, 24, 96), "float32", 486.39),
+    # Two column chunks of 128, each recomputing S.
+    ((32, 4096, 1024, 64, 256), "float32", 1528.64),
+])
+def test_backward_issued_mma_floor_counts_the_hi_lo_products(shape,
+                                                             dtype_name, us):
+    assert abs(1e3 * chip_smoke.issued_bwd_ms(shape, dtype_name) - us) < 0.01
+
+
+@pytest.mark.parametrize("shape,us", [
+    # 2*B*N*M*nz ex2 at 16 a clock on 132 SMs at 1.98 GHz.
+    ((32, 4096, 1024, 24, 96), 64.19),
+    ((32, 4096, 1024, 64, 256), 128.38),
+])
+def test_exp_floor_counts_both_passes_and_the_column_chunks(shape, us):
+    assert abs(1e3 * chip_smoke.exp_floor_ms(shape) - us) < 0.01
+
+
+def test_pass_kind_sorts_the_backward_kernels_of_a_trace():
+    assert chip_smoke.pass_kind(
+        "void (anonymous namespace)::attention_bwd_rows_kernel<__nv_bfloat16,"
+        " 32, 96>(CUtensorMap_st, ...)") == "rows"
+    assert chip_smoke.pass_kind(
+        "void (anonymous namespace)::attention_bwd_cols_wide_kernel<float, "
+        "128>(float const*, ...)") == "cols"
+    assert chip_smoke.pass_kind(
+        "void (anonymous namespace)::sum_parts_kernel<float>(...)") == "sums"
+    assert chip_smoke.pass_kind(
+        "void (anonymous namespace)::attention_fwd_kernel<float, 16, 48>"
+        "(...)") is None
+
+
+def test_backward_kernel_names_follow_the_padded_widths():
+    assert chip_smoke.bwd_kernel_names((32, 4096, 1024, 12, 48),
+                                       "bfloat16") == (
+        "attention_bwd_rows_kernel<bf16, 16, 48>",
+        "attention_bwd_cols_kernel<bf16, 16, 48>")
+    assert chip_smoke.bwd_kernel_names((32, 4096, 1024, 64, 256),
+                                       "float32") == (
+        "attention_bwd_rows_kernel<f32, 64, 128>",
+        "attention_bwd_cols_kernel<f32, 64, 128>")
+    assert chip_smoke.bwd_kernel_names((32, 64, 16, 192, 768),
+                                       "bfloat16") == (
+        "attention_bwd_rows_wide_kernel<bf16, 128>",
+        "attention_bwd_cols_wide_kernel<bf16, 128>")
+
+
 def test_a_memory_bound_shape_is_bound_by_bytes():
     """With one key the work is a copy: bytes over 3.35 TB/s."""
     b, n, m, c, cg = 4, 8192, 1, 32, 128
@@ -571,6 +624,21 @@ def test_feat8_shapes_are_the_blocks_of_biggan128_at_the_feat8_placement():
                      for name in ("G_B1_feat8", "D_B4_feat8", "G_B2_feat16",
                                   "ragged_c72", "c256")
                      for dtype in ("float32", "bfloat16")]
+
+
+def test_ptxas_report_names_the_wgmma_backward():
+    """The backward at C <= 64 takes its tensor maps first; its name is
+    read as before."""
+    log = (
+        "ptxas info    : Function properties for _ZN49_GLOBAL__N__3a11b54b_"
+        "12_attention_cu_be831865_16425attention_bwd_cols_kernelIfLi64ELi128"
+        "EEEv14CUtensorMap_stS1_PKT_S4_S4_S4_PKfPfS7_iiiiiii\n"
+        "    16 bytes stack frame, 16 bytes spill stores, 16 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers, 16 bytes "
+        "cumulative stack size\n")
+    assert chip_smoke.ptxas_report(log) == [
+        ("attention_bwd_cols_kernel<f32, 64, 128>", 168, 16, 16)]
 
 
 def test_ptxas_report_names_the_kernels_past_c_64():

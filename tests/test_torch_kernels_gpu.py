@@ -149,8 +149,12 @@ def test_autograd_matches_reference(cuda):
         _close(a, x.grad, 1e-4, what)
 
 
-def test_backward_is_deterministic(cuda):
-    theta, phi, g = _inputs(SHAPES["D_B1"], torch.bfloat16, cuda)
+@pytest.mark.parametrize("name", ["D_B1", "D_B1_s3gan"])
+def test_backward_is_deterministic(cuda, name):
+    """Bitwise equal gradients from two calls, at the main path's D shape
+    and at S3GAN's D batch of 38 (full N and M), whose column pass takes
+    more blocks than one wave."""
+    theta, phi, g = _inputs(SHAPES[name], torch.bfloat16, cuda)
     out, mx, den = fa.attention_fwd(theta, phi, g)
     dout = torch.randn_like(out)
     first = fa.attention_bwd(theta, phi, g, dout, mx, den)

@@ -2,27 +2,31 @@
 """Where the attention kernels' time goes: time variants of
 compare_gan_torch/csrc/attention.cu with one part of the work removed.
 
-    python3 tools/attention_variants.py
+    python3 tools/attention_variants.py [SHAPE ...]
 
 Each variant is the source with named text substitutions (the results are
 wrong; only the times count): no_stage (no key/row tiles are copied into
-shared memory), no_exp (ex2 replaced by its argument), no_pv (the forward's
-O += P.g and the column pass's dg += P^T.dout products dropped), no_sync
-(no cp.async wait, proxy fence or barrier around a tile); and one that
-keeps the work, bf16_bwd_uncapped (the bf16 backward at Cg > 96 without
-the 128-register cap of `min_blocks`). nvcc builds all
-variants at once (`_build.compile_library`) into
-compare_gan_torch/_build/variants/; each is loaded
-with ctypes in place of the port's library, and the bf16 forward, row pass
-and column pass are timed at the two main-path shapes (batch 32), at
-S3GAN's D batch of 38, at BigGAN-deep-128's C = 32, Cg = 128 and at the
-512 px models' (48, 192) and (64, 256) (two column chunks each) with
-torch.profiler's device times. Prints one line per variant and shape.
-Needs a CUDA card.
+shared memory: the forward's cp.async and the backward producer's TMA,
+cp.async or plain fills), no_exp (ex2 replaced by its argument), no_pv
+(the forward's O += P.g and the column pass's dg += P^T.dout products
+dropped), no_scores (the backward's score products S and dP dropped),
+no_second (its products of dtheta's terms and of dphi dropped), no_sync
+(the forward's cp.async wait, proxy fence and barriers around a tile
+dropped; the backward keeps its waits, without which its producer would
+overrun the phases of the ring's barriers). nvcc builds all variants at
+once (`_build.compile_library`) into compare_gan_torch/_build/variants/;
+each is loaded with ctypes in place of the port's library, and the
+forward, row pass and column pass are timed in bf16 and f32 at the two
+main-path shapes (batch 32), at S3GAN's D batch of 38, at
+BigGAN-deep-128's C = 32, Cg = 128 and at the 512 px models' (48, 192)
+and (64, 256) (two column chunks each) with torch.profiler's device times
+(only the SHAPEs named, if any). Prints one line per variant, shape and
+type. Needs a CUDA card.
 """
 
 import concurrent.futures
 import ctypes
+import itertools
 import os
 import sys
 
@@ -36,28 +40,35 @@ SHAPES = {"G_B4": (32, 4096, 1024, 24, 96), "D_B1": (32, 4096, 1024, 12, 48),
 SUBSTITUTIONS = {
     "no_stage": [(
         "  auto issue = [&](int j, int buf) {\n",
-        "  auto issue = [&](int j, int buf) {\n    return;\n", 3)],
+        "  auto issue = [&](int j, int buf) {\n    return;\n", 1), (
+        "    auto fill = [&](int j, int s) {\n",
+        "    auto fill = [&](int j, int s) {\n      return;\n", 2)],
     "no_exp": [(
         "      s[nt][e] = ex2(fmaf(s[nt][e], kLog2e, nb[e >> 1]));",
         "      s[nt][e] = fmaf(s[nt][e], kLog2e, nb[e >> 1]);", 1), (
-        "ex2(fmaf(s[nt][e], kLog2e, nb[e >> 1])) * inv[e >> 1]",
-        "fmaf(s[nt][e], kLog2e, nb[e >> 1]) * inv[e >> 1]", 1), (
-        "ok ? ex2(fmaf(s[nt][e], kLog2e, nb)) * inv : 0.f;",
-        "ok ? fmaf(s[nt][e], kLog2e, nb) * inv : 0.f;", 1)],
+        "        const float p = ex2(fmaf(sc[nt][e], kLog2e, nb[e >> 1]));",
+        "        const float p = fmaf(sc[nt][e], kLog2e, nb[e >> 1]);", 1), (
+        "          const float p = ex2(fmaf(sc[nt][e], kLog2e, bv));",
+        "          const float p = fmaf(sc[nt][e], kLog2e, bv);", 1)],
     "no_pv": [(
-        "    wgmma_acc<kSplit, GP, 1>(&o[0][0], pa[kk],",
-        "    if (kk < 0) wgmma_acc<kSplit, GP, 1>(&o[0][0], pa[kk],", 1), (
-        """        mma<true, kSplit>(dgv[2 * np], pa, b0);
-        mma<true, kSplit>(dgv[2 * np + 1], pa, b1);""",
-        """        dgv[2 * np][0] += __uint_as_float(b0.h[0] ^ pa.h[0]);
-        dgv[2 * np + 1][0] += __uint_as_float(b1.h[1] ^ pa.l[3]);""", 1)],
-    # Not a removal: the bf16 backward at Cg > 96 (BigGAN-deep's
-    # <32, 128>) without the 128-register cap, as the f32 backward at
-    # Cg > 48 already runs.
-    "bf16_bwd_uncapped": [(
-        "  return CP > 32 || (split && backward && GP > 48) ? 1 : 2;",
-        "  return CP > 32 || (backward && GP > (split ? 48 : 96)) ? 1 : 2;",
+        "    wgmma_acc<kSplit, kSplit, GP, 1>(\n        &o[0][0], pa[kk],",
+        "    if (kk < 0) wgmma_acc<kSplit, kSplit, GP, 1>(\n"
+        "        &o[0][0], pa[kk],", 1), (
+        "      wgmma_acc<kSplit, kSplit, GP, 1>(&dgv[0][0], pa[kk],",
+        "      if (kk < 0) wgmma_acc<kSplit, kSplit, GP, 1>(&dgv[0][0], "
+        "pa[kk],",
         1)],
+    # The backward's score products S, dP (S^T, dP^T in the column pass)
+    # dropped, and its products of the rows' (keys') own outputs:
+    # (P*dP).phi and P.phi in the row pass, dS^T.theta in the column pass.
+    "no_scores": [(
+        "      wgmma_ss<kSplit>(&sc[0][0], ",
+        "      if (kc < 0) wgmma_ss<kSplit>(&sc[0][0], ", 2), (
+        "      wgmma_ss<kSplit>(&dp[0][0], ",
+        "      if (kc < 0) wgmma_ss<kSplit>(&dp[0][0], ", 2)],
+    "no_second": [(
+        "      wgmma_acc<true, kSplit, CP, 1>(",
+        "      if (kk < 0) wgmma_acc<true, kSplit, CP, 1>(", 3)],
     "no_sync": [(
         """      cp_async_wait<1>();
       fence_proxy_async();
@@ -108,14 +119,17 @@ def main():
 
     print(torch.cuda.get_device_name(0))
     dev = torch.device("cuda")
-    for shape, (b, n, m, c, cg) in SHAPES.items():
+    shapes = {k: v for k, v in SHAPES.items()
+              if k in sys.argv[1:] or len(sys.argv) == 1}
+    for (shape, (b, n, m, c, cg)), dtype in itertools.product(
+            shapes.items(), (torch.bfloat16, torch.float32)):
         gen = torch.Generator(device=dev).manual_seed(0)
         theta = (torch.randn(b, n, c, device=dev, generator=gen)
-                 * c ** -0.25).bfloat16()
+                 * c ** -0.25).to(dtype)
         phi = (torch.randn(b, m, c, device=dev, generator=gen)
-               * c ** -0.25).bfloat16()
-        g = torch.randn(b, m, cg, device=dev, generator=gen).bfloat16()
-        dout = torch.randn(b, n, cg, device=dev, generator=gen).bfloat16()
+               * c ** -0.25).to(dtype)
+        g = torch.randn(b, m, cg, device=dev, generator=gen).to(dtype)
+        dout = torch.randn(b, n, cg, device=dev, generator=gen).to(dtype)
         _, mx, den = fa.attention_fwd_plain(theta, phi, g)
         for name, lib in libs.items():
             _build._lib = lib
@@ -134,7 +148,8 @@ def main():
                     if f"attention_{'bwd_' if kern != 'fwd' else ''}{kern}" \
                             in a.key:
                         us[kern] = a.device_time_total / a.count
-            print(f"{shape} {name:9s} fwd {us['fwd']:8.1f} us  rows "
+            print(f"{shape} {str(dtype)[6:]} {name:9s} fwd {us['fwd']:8.1f} us"
+                  f"  rows "
                   f"{us['rows']:8.1f} us  cols {us['cols']:8.1f} us",
                   flush=True)
     _build._lib = None
